@@ -1,0 +1,77 @@
+"""``gemm_update``: C <- C + alpha * A @ B on the card, in place on C.
+
+Port of ``repro/kernels/gemm.py`` (``fit_block`` ``:24``, ``gemm_update``
+``:82-111``). The kernel is ``csrc/gemm_update.cu``: it replaces the TPU
+kernel ``repro/kernels/gemm.py:gemm_update``; its note there says what bounds
+it on an H100 (device memory at HPL's shapes) and how its design answers.
+Its plain version is :func:`repro_torch.kernels.ref.gemm_update`.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+_ENTRY = {torch.float32: "repro_gemm_update_f32",
+          torch.bfloat16: "repro_gemm_update_bf16"}
+
+
+def fit_block(size: int, pref: int) -> int:
+    """Largest divisor of ``size`` that is <= pref (block shapes must tile)."""
+    b = min(pref, size)
+    while size % b:
+        b -= 1
+    return b
+
+
+def row_stride(t: torch.Tensor, name: str) -> int:
+    """The leading dimension of a row-major 2-D view (unit column stride);
+    raises for any other layout, which the caller must copy first."""
+    if t.dim() != 2:
+        raise ValueError(f"{name} must be 2-D, got shape {tuple(t.shape)}")
+    if t.shape[1] > 1 and t.stride(1) != 1:
+        raise ValueError(f"{name} needs unit column stride, got strides "
+                         f"{t.stride()}; pass a contiguous copy")
+    return max(t.stride(0), t.shape[1], 1)
+
+
+def check_cuda(*named) -> None:
+    dev = named[0][1].device
+    for name, t in named:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name} must lie on the CUDA device {dev}, "
+                             f"got {t.device}")
+
+
+def gemm_update(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *,
+                alpha: float = -1.0) -> torch.Tensor:
+    """Launch the kernel: ``c += alpha * a @ b`` in place; returns ``c``.
+
+    ``a`` (M, K), ``b`` (K, N) and ``c`` (M, N) are fp32 or bf16 CUDA
+    tensors of one dtype, each row-major with any row stride."""
+    check_cuda(("c", c), ("a", a), ("b", b))
+    M, K = a.shape
+    K2, N = b.shape
+    if K != K2 or tuple(c.shape) != (M, N):
+        raise ValueError(f"shapes c{tuple(c.shape)} a{tuple(a.shape)} "
+                         f"b{tuple(b.shape)} do not chain")
+    if not (c.dtype == a.dtype == b.dtype) or c.dtype not in _ENTRY:
+        raise TypeError(f"gemm_update takes one dtype of {list(_ENTRY)}, got "
+                        f"{c.dtype}, {a.dtype}, {b.dtype}")
+    lda, ldb, ldc = row_stride(a, "a"), row_stride(b, "b"), row_stride(c, "c")
+    fn = getattr(_build.load("gemm_update"), _ENTRY[c.dtype])
+    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    _build.check(fn(a.data_ptr(), lda, b.data_ptr(), ldb, c.data_ptr(), ldc,
+                    M, N, K, float(alpha),
+                    torch.cuda.current_stream(c.device).cuda_stream),
+                 "gemm_update")
+    gemm_update.launches += 1
+    return c
+
+
+gemm_update.launches = 0

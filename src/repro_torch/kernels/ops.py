@@ -1,0 +1,75 @@
+"""Public kernel entry points, with the reference's names and keywords.
+
+Port of ``repro/kernels/ops.py:35-60``. The tensor's device picks the
+implementation, in place of the reference's ``_interp`` flag (``ops.py:25``):
+a CUDA tensor goes to the hand-written kernel and a CPU tensor to the plain
+version in :mod:`repro_torch.kernels.ref`. Any other device raises. There
+is no fallback: a kernel that fails to build or launch raises.
+
+``gemm_update`` updates ``c`` in place on both routes and returns it (the
+reference donates ``c`` and aliases the output to it). ``bm``/``bn``/``bk``
+of ``gemm_update`` are accepted for the reference's signature; the CUDA
+tile is fixed at compile time, and no result depends on the tiling.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels import gemm as _gemm
+from repro_torch.kernels import lu as _lu
+from repro_torch.kernels import ref
+from repro_torch.kernels.gemm import fit_block  # noqa: F401  (public)
+
+KERNELS = ("gemm_update", "lu_factor_block", "trsm_lower_left",
+           "trsm_upper_right")
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device {t.device}")
+
+
+def gemm_update(c, a, b, *, alpha=-1.0, bm=256, bn=256, bk=256):
+    if _on_card(c):
+        return _gemm.gemm_update(c, a, b, alpha=alpha)
+    return c.copy_(ref.gemm_update(c, a, b, alpha=alpha))
+
+
+def lu_factor_block(a):
+    if _on_card(a):
+        return _lu.lu_factor_block(a)
+    return ref.lu_factor_block(a)
+
+
+def trsm_lower_left(lu, b, *, bn=256):
+    if _on_card(b):
+        return _lu.trsm_lower_left(lu, b, bn=bn)
+    return ref.trsm_lower_left(lu, b)
+
+
+def trsm_upper_right(lu, b, *, bm=256):
+    if _on_card(b):
+        return _lu.trsm_upper_right(lu, b, bm=bm)
+    return ref.trsm_upper_right(lu, b)
+
+
+def _wrappers():
+    return {"gemm_update": _gemm.gemm_update,
+            "lu_factor_block": _lu.lu_factor_block,
+            "trsm_lower_left": _lu.trsm_lower_left,
+            "trsm_upper_right": _lu.trsm_upper_right}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches so far, by kernel (plain-version calls not counted)."""
+    return {name: w.launches for name, w in _wrappers().items()}
+
+
+def reset_launch_counts() -> None:
+    for w in _wrappers().values():
+        w.launches = 0
