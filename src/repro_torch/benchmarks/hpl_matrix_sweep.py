@@ -12,13 +12,10 @@ the root of the checkout.
 from __future__ import annotations
 
 import argparse
-import json
-from pathlib import Path
 
+from repro_torch.benchmarks.common import save_result
 from repro_torch.core.hpcc import device_name, resolve_device
 from repro_torch.core.hpl_blocked import run_hpl_single
-
-RESULTS = Path(__file__).resolve().parents[3] / "results" / "bench"
 
 
 def main(quick: bool = False, device=None) -> dict:
@@ -40,9 +37,7 @@ def main(quick: bool = False, device=None) -> dict:
                 "seconds": res.times["best"]}
             if b == 64:
                 record["single_curve_b64"][n] = res.metric
-    RESULTS.mkdir(parents=True, exist_ok=True)
-    (RESULTS / "torch_hpl_matrix_sweep.json").write_text(
-        json.dumps(record, indent=1))
+    save_result("hpl_matrix_sweep", record)
     return record
 
 

@@ -1,7 +1,8 @@
 """Collective engine: named communication schedules behind one API.
 
 Port of ``repro/comm/engine.py`` (registry ``:95-145``, bcast schedules
-``:191-289``, ``CollectiveEngine`` ``:597-786``). Every collective op has
+``:191-289``, ring_exchange ``:510-528``, grid_transpose ``:536-588``,
+``CollectiveEngine`` ``:597-1000``). Every collective op has
 named implementations ("schedules") registered against it, and a
 :class:`CollectiveEngine` selects one per op from ``(CommunicationType,
 schedule name)``. Callers hold an engine and never branch on comm or
@@ -16,9 +17,13 @@ bits. On a size-1 axis every schedule is the identity and touches no
 process group.
 
 Ported so far: ``bcast`` with ``chain``, ``native``, ``staged``, ``ring2d``
-and ``chain_rooted``. The other ops raise :class:`NotImplementedError`
-naming the ROADMAP item that ports them. Until the cost model is ported
-(ROADMAP A8), ``auto`` resolves to the static per-op default.
+and ``chain_rooted``; ``ring_exchange`` with ``direct``/``chain`` and
+``staged``; ``grid_transpose`` with ``direct``/``chain``, ``staged`` and
+``ring2d``, over the flattened torus (``ProcessMesh.grid``); and
+``pipelined`` for ``bcast`` and ``grid_transpose``. The other ops raise
+:class:`NotImplementedError` naming the ROADMAP item that ports them. Until
+the cost model is ported (ROADMAP A8), ``auto`` resolves to the static
+per-op default and ``nchunks="auto"`` to 1.
 """
 from __future__ import annotations
 
@@ -50,8 +55,6 @@ _AUTO = {
 _PORTED_BY = {
     "all_to_all_tiles": "A10 (routed RandomAccess) and A11 (MoE)",
     "allreduce": "A7 (allreduce family)",
-    "ring_exchange": "A6 (b_eff)",
-    "grid_transpose": "A5 (PTRANS)",
 }
 
 
@@ -102,6 +105,17 @@ def _ring_shift(x: torch.Tensor, ax, shift: int = 1) -> torch.Tensor:
                       group=ax.group),
            dist.P2POp(dist.irecv, recv, ax.global_rank(ax.index - shift),
                       group=ax.group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return recv
+
+
+def _swap(x: torch.Tensor, ax, peer: int) -> torch.Tensor:
+    """Send ``x`` to global rank ``peer`` and return what it sent back."""
+    x = x.contiguous()
+    recv = torch.empty_like(x)
+    ops = [dist.P2POp(dist.isend, x, peer, group=ax.group),
+           dist.P2POp(dist.irecv, recv, peer, group=ax.group)]
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return recv
@@ -218,6 +232,103 @@ def _bcast_ring2d(engine, val, ax, src):
 
 
 # ---------------------------------------------------------------------------
+# ring_exchange schedules (b_eff)
+# ---------------------------------------------------------------------------
+
+
+@register_schedule("ring_exchange", "direct")
+@register_schedule("ring_exchange", "chain")
+def _exchange_direct(engine, x_fwd, x_bwd, ax):
+    # one hop in each direction, both posted together (b_eff's message
+    # pattern): the left neighbour's fwd buffer and the right neighbour's
+    # bwd buffer. Per peer, sends and receives match in posting order, so
+    # on a size-2 ring (left == right) fwd still lands in recv_l.
+    if ax.size == 1:
+        return x_fwd, x_bwd
+    x_fwd, x_bwd = x_fwd.contiguous(), x_bwd.contiguous()
+    recv_l, recv_r = torch.empty_like(x_fwd), torch.empty_like(x_bwd)
+    right = ax.global_rank(ax.index + 1)
+    left = ax.global_rank(ax.index - 1)
+    ops = [dist.P2POp(dist.isend, x_fwd, right, group=ax.group),
+           dist.P2POp(dist.irecv, recv_l, left, group=ax.group),
+           dist.P2POp(dist.isend, x_bwd, left, group=ax.group),
+           dist.P2POp(dist.irecv, recv_r, right, group=ax.group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return recv_l, recv_r
+
+
+@register_schedule("ring_exchange", "staged")
+def _exchange_staged(engine, x_fwd, x_bwd, ax):
+    # both buffers transit the staging domain (all_gather + select)
+    if ax.size == 1:
+        return x_fwd, x_bwd
+    x_fwd, x_bwd = x_fwd.contiguous(), x_bwd.contiguous()
+    all_f = [torch.empty_like(x_fwd) for _ in range(ax.size)]
+    all_b = [torch.empty_like(x_bwd) for _ in range(ax.size)]
+    dist.all_gather(all_f, x_fwd, group=ax.group)
+    dist.all_gather(all_b, x_bwd, group=ax.group)
+    return all_f[(ax.index - 1) % ax.size], all_b[(ax.index + 1) % ax.size]
+
+
+# ---------------------------------------------------------------------------
+# grid_transpose schedules (PTRANS partner exchange)
+# ---------------------------------------------------------------------------
+
+
+@register_schedule("grid_transpose", "direct")
+@register_schedule("grid_transpose", "chain")
+def _transpose_direct(engine, x, grid, pg):
+    # point-to-point swap with the grid-transpose partner (c, r) (paper
+    # §2.2.2); a diagonal rank is its own partner and keeps a local copy
+    if pg == 1:
+        return x
+    r, c = divmod(grid.index, pg)
+    if r == c:
+        return x.clone()
+    return _swap(x, grid, grid.global_rank(c * pg + r))
+
+
+@register_schedule("grid_transpose", "staged")
+def _transpose_staged(engine, x, grid, pg):
+    # all_gather over the full grid + local selection: every block transits
+    # the staging domain (paper §2.2.1 via PCIe+MPI)
+    if pg == 1:
+        return x
+    r, c = divmod(grid.index, pg)
+    x = x.contiguous()
+    allx = [torch.empty_like(x) for _ in range(grid.size)]
+    dist.all_gather(allx, x, group=grid.group)
+    return allx[c * pg + r]
+
+
+@register_schedule("grid_transpose", "ring2d")
+def _transpose_ring2d(engine, x, grid, pg):
+    # dimension-ordered two-phase torus route (paper Fig. 8): the block from
+    # (r, c) reaches its partner (c, r) over row links only, then column
+    # links only, relayed by the diagonal rank. Phase 1: ring all-gather
+    # along the grid row (axis "cols"), so every rank holds its whole grid
+    # row. Phase 2: the diagonal rank (c, c) chain-forwards its stack down
+    # grid column c (axis "rows"); rank (r, c) keeps the block of (c, r).
+    if pg == 1:
+        return x
+    r, c = divmod(grid.index, pg)
+    row_ax, col_ax = (engine.mesh.axis(name) for name in grid.name)
+    stack = x.new_empty((pg,) + tuple(x.shape))
+    stack[c] = x
+    cur = x
+    for s in range(pg - 1):
+        cur = _ring_shift(cur, col_ax, +1)  # now from column (c - 1 - s)
+        stack[(c - 1 - s) % pg] = cur
+    out = stack
+    for _ in range(pg - 1):
+        nxt = _ring_shift(out, row_ax, +1)
+        if r != c:
+            out = nxt
+    return out[r]
+
+
+# ---------------------------------------------------------------------------
 # the engine
 # ---------------------------------------------------------------------------
 
@@ -288,14 +399,24 @@ class CollectiveEngine:
         return _AUTO[op]
 
     def _axis(self, axis):
-        if isinstance(axis, (tuple, list)):
-            raise NotImplementedError(
-                "tuple axes arrive with the ops that use them "
-                "(ROADMAP A5, A7)")
+        """The :class:`MeshAxis` of ``axis``: a name, or the tuple of both
+        torus axes for the flattened grid."""
         if self.mesh is None:
             raise ValueError("the engine has no mesh to communicate over; "
                              "build it with CollectiveEngine.for_mesh")
         return self.mesh.axis(axis)  # raises KeyError with the known axes
+
+    def pipeline_chunks(self, op: str, *, nbytes: Optional[int] = None,
+                        axis=None, schedule: Optional[str] = None,
+                        callsite: Optional[str] = None) -> int:
+        """The chunk count ``pipelined`` resolves ``nchunks="auto"`` to: 1
+        (monolithic), as the reference resolves it when its cost model has
+        nothing to price, until ``best_nchunks`` is ported (ROADMAP A8).
+        The schedule is resolved all the same, so an unported op or an
+        unknown schedule raises here as it will in the exchange."""
+        self.schedule_for(op, schedule, nbytes=nbytes, axis=axis,
+                          callsite=callsite)
+        return 1
 
     # -- ops -----------------------------------------------------------------
 
@@ -317,8 +438,93 @@ class CollectiveEngine:
     def allreduce(self, *args, **kw):
         raise _not_ported("allreduce")
 
-    def ring_exchange(self, *args, **kw):
-        raise _not_ported("ring_exchange")
+    def ring_exchange(self, x_fwd: torch.Tensor, x_bwd: torch.Tensor,
+                      axis: str, *, schedule: Optional[str] = None,
+                      callsite: Optional[str] = None):
+        """Bidirectional neighbour exchange (b_eff pattern): every rank
+        sends ``x_fwd`` to index +1 and ``x_bwd`` to index -1 of ``axis``.
+        Returns ``(recv_from_left, recv_from_right)``."""
+        ax = self._axis(axis)
+        name = self.schedule_for("ring_exchange", schedule,
+                                 nbytes=x_fwd.numel() * x_fwd.element_size(),
+                                 axis=axis, callsite=callsite)
+        return _REGISTRY["ring_exchange"][name](self, x_fwd, x_bwd, ax)
 
-    def grid_transpose(self, *args, **kw):
-        raise _not_ported("grid_transpose")
+    def grid_transpose(self, x: torch.Tensor, axes, pg: int, *,
+                       schedule: Optional[str] = None,
+                       callsite: Optional[str] = None) -> torch.Tensor:
+        """Exchange with the (r, c) <-> (c, r) partner on the ``pg x pg``
+        torus flattened over ``axes`` (``("rows", "cols")``; PTRANS
+        §2.2.2). Every rank passes a tensor of one shape and dtype."""
+        grid = self._axis(tuple(axes))
+        if grid.size != pg * pg:
+            raise ValueError(f"grid of {grid.size} ranks is not {pg}x{pg}")
+        name = self.schedule_for("grid_transpose", schedule,
+                                 nbytes=x.numel() * x.element_size(),
+                                 axis=tuple(axes), callsite=callsite)
+        return _REGISTRY["grid_transpose"][name](self, x, grid, int(pg))
+
+    # -- pipelined transform ------------------------------------------------
+
+    def pipelined(self, op: str, x: torch.Tensor, axis, *, nchunks="auto",
+                  split_axis: int = 0, concat_axis: Optional[int] = None,
+                  consume: Optional[Callable] = None,
+                  schedule: Optional[str] = None,
+                  callsite: Optional[str] = None, **opkw) -> torch.Tensor:
+        """Software-pipeline a single-payload collective (reference
+        ``engine.py:903-1000``).
+
+        ``x`` is split into ``nchunks`` near-equal strips along
+        ``split_axis``; each strip goes through ``op`` on its own, and
+        ``consume(strip_out, start)`` (if given) is applied to each strip as
+        it lands. The results are concatenated along ``concat_axis``
+        (default ``split_axis``). ``nchunks`` is clamped to the strips
+        available; ``"auto"`` resolves through :meth:`pipeline_chunks`.
+        Every chunking equals the monolithic op bit for bit, since chunk
+        boundaries only partition the payload. The schedule is resolved
+        once, at the full payload.
+
+        Extra operands ride ``opkw``: ``src=`` for bcast, ``pg=`` for
+        grid_transpose. ``allreduce`` and ``all_to_all_tiles`` arrive with
+        their ops (ROADMAP A7, A10)."""
+        if op in ("allreduce", "all_to_all_tiles"):
+            raise NotImplementedError(
+                f"pipelined({op!r}) is not ported yet: ROADMAP A7 "
+                "(allreduce) and A10 (all_to_all_tiles)")
+        supported = ("bcast", "grid_transpose")
+        if op not in supported:
+            raise ValueError(f"pipelined supports single-payload ops "
+                             f"{supported}, got {op!r}")
+        required = {"bcast": "src", "grid_transpose": "pg"}[op]
+        if required not in opkw:
+            raise ValueError(f"pipelined({op!r}) requires the {required}= "
+                             "operand")
+        size = x.shape[split_axis]
+        nbytes = x.numel() * x.element_size()
+        if nchunks == "auto":
+            nchunks = self.pipeline_chunks(op, nbytes=nbytes, axis=axis,
+                                           schedule=schedule,
+                                           callsite=callsite)
+        resolved = self.schedule_for(op, schedule, nbytes=nbytes, axis=axis,
+                                     callsite=callsite)
+        s = max(min(int(nchunks), size), 1)
+        base, extra = divmod(size, s)
+        outs, start = [], 0
+        for i in range(s):
+            stop = start + base + (1 if i < extra else 0)
+            strip = x.narrow(split_axis, start, stop - start)
+            if op == "bcast":
+                out = self.bcast(strip, axis, opkw["src"], schedule=resolved,
+                                 callsite=callsite)
+            else:
+                out = self.grid_transpose(strip, axis, opkw["pg"],
+                                          schedule=resolved,
+                                          callsite=callsite)
+            if consume is not None:
+                out = consume(out, start)
+            outs.append(out)
+            start = stop
+        if len(outs) == 1:
+            return outs[0]
+        cat = split_axis if concat_axis is None else concat_axis
+        return torch.cat(outs, dim=cat)

@@ -41,7 +41,6 @@ from typing import Tuple
 import numpy as np
 import scipy.linalg
 import torch
-import torch.distributed as dist
 
 from repro_torch.comm.callsites import HPL_BLOCK, HPL_PANEL
 from repro_torch.comm.engine import CollectiveEngine
@@ -49,11 +48,12 @@ from repro_torch.comm.types import CommunicationType
 from repro_torch.core.hpcc import (BenchResult, device_name, register,
                                    resolve_device, timeit)
 from repro_torch.core.models import hpl_flops
-from repro_torch.core.ptrans import distribute_cyclic, undistribute_cyclic
+from repro_torch.core.ptrans import (distribute_cyclic, from_reference,
+                                    to_reference, undistribute_cyclic)
 from repro_torch.kernels.ops import (gemm_update, launch_counts,
                                      lu_factor_block, trsm_lower_left,
                                      trsm_upper_right)
-from repro_torch.launch.mesh import single_rank_mesh, world
+from repro_torch.launch.mesh import single_rank_mesh
 
 
 # ---------------------------------------------------------------------------
@@ -83,32 +83,6 @@ def normalized_residual(a: np.ndarray, x: np.ndarray, b: np.ndarray) -> float:
     eps = np.finfo(np.float32).eps
     r = np.max(np.abs(a @ x - b))
     return float(r / (a.shape[0] * np.max(np.abs(b)) * eps))
-
-
-# ---------------------------------------------------------------------------
-# the reference's block-cyclic stack <-> this rank's local matrix
-# ---------------------------------------------------------------------------
-
-
-def from_reference(shards_np: np.ndarray, device=None) -> torch.Tensor:
-    """This rank's local (m, m) matrix from the reference's (pg*pg, m, m)
-    block-cyclic stack (``np.asarray`` of the JAX array, or
-    :func:`distribute_cyclic`). Rank ``g`` holds entry ``g`` — grid
-    coordinate (g // pg, g % pg), as :func:`make_torus_mesh` lays it out."""
-    rank, _ = world()
-    local = np.ascontiguousarray(shards_np[rank], dtype=np.float32)
-    return torch.from_numpy(local.copy()).to(resolve_device(device))
-
-
-def to_reference(local: torch.Tensor) -> np.ndarray:
-    """The (pg*pg, m, m) stack of every rank's local matrix, in rank order
-    (a collective: every rank of the default group calls it)."""
-    _, size = world()
-    if size == 1:
-        return local.detach().cpu().numpy()[None]
-    parts = [torch.empty_like(local) for _ in range(size)]
-    dist.all_gather(parts, local.contiguous())
-    return torch.stack(parts).cpu().numpy()
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,13 @@
-"""``gemm_update``: C <- C + alpha * A @ B on the card, in place on C.
+"""``gemm_update`` (C <- C + alpha * A @ B, in place on C) and ``matmul``
+(C = A @ B) on the card.
 
-Port of ``repro/kernels/gemm.py`` (``fit_block`` ``:24``, ``gemm_update``
-``:82-111``). The kernel is ``csrc/gemm_update.cu``: it replaces the TPU
-kernel ``repro/kernels/gemm.py:gemm_update``; its note there says what bounds
-it on an H100 (device memory at HPL's shapes) and how its design answers.
-Its plain version is :func:`repro_torch.kernels.ref.gemm_update`.
+Port of ``repro/kernels/gemm.py`` (``fit_block`` ``:24``, ``matmul``
+``:45``, ``gemm_update`` ``:82-111``). Both kernels are one template in
+``csrc/gemm_update.cu``: they replace the TPU kernels
+``repro/kernels/gemm.py:gemm_update`` and ``:matmul``; the note there says
+what bounds them on an H100 (device memory at HPL's shapes, operations for
+the legacy GEMM) and how the design answers. Their plain versions are
+:func:`repro_torch.kernels.ref.gemm_update` and ``ref.matmul``.
 """
 from __future__ import annotations
 
@@ -19,6 +22,10 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
              ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
 _ENTRY = {torch.float32: "repro_gemm_update_f32",
           torch.bfloat16: "repro_gemm_update_bf16"}
+_MATMUL_ARGTYPES = _ARGTYPES[:9] + [ctypes.c_void_p]
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_MATMUL_ENTRY = {(ti, to): f"repro_matmul_{si}_{so}"
+                 for ti, si in _SUFFIX.items() for to, so in _SUFFIX.items()}
 
 
 def fit_block(size: int, pref: int) -> int:
@@ -48,6 +55,13 @@ def check_cuda(*named) -> None:
                              f"got {t.device}")
 
 
+def _chain(a: torch.Tensor, b: torch.Tensor):
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"shapes a{tuple(a.shape)} b{tuple(b.shape)} do "
+                         "not chain")
+    return a.shape[0], a.shape[1], b.shape[1]
+
+
 def gemm_update(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *,
                 alpha: float = -1.0) -> torch.Tensor:
     """Launch the kernel: ``c += alpha * a @ b`` in place; returns ``c``.
@@ -55,9 +69,8 @@ def gemm_update(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *,
     ``a`` (M, K), ``b`` (K, N) and ``c`` (M, N) are fp32 or bf16 CUDA
     tensors of one dtype, each row-major with any row stride."""
     check_cuda(("c", c), ("a", a), ("b", b))
-    M, K = a.shape
-    K2, N = b.shape
-    if K != K2 or tuple(c.shape) != (M, N):
+    M, K, N = _chain(a, b)
+    if tuple(c.shape) != (M, N):
         raise ValueError(f"shapes c{tuple(c.shape)} a{tuple(a.shape)} "
                          f"b{tuple(b.shape)} do not chain")
     if not (c.dtype == a.dtype == b.dtype) or c.dtype not in _ENTRY:
@@ -74,4 +87,30 @@ def gemm_update(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *,
     return c
 
 
+def matmul(a: torch.Tensor, b: torch.Tensor, *,
+           out_dtype=None) -> torch.Tensor:
+    """Launch the kernel: a new contiguous C (M, N) = A @ B, fp32 sums cast
+    to ``out_dtype`` (default ``a``'s dtype).
+
+    ``a`` (M, K) and ``b`` (K, N) are fp32 or bf16 CUDA tensors of one
+    dtype, each row-major with any row stride; any M, N and K."""
+    check_cuda(("a", a), ("b", b))
+    M, K, N = _chain(a, b)
+    out_dtype = out_dtype or a.dtype
+    if a.dtype != b.dtype or (a.dtype, out_dtype) not in _MATMUL_ENTRY:
+        raise TypeError(f"matmul takes inputs of one dtype of "
+                        f"{list(_SUFFIX)} and such an out_dtype, got "
+                        f"{a.dtype}, {b.dtype} -> {out_dtype}")
+    out = torch.empty((M, N), dtype=out_dtype, device=a.device)
+    fn = getattr(_build.load("gemm_update"), _MATMUL_ENTRY[a.dtype, out_dtype])
+    fn.argtypes, fn.restype = _MATMUL_ARGTYPES, ctypes.c_int
+    _build.check(fn(a.data_ptr(), row_stride(a, "a"), b.data_ptr(),
+                    row_stride(b, "b"), out.data_ptr(), max(N, 1), M, N, K,
+                    torch.cuda.current_stream(a.device).cuda_stream),
+                 "matmul")
+    matmul.launches += 1
+    return out
+
+
 gemm_update.launches = 0
+matmul.launches = 0

@@ -7,9 +7,11 @@ version in :mod:`repro_torch.kernels.ref`. Any other device raises. There
 is no fallback: a kernel that fails to build or launch raises.
 
 ``gemm_update`` updates ``c`` in place on both routes and returns it (the
-reference donates ``c`` and aliases the output to it). ``bm``/``bn``/``bk``
-of ``gemm_update`` are accepted for the reference's signature; the CUDA
-tile is fixed at compile time, and no result depends on the tiling.
+reference donates ``c`` and aliases the output to it). The block-size
+keywords (``bm``/``bn``/``bk``, ``block``) are accepted for the reference's
+signatures; the CUDA tiles are fixed at compile time, and no result depends
+on the tiling. The STREAM ops raise for a size that is not a multiple of
+128 on both routes, as the reference asserts.
 """
 from __future__ import annotations
 
@@ -20,10 +22,16 @@ import torch
 from repro_torch.kernels import gemm as _gemm
 from repro_torch.kernels import lu as _lu
 from repro_torch.kernels import ref
+from repro_torch.kernels import stream as _stream
+from repro_torch.kernels import transpose as _transpose
 from repro_torch.kernels.gemm import fit_block  # noqa: F401  (public)
 
 KERNELS = ("gemm_update", "lu_factor_block", "trsm_lower_left",
-           "trsm_upper_right")
+           "trsm_upper_right", "transpose_add", "stream_copy",
+           "stream_scale", "stream_add", "stream_triad", "matmul")
+# the kernels each benchmark's main path launches
+HPL_KERNELS = KERNELS[:4]
+STREAM_KERNELS = KERNELS[5:9]
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -58,11 +66,57 @@ def trsm_upper_right(lu, b, *, bm=256):
     return ref.trsm_upper_right(lu, b)
 
 
+def matmul(a, b, *, bm=256, bn=256, bk=256, out_dtype=None):
+    if _on_card(a):
+        return _gemm.matmul(a, b, out_dtype=out_dtype)
+    return ref.matmul(a, b, out_dtype=out_dtype)
+
+
+def transpose_add(a, b, *, block=256):
+    if _on_card(b):
+        return _transpose.transpose_add(a, b)
+    return ref.transpose_add(a, b)
+
+
+def stream_copy(a):
+    if _on_card(a):
+        return _stream.stream_copy(a)
+    _stream.check_size(a)
+    return ref.stream_copy(a)
+
+
+def stream_scale(c, alpha):
+    if _on_card(c):
+        return _stream.stream_scale(c, alpha)
+    _stream.check_size(c)
+    return ref.stream_scale(c, alpha)
+
+
+def stream_add(a, b):
+    if _on_card(a):
+        return _stream.stream_add(a, b)
+    _stream.check_size(a)
+    return ref.stream_add(a, b)
+
+
+def stream_triad(b, c, alpha):
+    if _on_card(b):
+        return _stream.stream_triad(b, c, alpha)
+    _stream.check_size(b)
+    return ref.stream_triad(b, c, alpha)
+
+
 def _wrappers():
     return {"gemm_update": _gemm.gemm_update,
             "lu_factor_block": _lu.lu_factor_block,
             "trsm_lower_left": _lu.trsm_lower_left,
-            "trsm_upper_right": _lu.trsm_upper_right}
+            "trsm_upper_right": _lu.trsm_upper_right,
+            "transpose_add": _transpose.transpose_add,
+            "stream_copy": _stream.stream_copy,
+            "stream_scale": _stream.stream_scale,
+            "stream_add": _stream.stream_add,
+            "stream_triad": _stream.stream_triad,
+            "matmul": _gemm.matmul}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -8,6 +8,11 @@ on it and the process group of the ranks along it. Global rank ``g`` sits at
 grid coordinate ``(g // pg, g % pg)`` of a ``pg x pg`` torus, the row-major
 flattening the reference's ``P(("rows", "cols"))`` stack uses.
 
+A torus also carries the flattened grid, :attr:`ProcessMesh.grid`: one
+axis over every rank in row-major order (global rank ``r*pg + c``), which
+the reference addresses as the tuple axis ``("rows", "cols")`` (PTRANS's
+partner exchange).
+
 Nothing here touches ``torch.distributed`` at import time. The single-rank
 1x1 mesh needs no process group at all: every axis has size 1 and every
 collective over it is the identity.
@@ -36,7 +41,7 @@ class MeshAxis:
     ``ranks`` lists the global ranks along the axis in axis-index order;
     ``group`` is their process group (``None`` for a size-1 axis, which
     never communicates)."""
-    name: str
+    name: object              # a str, or a tuple of names for the grid
     size: int
     index: int
     ranks: Tuple[int, ...]
@@ -48,14 +53,24 @@ class MeshAxis:
 
 @dataclass(frozen=True)
 class ProcessMesh:
+    """The named axes of this rank's mesh. ``grid`` is the flattened torus
+    (both axes, row-major), ``None`` on a mesh that is not a torus."""
     axes: Tuple[MeshAxis, ...]
     rank: int = 0
+    grid: Optional[MeshAxis] = None
 
     @property
     def shape(self) -> Dict[str, int]:
         return {a.name: a.size for a in self.axes}
 
-    def axis(self, name: str) -> MeshAxis:
+    def axis(self, name) -> MeshAxis:
+        """The axis ``name``; a tuple of both torus axes, in mesh order,
+        names the flattened grid."""
+        if isinstance(name, (tuple, list)):
+            if self.grid is None or tuple(name) != self.grid.name:
+                raise KeyError(f"axes {tuple(name)!r} do not name the "
+                               f"flattened torus of mesh {list(self.shape)}")
+            return self.grid
         for ax in self.axes:
             if ax.name == name:
                 return ax
@@ -75,7 +90,9 @@ def world() -> Tuple[int, int]:
 
 def single_rank_mesh(names: Sequence[str] = ("rows", "cols")) -> ProcessMesh:
     """The 1 x 1 (or size-1 ring) mesh of one process; no process group."""
-    return ProcessMesh(axes=tuple(MeshAxis(n, 1, 0, (0,)) for n in names))
+    grid = MeshAxis(tuple(names), 1, 0, (0,)) if len(names) == 2 else None
+    return ProcessMesh(axes=tuple(MeshAxis(n, 1, 0, (0,)) for n in names),
+                       grid=grid)
 
 
 def _group(ranks):
@@ -103,9 +120,12 @@ def make_torus_mesh(pg: Optional[int] = None,
     row_groups = [tuple(i * pg + j for i in range(pg)) for j in range(pg)]
     col_pg = [_group(g) for g in col_groups]
     row_pg = [_group(g) for g in row_groups]
+    # the flattened grid is the whole world: its group is the default one
     return ProcessMesh(axes=(
         MeshAxis(row_name, pg, r, row_groups[c], row_pg[c]),
-        MeshAxis(col_name, pg, c, col_groups[r], col_pg[r])), rank=rank)
+        MeshAxis(col_name, pg, c, col_groups[r], col_pg[r])), rank=rank,
+        grid=MeshAxis(tuple(names), size, rank, tuple(range(size)),
+                      dist.group.WORLD))
 
 
 def make_ring_mesh(name: str = "x") -> ProcessMesh:
@@ -113,9 +133,8 @@ def make_ring_mesh(name: str = "x") -> ProcessMesh:
     rank, size = world()
     if size == 1:
         return single_rank_mesh((name,))
-    ranks = tuple(range(size))
-    return ProcessMesh(axes=(MeshAxis(name, size, rank, ranks,
-                                      _group(ranks)),), rank=rank)
+    return ProcessMesh(axes=(MeshAxis(name, size, rank, tuple(range(size)),
+                                      dist.group.WORLD),), rank=rank)
 
 
 # ---------------------------------------------------------------------------

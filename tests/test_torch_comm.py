@@ -120,17 +120,38 @@ def test_schedule_for_rules():
         CollectiveEngine.for_mesh(mesh, schedule="nope")
     with pytest.raises(ValueError):
         eng.schedule_for("gather")
-    assert engine.known_schedules() == ("auto",) + BCAST
+    assert engine.known_schedules() == \
+        ("auto", "chain", "chain_rooted", "direct", "native", "ring2d",
+         "staged")
 
 
-@pytest.mark.parametrize("op", ["all_to_all_tiles", "allreduce",
-                                "ring_exchange", "grid_transpose"])
+@pytest.mark.parametrize("op", ["all_to_all_tiles", "allreduce"])
 def test_unported_ops_name_their_roadmap_item(op):
     eng = CollectiveEngine.for_mesh(single_rank_mesh())
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         getattr(eng, op)(torch.zeros(4), "rows")
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         eng.schedule_for(op)
+
+
+@pytest.mark.parametrize("op", ["ring_exchange", "grid_transpose"])
+def test_ported_exchanges_on_single_rank_are_identity(op):
+    """On the 1x1 mesh (and the size-1 ring) every schedule of the two
+    exchanges returns its input and touches no process group."""
+    x, y = torch.arange(12.0).reshape(3, 4), torch.arange(5.0)
+    for schedule in engine.schedules_for(op):
+        if op == "ring_exchange":
+            eng = CollectiveEngine.for_mesh(single_rank_mesh(("x",)),
+                                            schedule=schedule)
+            got = eng.ring_exchange(x, y, "x")
+            assert torch.equal(got[0], x) and torch.equal(got[1], y)
+        else:
+            eng = CollectiveEngine.for_mesh(single_rank_mesh(),
+                                            schedule=schedule)
+            assert torch.equal(eng.grid_transpose(x, ("rows", "cols"), 1), x)
+            with pytest.raises(ValueError, match="not 2x2"):
+                eng.grid_transpose(x, ("rows", "cols"), 2)
+        assert eng.schedule_for(op) == schedule
 
 
 @pytest.mark.parametrize("schedule", BCAST)

@@ -199,13 +199,25 @@ def test_run_hpl_single_cpu():
 def test_entry_points_without_card_raise(monkeypatch):
     """With no card and no ``device="cpu"`` the entry points raise; they
     never quietly run on the CPU."""
-    from repro_torch.benchmarks import hpl_matrix_sweep, hpl_profile
+    from repro_torch.benchmarks import (beff_bandwidth, hpl_matrix_sweep,
+                                        hpl_profile, legacy_suite,
+                                        ptrans_scaling)
+    from repro_torch.core.beff import run_beff
+    from repro_torch.core.gemm import run_gemm
+    from repro_torch.core.stream import run_stream
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for entry in (lambda: hpl.run_hpl(n=64, b=32),
                   lambda: run_hpl_single(n=64, b=32),
                   lambda: hpl_matrix_sweep.main(quick=True),
-                  lambda: hpl_profile.main(n=64, b=32)):
+                  lambda: hpl_profile.main(n=64, b=32),
+                  lambda: ptrans.run_ptrans(n=64, b=32),
+                  lambda: run_beff(max_log=2),
+                  lambda: run_stream(elems_per_device=128),
+                  lambda: run_gemm(m=8),
+                  lambda: ptrans_scaling.main(quick=True),
+                  lambda: beff_bandwidth.main(quick=True),
+                  lambda: legacy_suite.main(quick=True)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             entry()
 

@@ -1,4 +1,5 @@
-"""The port's HPL kernels on the CPU, held against the JAX reference.
+"""The port's HPL kernels on the CPU, held against the JAX reference; and
+the registry of every kernel of the port.
 
 On a CPU tensor ``repro_torch.kernels.ops`` runs each kernel's plain version
 (``repro_torch/kernels/ref.py``). Each case of ``tests/test_kernels.py`` for
@@ -8,8 +9,11 @@ pure-jnp oracle (``ref``). Tolerances are those of ``tests/test_kernels.py``:
 the port sums in another order (and the reference's oracles use library
 products and solves), so agreement is to fp32 rounding, not bitwise. The
 CUDA kernels themselves need the card; ``chip_smoke.py`` holds them against
-these plain versions there. The guards below check on the CPU that a CUDA
-tensor can only reach a kernel and that the build fails loudly.
+these plain versions there. The guards below check, for every kernel in
+``ops.KERNELS``, that a CUDA tensor can only reach a kernel, that a wrapper
+never computes on the CPU, and that the build fails loudly. The other
+kernels' plain versions are held against the reference in
+``tests/test_torch_ptrans.py`` and ``tests/test_torch_legacy.py``.
 """
 from __future__ import annotations
 
@@ -26,6 +30,8 @@ from repro.kernels.gemm import fit_block as jfit_block
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import gemm as kgemm
 from repro_torch.kernels import lu as klu
+from repro_torch.kernels import stream as kstream
+from repro_torch.kernels import transpose as ktranspose
 from repro_torch.kernels.gemm import fit_block
 
 ATOL = {torch.float32: 2e-4, torch.bfloat16: 8e-2}
@@ -160,6 +166,47 @@ def _cuda_typed(x):
     return torch.from_numpy(x).as_subclass(_CudaTyped)
 
 
+# each kernel: its wrapper's module, and a call of its ops entry point on
+# operands ``m`` (square) and ``v`` (a flat vector of 256)
+MODULE = {"gemm_update": kgemm, "matmul": kgemm, "lu_factor_block": klu,
+          "trsm_lower_left": klu, "trsm_upper_right": klu,
+          "transpose_add": ktranspose, "stream_copy": kstream,
+          "stream_scale": kstream, "stream_add": kstream,
+          "stream_triad": kstream}
+OPS_CALL = {
+    "gemm_update": lambda m, v: ops.gemm_update(m, m, m),
+    "lu_factor_block": lambda m, v: ops.lu_factor_block(m),
+    "trsm_lower_left": lambda m, v: ops.trsm_lower_left(m, m),
+    "trsm_upper_right": lambda m, v: ops.trsm_upper_right(m, m),
+    "transpose_add": lambda m, v: ops.transpose_add(m, m),
+    "stream_copy": lambda m, v: ops.stream_copy(v),
+    "stream_scale": lambda m, v: ops.stream_scale(v, 3.0),
+    "stream_add": lambda m, v: ops.stream_add(v, v),
+    "stream_triad": lambda m, v: ops.stream_triad(v, v, 3.0),
+    "matmul": lambda m, v: ops.matmul(m, m),
+}
+WRAPPER_CALL = {
+    "gemm_update": lambda t: kgemm.gemm_update(t, t, t),
+    "lu_factor_block": lambda t: klu.lu_factor_block(t),
+    "trsm_lower_left": lambda t: klu.trsm_lower_left(t, t),
+    "trsm_upper_right": lambda t: klu.trsm_upper_right(t, t),
+    "transpose_add": lambda t: ktranspose.transpose_add(t, t),
+    "stream_copy": lambda t: kstream.stream_copy(t),
+    "stream_scale": lambda t: kstream.stream_scale(t, 3.0),
+    "stream_add": lambda t: kstream.stream_add(t, t),
+    "stream_triad": lambda t: kstream.stream_triad(t, t, 3.0),
+    "matmul": lambda t: kgemm.matmul(t, t),
+}
+
+
+def test_registry_covers_every_kernel():
+    assert set(MODULE) == set(OPS_CALL) == set(WRAPPER_CALL) \
+        == set(ops.KERNELS) == set(ops.launch_counts())
+    assert len(ops.KERNELS) == 10
+    assert set(ops.HPL_KERNELS) | set(ops.STREAM_KERNELS) \
+        | {"transpose_add", "matmul"} == set(ops.KERNELS)
+
+
 @pytest.mark.parametrize("name", ops.KERNELS)
 def test_cuda_tensor_never_reaches_plain_version(monkeypatch, name):
     calls = []
@@ -172,18 +219,9 @@ def test_cuda_tensor_never_reaches_plain_version(monkeypatch, name):
         return args[0]
 
     monkeypatch.setattr(ref, name, plain)
-    module = kgemm if name == "gemm_update" else klu
-    monkeypatch.setattr(module, name, kernel)
-    lu = _cuda_typed(_dominant(12, 32))
-    panel = {"gemm_update": None, "lu_factor_block": None,
-             "trsm_lower_left": _cuda_typed(_normal(13, (32, 64))),
-             "trsm_upper_right": _cuda_typed(_normal(13, (64, 32)))}[name]
-    if name == "gemm_update":
-        ops.gemm_update(lu, lu, lu)
-    elif name == "lu_factor_block":
-        ops.lu_factor_block(lu)
-    else:
-        getattr(ops, name)(lu, panel)
+    monkeypatch.setattr(MODULE[name], name, kernel)
+    OPS_CALL[name](_cuda_typed(_dominant(12, 32)),
+                   _cuda_typed(_normal(13, (256,))))
     assert calls == [name]
 
 
@@ -193,28 +231,22 @@ def test_unknown_device_raises():
         ops.lu_factor_block(meta)
 
 
-@pytest.mark.parametrize("call", [
-    lambda c: kgemm.gemm_update(c, c, c),
-    lambda c: klu.lu_factor_block(c),
-    lambda c: klu.trsm_lower_left(c, c),
-    lambda c: klu.trsm_upper_right(c, c),
-], ids=ops.KERNELS)
-def test_kernel_wrappers_reject_cpu_tensors(call):
+@pytest.mark.parametrize("name", ops.KERNELS)
+def test_kernel_wrappers_reject_cpu_tensors(name):
     """A wrapper launches its kernel or raises: it never computes on the
     CPU itself."""
     before = ops.launch_counts()
     with pytest.raises(ValueError, match="CUDA device"):
-        call(torch.zeros((32, 32)))
+        WRAPPER_CALL[name](torch.zeros((32, 32)))
     assert ops.launch_counts() == before
 
 
 def test_plain_versions_count_no_launches():
     ops.reset_launch_counts()
-    c = torch.from_numpy(_normal(14, (32, 32)))
-    ops.gemm_update(c, c.clone(), c.clone())
-    lu = ops.lu_factor_block(torch.from_numpy(_dominant(15, 32)))
-    ops.trsm_lower_left(lu, c)
-    ops.trsm_upper_right(lu, c)
+    m = torch.from_numpy(_dominant(15, 32))
+    v = torch.from_numpy(_normal(14, (256,)))
+    for call in OPS_CALL.values():
+        call(m.clone(), v)
     assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
 
 
@@ -222,10 +254,13 @@ def test_wrapper_entry_points_exist_in_sources():
     """Every C symbol a wrapper binds through ctypes is defined, with C
     linkage, in the CUDA sources (they compile only on the card)."""
     text = {p.stem: p.read_text() for p in _build.sources()}
-    assert set(text) == {"gemm_update", "lu"}
-    wanted = {"gemm_update": list(kgemm._ENTRY.values()),
+    assert set(text) == {"gemm_update", "lu", "stream", "transpose_add"}
+    wanted = {"gemm_update": list(kgemm._ENTRY.values())
+              + list(kgemm._MATMUL_ENTRY.values()),
               "lu": ["repro_lu_factor_block_f32", "repro_trsm_lower_left_f32",
-                     "repro_trsm_upper_right_f32"]}
+                     "repro_trsm_upper_right_f32"],
+              "stream": list(kstream._ENTRY.values()),
+              "transpose_add": list(ktranspose._ENTRY.values())}
     for stem, names in wanted.items():
         for name in names:
             assert re.search(rf'extern "C" int {name}\(', text[stem]), name
@@ -235,6 +270,11 @@ def test_wrapper_entry_points_exist_in_sources():
         assert "use_fast_math" not in src
     assert "-use_fast_math" not in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    # each source names the TPU kernel it replaces and returns the launch
+    # error to its wrapper
+    for stem, src in text.items():
+        assert re.search(r"[Rr]eplaces? the TPU kernel", src), stem
+        assert "cudaGetLastError()" in src
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
