@@ -6,14 +6,23 @@
 Phases, one JSON line each:
 
 1. build     — compile every CUDA source of the port with nvcc (sm_90a);
-2. kernels   — hold each kernel against its plain PyTorch version on the
-               card, at its main path's shapes (HPL: m = 16384, b = 64;
-               transpose_add 16384^2; STREAM 2^28 elements; matmul 8192^3)
+2. kernels   — hold each of the eleven kernels against its plain PyTorch
+               version on the card, at its main path's shapes (HPL:
+               m = 16384, b = 64; transpose_add 16384^2; STREAM 2^28
+               elements; matmul 8192^3; flash_attention at the serving
+               prefill, q 8x1024x24x128, k/v 8x1024x8x128, bf16, causal)
                and at ragged and strided shapes and in bf16, and time
                kernel, plain version and the nearest PyTorch library call
                (fp32 library calls run with TF32 off). matmul's limit is
                fp32 rounding, which a TF32 product and a dropped K step
-               both exceed; the run shows that they do;
+               both exceed; flash_attention's limit (tests/test_kernels.py:
+               atol 8e-2 bf16, 2e-4 fp32, rtol 2e-2) refuses the kernel with
+               its causal mask off and with the wrong kv head, and in bf16
+               it is also held within one bf16 ulp of |want| plus 1e-3,
+               which refuses a kernel that drops the last q tile's diagonal
+               kv tile, or only the last query's own key (a fault small
+               enough to pass the reference limit), or shifts the mask by
+               one key in the late rows; the run shows that they do;
 3. hpl       — ``run_hpl`` on the 1x1 grid at n = 16384, b = 64: residual
                < 1, GFLOP/s, and each HPL kernel launched nb = 256 times per
                factorization;
@@ -31,7 +40,18 @@ Phases, one JSON line each:
                rate, and every op equal to its plain version;
 8. gemm      — ``run_gemm`` at m = 8192: GFLOP/s, error against
                ``torch.matmul`` with TF32 off, within fp32 rounding;
-9. cpu       — the card's LU at n = 2048 against the port's plain CPU LU.
+9. cpu       — the card's LU at n = 2048 against the port's plain CPU LU;
+10. serve    — llama3.2-3b at full width and depth (28 layers, random
+               weights from seed 0): ``generate`` on the one-rank mesh, 8
+               requests x 1024 prompt tokens, 32 new tokens, greedy: 28
+               flash launches in the prefill and none in decode, output
+               (8, 1056) keeping the prompts, two runs bit-identical; the
+               prefill and decode steps timed apart (prompt tokens/s, decode
+               ms per step p50, generated tokens/s, peak memory); and an
+               fp32 prefill (B = 1, S = 1024) through flash against the
+               same prefill through the plain ``attention`` (``mesh=None``),
+               within FP32_PREFILL_ATOL, which the bf16 prefill's logits
+               exceed.
 
 Each main-path phase zeroes the launch counts just before it runs and reads
 them just after. Then the card's ``nvidia-smi`` name and power limit, the
@@ -57,6 +77,18 @@ N_CPU = 2048
 N_PTRANS, B_PTRANS = 16384, 128
 STREAM_ELEMS = 1 << 28
 M_GEMM = 8192
+# the serving path: llama3.2-3b, 8 requests x 1024 prompt tokens, 32 new
+SERVE_ARCH, SERVE_B, SERVE_S, SERVE_NEW = "llama3.2-3b", 8, 1024, 32
+# fp32 prefill, flash vs plain attention: both are fp32 throughout and
+# differ only in the order of the attention's sums (a few ulps per layer),
+# on logits of rms about 1; one bf16 rounding anywhere moves them by ~1e-2
+FP32_PREFILL_ATOL = 1e-3
+FLASH_ATOL = {"float32": 2e-4, "bfloat16": 8e-2}  # tests/test_kernels.py
+FLASH_RTOL = 2e-2
+# kernel and plain version sum the same fp32 terms in other orders (relative
+# error ~1e-6) and round once to bf16; one rounding may land a whole ulp
+# apart, at most 2^-7 |want|, and 1e-3 covers the fp32 slack
+FLASH_TIGHT = {"atol": 1e-3, "rtol": 2.0 ** -7}
 # H100 SXM data sheet (dense, no sparsity): HBM3 rate and peak rates
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12           # fp32 outside the tensor cores
@@ -77,7 +109,8 @@ SOURCES = {"gemm_update": CSRC + "gemm_update.cu",
            "stream_scale": CSRC + "stream.cu",
            "stream_add": CSRC + "stream.cu",
            "stream_triad": CSRC + "stream.cu",
-           "matmul": CSRC + "gemm_update.cu"}
+           "matmul": CSRC + "gemm_update.cu",
+           "flash_attention": CSRC + "flash_attention.cu"}
 REPLACES = {"gemm_update": "src/repro/kernels/gemm.py:82",
             "lu_factor_block": "src/repro/kernels/lu.py:49",
             "trsm_lower_left": "src/repro/kernels/lu.py:86",
@@ -87,7 +120,8 @@ REPLACES = {"gemm_update": "src/repro/kernels/gemm.py:82",
             "stream_scale": "src/repro/kernels/stream.py:43",
             "stream_add": "src/repro/kernels/stream.py:43",
             "stream_triad": "src/repro/kernels/stream.py:43",
-            "matmul": "src/repro/kernels/gemm.py:45"}
+            "matmul": "src/repro/kernels/gemm.py:45",
+            "flash_attention": "src/repro/kernels/attention.py:69"}
 
 
 def emit(obj) -> None:
@@ -335,6 +369,7 @@ def phase_kernels(torch):
     checked = kernels_transpose_add(torch, randn, rows)
     checked += kernels_stream(torch, randn, rows)
     checked += kernels_matmul(torch, randn, rows)
+    checked += kernels_flash(torch, randn, rows)
     torch.cuda.synchronize()
     emit({"phase": "kernels", "main_path_shapes": rows,
           "ragged_max_abs_err": {k: v[1] for k, v in ragged.items()},
@@ -511,6 +546,142 @@ def kernels_matmul(torch, randn, rows):
         check(ok, f"matmul disagrees with its plain version: {label}: {err}")
         checked.append(f"matmul {label}: max_abs_err {err:.3g} <= {tol:.3g}"
                        f" + {rtol:.3g}|want|")
+    return checked
+
+
+def flash_flops(B, H, Sq, Skv, hd, causal, q_offset=0):
+    """2 * hd multiply-adds for QK^T and as many for PV, per (query, key)
+    pair the mask keeps: 4 * B * H * hd * pairs."""
+    if causal:
+        pairs = sum(min(Skv, q_offset + i + 1) for i in range(Sq))
+    else:
+        pairs = Sq * Skv
+    return 4 * B * H * hd * pairs
+
+
+def flash_faults(kfa, got, q, k, v):
+    """Outputs of the kernel under three faults that move only late rows,
+    made by launching it on slices of the inputs: the last q tile (64 rows)
+    without its diagonal kv tile, as a kv loop that stops one tile short
+    there would give; the same tile's kv loop one key short, so that only
+    the last query loses a key, its own; and rows from S/2 on seeing one
+    key past the diagonal, as a mask off by one there would give."""
+    S = q.shape[1]
+    tail = S - 64
+    dropped = got.clone()
+    dropped[:, tail:] = kfa.flash_attention(q[:, tail:], k[:, :tail],
+                                            v[:, :tail], causal=True,
+                                            q_offset=tail)
+    short = got.clone()
+    short[:, tail:] = kfa.flash_attention(q[:, tail:], k[:, :S - 1],
+                                          v[:, :S - 1], causal=True,
+                                          q_offset=tail)
+    shifted = got.clone()
+    shifted[:, S // 2:] = kfa.flash_attention(q[:, S // 2:], k, v,
+                                              causal=True,
+                                              q_offset=S // 2 + 1)
+    return {"last_diagonal_tile_dropped": dropped,
+            "last_key_dropped": short,
+            "mask_off_by_one_late_rows": shifted}
+
+
+def kernels_flash(torch, randn, rows):
+    """flash_attention at the serving prefill's shape (bf16, causal)
+    against its plain version, within tests/test_kernels.py's bf16 limit
+    and within FLASH_TIGHT (one bf16 ulp of |want| plus fp32 slack). The
+    reference limit must refuse the kernel with its causal mask off and
+    with the wrong kv head; the tight one must also refuse the three
+    faults of ``flash_faults``, which move only late rows. Then fp32, MQA, head dims 64 and 32,
+    non-causal, a q_offset and ragged lengths."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import attention as kfa
+    from repro_torch.kernels import ref
+
+    B, S, H, KV, hd = SERVE_B, SERVE_S, 24, 8, 128
+    bf16 = torch.bfloat16
+    q, k, v = randn(B, S, H, hd, dtype=bf16), randn(B, S, KV, hd, dtype=bf16), \
+        randn(B, S, KV, hd, dtype=bf16)
+    atol = FLASH_ATOL["bfloat16"]
+    got = kfa.flash_attention(q, k, v, causal=True)
+    want = ref.flash_attention(q, k, v, causal=True)
+    ok, err = allclose(torch, got, want, FLASH_RTOL, atol)
+    check(ok, f"flash_attention disagrees with its plain version at the "
+              f"serving shape: {err}")
+    ok, _ = allclose(torch, got, want, FLASH_TIGHT["rtol"],
+                     FLASH_TIGHT["atol"])
+    check(ok, f"flash_attention differs from its plain version by more than "
+              f"one bf16 rounding at the serving shape: {err}")
+    # the reference limit must refuse a kernel without its mask or on the
+    # wrong head
+    ok_full, err_full = allclose(torch, kfa.flash_attention(q, k, v,
+                                                            causal=False),
+                                 want, FLASH_RTOL, atol)
+    ok_head, err_head = allclose(torch, kfa.flash_attention(
+        q, k.roll(1, dims=2), v.roll(1, dims=2), causal=True), want,
+        FLASH_RTOL, atol)
+    check(not ok_full and not ok_head,
+          f"flash_attention's limit passes a kernel without the causal mask "
+          f"({err_full}) or on the wrong kv head ({err_head})")
+    rejects = {"causal_off_max_abs_err": err_full,
+               "wrong_kv_head_max_abs_err": err_head}
+    # the tight limit must also refuse faults that move only late rows
+    for fault, bad in flash_faults(kfa, got, q, k, v).items():
+        ok_tight, err_fault = allclose(torch, bad, want, FLASH_TIGHT["rtol"],
+                                       FLASH_TIGHT["atol"])
+        check(not ok_tight, f"flash_attention's tight limit passes the "
+                            f"fault {fault} ({err_fault})")
+        rejects[f"{fault}_max_abs_err"] = err_fault
+        rejects[f"{fault}_within_reference_limit"] = allclose(
+            torch, bad, want, FLASH_RTOL, atol)[0]
+        del bad
+    del got, want
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, out, k, v
+    flops = flash_flops(B, H, S, S, hd, True)
+    bms, by = bound(nbytes, flops)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    rows["flash_attention"] = dict(
+        shape=f"q({B},{S},{H},{hd}) k,v({B},{S},{KV},{hd}) bf16 causal",
+        max_abs_err=err, tol={"atol": atol, "rtol": FLASH_RTOL},
+        tight_tol=FLASH_TIGHT, limit_rejects=rejects,
+        ms=cuda_ms(torch, lambda: kfa.flash_attention(q, k, v), iters=20),
+        plain_ms=cuda_ms(torch, lambda: ref.flash_attention(q, k, v),
+                         iters=3, warmup=1),
+        bound_ms=bms, bound_by=by,
+        library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), iters=20),
+        library="F.scaled_dot_product_attention(is_causal=True, "
+                "enable_gqa=True), bf16")
+    emit({"phase": "kernels.flash", "gflop": flops / 1e9,
+          "bound_bf16_tensor_ms": flops / BF16_TENSOR_FLOPS * 1e3})
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    checked = []
+    f32 = torch.float32
+    cases = {  # B, Sq, Skv, H, KV, hd, dtype, causal, q_offset
+        "fp32 GQA 3:1 hd128 causal": (2, 1024, 1024, 24, 8, 128, f32, True, 0),
+        "MQA hd32 causal": (2, 96, 96, 8, 1, 32, f32, True, 0),
+        "GQA 4:1 hd64 non-causal": (1, 256, 256, 8, 2, 64, f32, False, 0),
+        "MHA hd32 bf16 causal": (2, 128, 128, 4, 4, 32, bf16, True, 0),
+        "q_offset 896 hd128 bf16": (2, 128, 1024, 24, 8, 128, bf16, True, 896),
+        "ragged 100x200 hd64 q_offset 100": (1, 100, 200, 6, 3, 64, f32, True,
+                                             100)}
+    for label, (b, sq, skv, h, kv, d, dt, causal, qo) in cases.items():
+        x = randn(b, sq, h, d, dtype=dt)
+        y, z = randn(b, skv, kv, d, dtype=dt), randn(b, skv, kv, d, dtype=dt)
+        tol = FLASH_ATOL["float32" if dt == f32 else "bfloat16"]
+        got = kfa.flash_attention(x, y, z, causal=causal, q_offset=qo)
+        want = ref.flash_attention(x, y, z, causal=causal, q_offset=qo)
+        ok, err = allclose(torch, got, want, FLASH_RTOL, tol)
+        check(ok, f"flash_attention disagrees with its plain version: "
+                  f"{label}: {err}")
+        if dt == bf16:
+            ok, _ = allclose(torch, got, want, FLASH_TIGHT["rtol"],
+                             FLASH_TIGHT["atol"])
+            check(ok, f"flash_attention differs from its plain version by "
+                      f"more than one bf16 rounding: {label}: {err}")
+        checked.append(f"flash_attention {label}: max_abs_err {err:.3g} <= "
+                       f"{tol:g} + {FLASH_RTOL:g}|want|")
     return checked
 
 
@@ -706,6 +877,138 @@ def phase_cpu(torch):
           "tol": {"rtol": 1e-4, "atol": 1e-3}})
 
 
+def phase_serve(torch):
+    """llama3.2-3b at full width and depth on the card through the port's
+    ``generate`` with the one-rank mesh (the flash path); then the prefill
+    and decode steps timed apart, and the fp32 prefill through flash
+    against the plain attention."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import single_rank_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import cast_params
+    from repro_torch.train.serve import (generate, make_decode_step,
+                                         make_prefill_step)
+
+    cfg = get_config(SERVE_ARCH)
+    B, S, new = SERVE_B, SERVE_S, SERVE_NEW
+    dev = torch.device("cuda")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(0, device=dev)  # fp32, from a seeded generator
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                            device=dev, dtype=torch.int32)
+    mesh = single_rank_mesh(("x",))
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = generate(model, params, prompts, max_new_tokens=new, mesh=mesh)
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = dict.fromkeys(ops.KERNELS, 0)
+    want["flash_attention"] = cfg.num_layers
+    check(counts == want, f"generate launched {counts}, expected one flash "
+                          f"launch per layer ({cfg.num_layers}) and nothing "
+                          "else")
+    check(tuple(out.shape) == (B, S + new), f"output shape {tuple(out.shape)}")
+    check(torch.equal(out[:, :S], prompts), "generate changed the prompts")
+    check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          "generated tokens outside the vocabulary")
+    t0 = time.perf_counter()
+    again = generate(model, params, prompts, max_new_tokens=new, mesh=mesh)
+    torch.cuda.synchronize()
+    generate2_s = time.perf_counter() - t0
+    check(torch.equal(again, out), "two greedy runs differ")
+    del again
+
+    # the same work, step by step: prefill and each decode step timed
+    sp = cast_params(params, torch.bfloat16)
+    cache = model.init_cache(B, S + new, torch.bfloat16, device=dev)
+    prefill, decode = make_prefill_step(model, mesh), make_decode_step(model,
+                                                                       mesh)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(sp, {"tokens": prompts}, cache)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_flash = ops.launch_counts()["flash_attention"]
+    check(bool(torch.isfinite(logits).all()), "prefill logits not finite")
+    check(tuple(logits.shape) == (B, S, cfg.padded_vocab()),
+          f"prefill logits {tuple(logits.shape)}")
+    tok = torch.argmax(logits[:, -1], dim=-1).to(prompts.dtype)[:, None]
+    del logits
+    toks, steps = [tok], []
+    for _ in range(new - 1):
+        t0 = time.perf_counter()
+        logits, cache = decode(sp, tok, cache, {})
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+        check(bool(torch.isfinite(logits).all()), "decode logits not finite")
+        tok = torch.argmax(logits[:, -1], dim=-1).to(prompts.dtype)[:, None]
+        toks.append(tok)
+    decode_flash = ops.launch_counts()["flash_attention"] - prefill_flash
+    check(prefill_flash == cfg.num_layers and decode_flash == 0,
+          f"flash launches: prefill {prefill_flash}, decode {decode_flash}")
+    check(torch.equal(torch.cat(toks, 1), out[:, S:]),
+          "the timed steps differ from generate")
+    del cache, sp, logits
+    torch.cuda.empty_cache()
+    steps.sort()
+    p50 = steps[len(steps) // 2]
+
+    # fp32 prefill: flash (one-rank mesh) against plain attention (no mesh)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = build_model(cfg32)
+    p1 = prompts[:1]
+    lg = {}
+    for label, m, mdl, dt in (("flash", mesh, model32, torch.float32),
+                              ("plain", None, model32, torch.float32),
+                              ("flash_bf16", mesh, model, torch.bfloat16)):
+        c = mdl.init_cache(1, S, dt, device=dev)
+        lg[label] = make_prefill_step(mdl, m)(cast_params(params, dt),
+                                              {"tokens": p1}, c)[0].float()
+        del c
+    err32 = max_abs(lg["flash"], lg["plain"])
+    err_bf16 = max_abs(lg["flash_bf16"], lg["plain"])
+    check(bool(torch.isfinite(lg["flash"]).all()), "fp32 logits not finite")
+    check(err32 <= FP32_PREFILL_ATOL,
+          f"fp32 prefill through flash differs from plain attention by "
+          f"{err32} > {FP32_PREFILL_ATOL}")
+    check(err_bf16 > FP32_PREFILL_ATOL,
+          f"the fp32 limit {FP32_PREFILL_ATOL} passes the bf16 prefill "
+          f"({err_bf16})")
+    logit_rms = rms(lg["plain"])
+    del lg
+    torch.cuda.empty_cache()
+    emit({"phase": "serve", "arch": SERVE_ARCH, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "params": cfg.param_count(),
+          "batch": B, "prompt_tokens": S, "new_tokens": new,
+          "dtype": cfg.dtype, "init_s": init_s,
+          "generate_s": generate_s, "generate_s_second_run": generate2_s,
+          "generated_tokens_per_s": B * new / generate2_s,
+          "prefill_s": prefill_s, "prompt_tokens_per_s": B * S / prefill_s,
+          "decode_ms_p50": p50 * 1e3, "decode_ms_min": steps[0] * 1e3,
+          "decode_ms_max": steps[-1] * 1e3,
+          "decode_tokens_per_s": B / p50,
+          "peak_memory_gb": peak / 1e9, "launches": counts,
+          "flash_launches": {"prefill": prefill_flash, "decode": decode_flash},
+          "bitwise_repeat": True,
+          "fp32_prefill": {"batch": 1, "max_abs_flash_vs_plain": err32,
+                           "atol": FP32_PREFILL_ATOL,
+                           "bf16_vs_fp32_max_abs": err_bf16,
+                           "logit_rms": logit_rms}})
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -735,6 +1038,7 @@ def main() -> int:
     launches.update({k: stream_counts[k] for k in ops.STREAM_KERNELS})
     launches["matmul"] = phase_gemm(torch)["matmul"]
     phase_cpu(torch)
+    launches["flash_attention"] = phase_serve(torch)["flash_attention"]
 
     check(set(launches) == set(rows) == set(SOURCES),
           f"kernels {sorted(rows)} vs launches {sorted(launches)}")

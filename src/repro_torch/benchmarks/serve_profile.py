@@ -1,0 +1,98 @@
+"""Where the serving path's time goes on the card: one prefill and one
+decode step under torch.profiler.
+
+    PYTHONPATH=src python -m repro_torch.benchmarks.serve_profile [--arch llama3.2-3b] [--batch 8] [--prompt 1024]
+
+Builds the model at full width and depth with random weights (seed 0),
+casts them once to the compute dtype, warms both steps, then profiles one
+prefill of ``batch`` x ``prompt`` tokens on the one-rank mesh (the flash
+path) and one decode step after it. Prints one JSON line per step: wall
+time (host clock, ending in a synchronize), device time summed by kernel
+name, and the device's busy share of the wall time. The work runs on one
+stream, so device activities do not overlap and their sum over the wall
+time is the busy share. The profiler adds host cost to every launch, so
+these wall times are longer than ``chip_smoke.py``'s.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch.configs import get_config
+from repro_torch.core.hpcc import device_name, resolve_device
+from repro_torch.launch.mesh import single_rank_mesh
+from repro_torch.models.model import build_model
+from repro_torch.models.transformer import cast_params, dtype_of
+from repro_torch.train.serve import make_decode_step, make_prefill_step
+
+
+def _profiled(fn):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA and evt.self_device_time_total:
+            by_name[evt.key] = (evt.self_device_time_total / 1e3, evt.count)
+    busy_ms = sum(ms for ms, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    return out, {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
+                 "busy_share": busy_ms / (wall * 1e3),
+                 "launches": sum(cnt for _, cnt in by_name.values()),
+                 "by_kernel": [{"name": k[:120], "ms": ms, "count": cnt}
+                               for k, (ms, cnt) in top[:15]]}
+
+
+def main(arch: str = "llama3.2-3b", batch: int = 8,
+         prompt: int = 1024) -> list:
+    device = resolve_device(None)
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    dtype = dtype_of(cfg.dtype)
+    params = cast_params(model.init(0, device=device), dtype)
+    gen = torch.Generator(device=device).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt), generator=gen,
+                           device=device, dtype=torch.int32)
+    mesh = single_rank_mesh(("x",))
+    prefill, decode = make_prefill_step(model, mesh), make_decode_step(model,
+                                                                       mesh)
+
+    def run_prefill():
+        cache = model.init_cache(batch, prompt + 2, dtype, device=device)
+        logits, cache = prefill(params, {"tokens": tokens}, cache)
+        return torch.argmax(logits[:, -1], -1).to(tokens.dtype)[:, None], \
+            cache
+
+    def run_decode(tok, cache):
+        return decode(params, tok, cache, {})
+
+    tok, cache = run_prefill()  # warm: kernels loaded, allocator primed
+    run_decode(tok, cache)
+    del cache
+    (tok, cache), pre = _profiled(run_prefill)
+    _, dec = _profiled(lambda: run_decode(tok, cache))
+    records = []
+    for step, rec in (("prefill", pre), ("decode", dec)):
+        record = {"step": step, "arch": arch, "batch": batch,
+                  "prompt": prompt, "device": device_name(device), **rec}
+        print(json.dumps(record), flush=True)
+        records.append(record)
+    return records
+
+
+if __name__ == "__main__":
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="llama3.2-3b")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--prompt", type=int, default=1024)
+    args = ap.parse_args()
+    main(args.arch, args.batch, args.prompt)

@@ -1,0 +1,22 @@
+"""llama4-maverick-400b-a17b [moe] — 48L d_model=5120 40H (GQA kv=8)
+d_ff=8192 vocab=202048, MoE 128 experts top-1 + shared expert, early fusion.
+[hf:meta-llama/Llama-4-Scout-17B-16E; unverified]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="llama4-maverick-400b-a17b",
+    family="moe",
+    num_layers=48,
+    d_model=5120,
+    num_heads=40,
+    num_kv_heads=8,
+    d_ff=8192,
+    vocab_size=202048,
+    head_dim=128,
+    rope_theta=500_000.0,
+    num_experts=128,
+    num_experts_per_tok=1,
+    moe_d_ff=8192,
+    moe_every=2,  # maverick: MoE interleaved every 2nd layer (dense FFN otherwise)
+    shared_expert=True,
+)

@@ -12,6 +12,14 @@ keywords (``bm``/``bn``/``bk``, ``block``) are accepted for the reference's
 signatures; the CUDA tiles are fixed at compile time, and no result depends
 on the tiling. The STREAM ops raise for a size that is not a multiple of
 128 on both routes, as the reference asserts.
+
+``flash_attention`` keeps the reference's ``bq``/``bk`` contract on both
+routes (``min(bq, Sq)`` and ``min(bk, Skv)`` must divide Sq and Skv); the
+CPU route computes over those blocks, the CUDA kernel over its own fixed
+tiles, which does not change the result beyond fp32 rounding.
+
+Eleven kernels: the four HPL kernels, ``transpose_add`` (PTRANS), the four
+STREAM ops, ``matmul`` (GEMM) and ``flash_attention`` (LM prefill).
 """
 from __future__ import annotations
 
@@ -19,6 +27,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.kernels import attention as _attention
 from repro_torch.kernels import gemm as _gemm
 from repro_torch.kernels import lu as _lu
 from repro_torch.kernels import ref
@@ -28,10 +37,12 @@ from repro_torch.kernels.gemm import fit_block  # noqa: F401  (public)
 
 KERNELS = ("gemm_update", "lu_factor_block", "trsm_lower_left",
            "trsm_upper_right", "transpose_add", "stream_copy",
-           "stream_scale", "stream_add", "stream_triad", "matmul")
+           "stream_scale", "stream_add", "stream_triad", "matmul",
+           "flash_attention")
 # the kernels each benchmark's main path launches
 HPL_KERNELS = KERNELS[:4]
 STREAM_KERNELS = KERNELS[5:9]
+SERVE_KERNELS = ("flash_attention",)
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -106,6 +117,16 @@ def stream_triad(b, c, alpha):
     return ref.stream_triad(b, c, alpha)
 
 
+def flash_attention(q, k, v, *, causal=True, q_offset=0, bq=512, bk=512):
+    _, Sq, _, _, Skv, _ = _attention.check_shapes(q, k, v, q_offset=q_offset)
+    ref.fit_blocks(Sq, Skv, bq, bk)
+    if _on_card(q):
+        return _attention.flash_attention(q, k, v, causal=causal,
+                                          q_offset=q_offset)
+    return ref.flash_attention(q, k, v, causal=causal, q_offset=q_offset,
+                               bq=bq, bk=bk)
+
+
 def _wrappers():
     return {"gemm_update": _gemm.gemm_update,
             "lu_factor_block": _lu.lu_factor_block,
@@ -116,7 +137,8 @@ def _wrappers():
             "stream_scale": _stream.stream_scale,
             "stream_add": _stream.stream_add,
             "stream_triad": _stream.stream_triad,
-            "matmul": _gemm.matmul}
+            "matmul": _gemm.matmul,
+            "flash_attention": _attention.flash_attention}
 
 
 def launch_counts() -> Dict[str, int]:

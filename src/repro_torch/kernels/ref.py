@@ -13,6 +13,11 @@ LU and solve kernels contract each multiply-add into one fused operation,
 so kernel and plain version agree to rounding, not bitwise. The transpose-
 add and STREAM kernels round once per operation, as these do, so they agree
 bit for bit.
+
+The attention versions are the exception: ``attention`` is the dense
+oracle, and ``flash_attention`` follows the flash kernel's online softmax
+block by block but forms each block's products with fp32 ``matmul`` (TF32
+must be off on the card), so it agrees with the kernel to fp32 rounding.
 """
 from __future__ import annotations
 
@@ -104,3 +109,78 @@ def trsm_upper_right(lu: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         x[:, j] /= u[j, j]
         x[:, j + 1:] -= x[:, j, None] * u[None, j, j + 1:]
     return x.to(b.dtype)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+    """Dense softmax attention with GQA, all in fp32 (port of the reference's
+    oracle, ``repro/kernels/ref.py:61-74``). q: (B, Sq, H, hd); k, v:
+    (B, Skv, KV, hd); masked scores are -inf."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, Sq, KV, G, hd).float() * (hd ** -0.5)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float())
+    if causal:
+        qpos = q_offset + torch.arange(Sq, device=q.device)
+        mask = torch.arange(Skv, device=q.device)[None, :] <= qpos[:, None]
+        s = s.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskh->bqkgh", p, v.float())
+    return o.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+FLASH_MASKED = -1e30
+
+
+def fit_blocks(Sq: int, Skv: int, bq: int, bk: int):
+    """The reference's flash block contract (``attention.py:76-78``):
+    ``min(bq, Sq)`` and ``min(bk, Skv)``, which must divide Sq and Skv."""
+    bq, bk = min(bq, Sq), min(bk, Skv)
+    if bq <= 0 or bk <= 0 or Sq % bq or Skv % bk:
+        raise ValueError(f"blocks bq={bq}, bk={bk} do not divide "
+                         f"Sq={Sq}, Skv={Skv}")
+    return bq, bk
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_offset: int = 0, bq: int = 512,
+                    bk: int = 512) -> torch.Tensor:
+    """The flash kernel's function, over the reference's (bq, bk) blocks:
+    q cast to fp32, then scaled by hd^-1/2; per q block an online softmax
+    over the kv blocks in order, kv blocks wholly above the causal diagonal
+    skipped, masked scores -1e30, output acc / max(l, 1e-30) in q's dtype.
+    ``min(bq, Sq)`` and ``min(bk, Skv)`` must divide Sq and Skv."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    bq, bk = fit_blocks(Sq, Skv, bq, bk)
+    G = H // KV
+    heads = torch.arange(H, device=q.device) // G  # q head -> kv head
+    qf = (q.float() * (hd ** -0.5)).transpose(1, 2)   # (B, H, Sq, hd)
+    kf = k.float()[:, :, heads].transpose(1, 2)       # (B, H, Skv, hd)
+    vf = v.float()[:, :, heads].transpose(1, 2)
+    out = torch.empty((B, H, Sq, hd), dtype=torch.float32, device=q.device)
+    for i in range(Sq // bq):
+        qi = qf[:, :, i * bq:(i + 1) * bq]
+        acc = torch.zeros((B, H, bq, hd), dtype=torch.float32,
+                          device=q.device)
+        m = torch.full((B, H, bq, 1), FLASH_MASKED, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        qpos = q_offset + i * bq + torch.arange(bq, device=q.device)
+        for j in range(Skv // bk):
+            if causal and j * bk > q_offset + i * bq + bq - 1:
+                continue
+            s = qi @ kf[:, :, j * bk:(j + 1) * bk].transpose(-1, -2)
+            if causal:
+                kpos = j * bk + torch.arange(bk, device=q.device)
+                s = s.masked_fill(kpos[None, :] > qpos[:, None],
+                                  FLASH_MASKED)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new)
+            l = l * alpha + p.sum(dim=-1, keepdim=True)
+            m = m_new
+            acc = acc * alpha + p @ vf[:, :, j * bk:(j + 1) * bk]
+        out[:, :, i * bq:(i + 1) * bq] = acc / l.clamp_min(1e-30)
+    return out.transpose(1, 2).to(q.dtype)

@@ -1,0 +1,1 @@
+"""The LM of the port: the dense decoder family so far."""

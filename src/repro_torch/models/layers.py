@@ -1,0 +1,315 @@
+"""Core neural-net layers: norms, rotary embeddings, attention, MLP.
+
+Port of ``repro/models/layers.py``. Functional as in the reference:
+``init_*`` draw parameter dicts, the other functions consume them. Each
+function keeps the reference's order of operations and dtypes, path by path:
+the dense ``attention`` scales q in the activation dtype before its products
+and masks with -inf, the blockwise branch guards all-masked rows,
+``decode_attention`` masks with the dtype's smallest finite value, and the
+flash path (``ops.flash_attention``) casts q to fp32, then scales, and masks
+with -1e30. In bf16 these give different bits; none of them is unified with
+another. Products that the reference computes in fp32 from bf16 operands
+(``preferred_element_type=float32``) cast their operands to fp32 here, which
+gives the same exact products and fp32 sums.
+
+Not in this slice: cross-attention and qk-norm (their families wait for
+ROADMAP A11), the paged-cache branch of :func:`apply_attention` (A13), the
+explicit ``attn_impl`` hook and tensor-parallel flash (A12).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def init_rmsnorm(d: int, device=None) -> torch.Tensor:
+    return torch.ones((d,), dtype=torch.float32, device=device)
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-5) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * scale.float()).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Positions
+# ---------------------------------------------------------------------------
+
+
+def rope_table(positions: torch.Tensor, head_dim: int, theta: float) -> tuple:
+    """(sin, cos) tables for integer positions; shape (..., head_dim/2)."""
+    half = head_dim // 2
+    freqs = torch.exp(-math.log(theta) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    angles = positions.float()[..., None] * freqs
+    return torch.sin(angles), torch.cos(angles)
+
+
+def apply_rope(x: torch.Tensor, sin: torch.Tensor,
+               cos: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, H, hd); sin/cos: (S, hd/2) or (B, S, hd/2)."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    if sin.dim() == 2:  # (S, half) -> broadcast over batch and heads
+        sin_b, cos_b = sin[None, :, None, :], cos[None, :, None, :]
+    else:  # (B, S, half)
+        sin_b, cos_b = sin[:, :, None, :], cos[:, :, None, :]
+    dtype = x.dtype
+    x1f, x2f = x1.float(), x2.float()
+    out1 = x1f * cos_b - x2f * sin_b
+    out2 = x2f * cos_b + x1f * sin_b
+    return torch.cat([out1, out2], dim=-1).to(dtype)
+
+
+def sinusoidal_positions(positions: torch.Tensor,
+                         d_model: int) -> torch.Tensor:
+    """Transformer sinusoidal embedding for integer positions ->
+    (..., d_model)."""
+    half = d_model // 2
+    freqs = torch.exp(-math.log(10_000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions.float()[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Attention (dense or blockwise online softmax; GQA; causal or full)
+# ---------------------------------------------------------------------------
+
+
+def _gqa_scores(q, k):
+    # q: (B, Sq, KV, G, hd), k: (B, Skv, KV, hd) -> (B, KV, G, Sq, Skv) fp32
+    return torch.einsum("bqkgh,bskh->bkgqs", q.float(), k.float())
+
+
+def _gqa_out(p, v):
+    # p: (B, KV, G, Sq, Skv), v: (B, Skv, KV, hd) -> (B, Sq, KV, G, hd) fp32;
+    # p is rounded to v's dtype first, as in the reference
+    return torch.einsum("bkgqs,bskh->bqkgh", p.to(v.dtype).float(), v.float())
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool, q_offset: int = 0, kv_block: int = 1024,
+              dense_threshold: int = 2048) -> torch.Tensor:
+    """Multi-head attention with GQA head grouping. q: (B, Sq, H, hd);
+    k, v: (B, Skv, KV, hd).
+
+    For short KV (<= dense_threshold) or single-query decode the dense path
+    is used (one product pair); otherwise KV is processed in blocks of
+    ``kv_block`` with an online softmax."""
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    qg = (q * scale).reshape(B, Sq, KV, G, hd)
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+
+    if Sq == 1 or Skv <= dense_threshold:
+        s = _gqa_scores(qg, k)
+        if causal:
+            kv_pos = torch.arange(Skv, device=q.device)
+            mask = kv_pos[None, :] <= q_pos[:, None]  # (Sq, Skv)
+            s = s.masked_fill(~mask, float("-inf"))
+        p = torch.softmax(s, dim=-1)
+        o = _gqa_out(p, v)
+        return o.reshape(B, Sq, H, hd).to(q.dtype)
+
+    # ---- blockwise path ----------------------------------------------------
+    nblk = -(-Skv // kv_block)
+    pad = nblk * kv_block - Skv
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    acc = torch.zeros((B, Sq, KV, G, hd), dtype=torch.float32,
+                      device=q.device)
+    m = torch.full((B, KV, G, Sq), float("-inf"), dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, KV, G, Sq), dtype=torch.float32, device=q.device)
+    for blk in range(nblk):
+        start = blk * kv_block
+        kblk, vblk = k[:, start:start + kv_block], v[:, start:start + kv_block]
+        s = _gqa_scores(qg, kblk)  # (B, KV, G, Sq, kv_block)
+        kv_pos = start + torch.arange(kv_block, device=q.device)
+        valid = kv_pos[None, :] < Skv  # mask zero padding
+        if causal:
+            valid = valid & (kv_pos[None, :] <= q_pos[:, None])
+        else:
+            valid = valid.expand(Sq, kv_block)
+        s = s.masked_fill(~valid, float("-inf"))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        # all-masked rows (m_new == -inf): scale factors become 0
+        m_safe = torch.where(torch.isinf(m_new), 0.0, m_new)
+        alpha = torch.where(torch.isinf(m), 0.0, torch.exp(m - m_safe))
+        p = torch.exp(s - m_safe[..., None])
+        p = torch.where(valid, p, 0.0)
+        l = l * alpha + p.sum(dim=-1)
+        o_blk = _gqa_out(p, vblk)  # (B, Sq, KV, G, hd) fp32
+        acc = acc * alpha.permute(0, 3, 1, 2)[..., None] + o_blk
+        m = m_new
+    l = l.clamp_min(1e-20)
+    out = acc / l.permute(0, 3, 1, 2)[..., None]
+    return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     lengths: torch.Tensor) -> torch.Tensor:
+    """Single-token attention with per-row valid lengths. q: (B, 1, H, hd);
+    k, v: (B, Smax, KV, hd); positions > ``lengths[b]`` are masked with the
+    smallest finite fp32 value (inactive rows give garbage, not NaN)."""
+    B, Sq, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    qg = (q * scale).reshape(B, Sq, KV, G, hd)
+    s = _gqa_scores(qg, k)  # (B, KV, G, Sq, Smax) fp32
+    kv_pos = torch.arange(k.shape[1], device=q.device)
+    mask = kv_pos[None, :] <= lengths[:, None]  # (B, Smax)
+    s = s.masked_fill(~mask[:, None, None, None, :],
+                      torch.finfo(s.dtype).min)
+    p = torch.softmax(s, dim=-1)
+    o = _gqa_out(p, v)
+    return o.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Flash-attention path (prefill, forward only)
+# ---------------------------------------------------------------------------
+
+
+def _flash_sharded(q, k, v, *, shard, causal: bool):
+    """The flash kernel for prefill when ``shard`` carries a mesh and its
+    rules, as in the reference (``layers.py:202-248``); None when that path
+    does not apply (no mesh, or fewer than 128 queries). ``make_shard_fn``
+    accepts only a one-rank mesh, on which the reference's ``shard_map``
+    body is one call of the kernel over the whole batch."""
+    if getattr(shard, "mesh", None) is None or \
+            getattr(shard, "rules", None) is None:
+        return None
+    Sq = q.shape[1]
+    if Sq < 128:
+        return None
+    return ops.flash_attention(q, k, v, causal=causal, bq=min(512, Sq),
+                               bk=min(512, k.shape[1]))
+
+
+# ---------------------------------------------------------------------------
+# Attention block (params + apply): self-attention with a dense cache
+# ---------------------------------------------------------------------------
+
+
+def _normal(gen, shape, std, device):
+    return torch.randn(shape, generator=gen, dtype=torch.float32,
+                       device=device) * std
+
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig, *,
+                   device=None) -> dict:
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    std = 0.02
+    p = {
+        "wq": _normal(gen, (d, h, hd), std, device),
+        "wk": _normal(gen, (d, kv, hd), std, device),
+        "wv": _normal(gen, (d, kv, hd), std, device),
+        "wo": _normal(gen, (h, hd, d), std / math.sqrt(2 * cfg.num_layers),
+                      device),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((h, hd), device=device)
+        p["bk"] = torch.zeros((kv, hd), device=device)
+        p["bv"] = torch.zeros((kv, hd), device=device)
+    return p
+
+
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    # "bsd,dhk->bshk": one product over the flattened head axes
+    d, h, k = w.shape
+    return torch.matmul(x, w.to(x.dtype).reshape(d, h * k)).unflatten(
+        -1, (h, k))
+
+
+def apply_attention(p, cfg: ModelConfig, x: torch.Tensor, *,
+                    cache: Optional[dict] = None, pos=None, shard=None):
+    """Causal self-attention; returns (out, cache). ``cache`` is a dense
+    ``{'k', 'v'}`` (B, Smax, KV, hd) pair, written in place: positions
+    [0, S) in prefill (``pos`` None), positions [pos, pos + S) in decode,
+    which then attends over the whole cache under the causal mask. Prefill
+    with a cache and a ``shard`` carrying a mesh takes the flash kernel."""
+    dtype = x.dtype
+    q = _project(x, p["wq"])
+    k = _project(x, p["wk"])
+    v = _project(x, p["wv"])
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dtype)
+        k = k + p["bk"].to(dtype)
+        v = v + p["bv"].to(dtype)
+
+    if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+        raise NotImplementedError("per-row positions (paged decode) are not "
+                                  "ported yet (ROADMAP A13)")
+    q_offset = 0 if pos is None else pos
+    if cfg.rope_theta > 0:
+        positions = torch.arange(x.shape[1], device=x.device) + q_offset
+        sin, cos = rope_table(positions, cfg.head_dim, cfg.rope_theta)
+        q = apply_rope(q, sin, cos)
+        k = apply_rope(k, sin, cos)
+
+    if cache is not None:
+        if "k_pages" in cache:
+            raise NotImplementedError("the paged KV cache is not ported yet "
+                                      "(ROADMAP A13)")
+        ck, cv = cache["k"], cache["v"]
+        S = x.shape[1]
+        if pos is None:  # prefill: write the whole prefix
+            ck[:, :S] = k.to(ck.dtype)
+            cv[:, :S] = v.to(cv.dtype)
+        else:  # decode: write one (or few) positions, attend over the cache
+            ck[:, pos:pos + S] = k.to(ck.dtype)
+            cv[:, pos:pos + S] = v.to(cv.dtype)
+            k, v = ck.to(dtype), cv.to(dtype)
+
+    o = None
+    if shard is not None and cache is not None and pos is None:
+        o = _flash_sharded(q, k, v, shard=shard, causal=True)
+    if o is None:
+        o = attention(q, k, v, causal=True, q_offset=q_offset)
+    B, S, H, hd = o.shape
+    wo = p["wo"].to(dtype)
+    out = torch.matmul(o.reshape(B, S, H * hd), wo.reshape(H * hd, -1))
+    return out, cache
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU)
+# ---------------------------------------------------------------------------
+
+
+def init_mlp(gen: torch.Generator, d: int, d_ff: int, num_layers: int,
+             device=None) -> dict:
+    std = 0.02
+    return {
+        "w_gate": _normal(gen, (d, d_ff), std, device),
+        "w_in": _normal(gen, (d, d_ff), std, device),
+        "w_out": _normal(gen, (d_ff, d), std / math.sqrt(2 * num_layers),
+                         device),
+    }
+
+
+def apply_mlp(p, x: torch.Tensor) -> torch.Tensor:
+    dtype = x.dtype
+    g = torch.matmul(x, p["w_gate"].to(dtype))
+    h = torch.matmul(x, p["w_in"].to(dtype))
+    return torch.matmul(F.silu(g) * h, p["w_out"].to(dtype))

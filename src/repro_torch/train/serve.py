@@ -1,0 +1,122 @@
+"""Serving steps: prefill + decode against a dense KV cache, and batched
+generation.
+
+Port of ``repro/train/serve.py`` (``make_prefill_step`` :33,
+``make_decode_step`` :46, ``generate`` :149-198): the reference's "batched
+requests" server. With a one-rank mesh (``launch/mesh.py::
+single_rank_mesh(("x",))``) the prefill takes the hand-written flash kernel
+(``ops.flash_attention``, one launch per layer) for prompts of 128 tokens
+or more, as the reference's ``make_prefill_step(model, mesh)`` takes its
+Pallas kernel; with ``mesh=None`` it takes the plain ``attention``. Decode
+never takes the flash kernel.
+
+The steps run under ``torch.no_grad`` and write the cache in place (the
+reference donates it). ``generate`` casts the weights once into a serving
+copy in the compute dtype (the reference casts them inside every call; the
+bits are the same), runs on the weights' device, and keeps the reference's
+EOS rule: rows that hit ``eos_id`` are held at EOS, decoding stops when
+every row has, and the output is padded with EOS to (B, S0 + new). Greedy
+decoding (``temperature == 0``) is the reference's argmax; sampling draws
+from ``torch.multinomial`` with the caller's ``generator`` and cannot match
+``jax.random.categorical``'s numbers.
+
+The paged decode steps and the explicit tensor-parallel decode wait for
+ROADMAP A13 and A12.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch import sharding as sh
+from repro_torch.models import transformer
+from repro_torch.models.model import Model
+
+
+def _shard_fn(mesh):
+    if mesh is None:
+        return transformer._noshard
+    return sh.make_shard_fn(mesh, sh.rules_for(mesh))
+
+
+def make_prefill_step(model: Model, mesh=None) -> Callable:
+    """(params, batch, cache) -> (logits, cache). Writes positions
+    [0, S)."""
+    shard = _shard_fn(mesh)
+
+    @torch.no_grad()
+    def prefill(params, batch, cache):
+        logits, cache, _ = model.apply(params, batch, cache=cache,
+                                       shard=shard)
+        return logits, cache
+
+    return prefill
+
+
+def make_decode_step(model: Model, mesh=None) -> Callable:
+    """(params, tokens (B, 1), cache, extras) -> (logits (B, 1, V),
+    cache)."""
+    shard = _shard_fn(mesh)
+
+    @torch.no_grad()
+    def decode(params, tokens, cache, extras):
+        batch = {"tokens": tokens, **extras}
+        logits, cache, _ = model.apply(params, batch, cache=cache,
+                                       shard=shard)
+        return logits, cache
+
+    return decode
+
+
+@torch.no_grad()
+def generate(model: Model, params, prompts, *, max_new_tokens: int = 32,
+             max_seq: Optional[int] = None, temperature: float = 0.0,
+             generator: Optional[torch.Generator] = None, mesh=None,
+             eos_id: Optional[int] = None) -> torch.Tensor:
+    """Batched generation. prompts: (B, S0) integers -> (B, S0 + new) in
+    the prompts' dtype, on the weights' device."""
+    device = params.embed.device
+    prompts = torch.as_tensor(prompts).to(device)
+    B, S0 = prompts.shape
+    max_seq = max_seq or (S0 + max_new_tokens)
+    dtype = transformer.dtype_of(model.cfg.dtype)
+    params = transformer.cast_params(params, dtype)
+    cache = model.init_cache(B, max_seq, dtype, device=device)
+
+    prefill = make_prefill_step(model, mesh)
+    decode = make_decode_step(model, mesh)
+
+    logits, cache = prefill(params, {"tokens": prompts}, cache)
+    last = logits[:, -1]
+
+    def sample(logits_1):
+        if temperature <= 0.0:
+            return torch.argmax(logits_1, dim=-1).to(prompts.dtype)
+        probs = torch.softmax(logits_1.float() / temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
+            prompts.dtype)
+
+    out = [prompts]
+    tok = sample(last)[:, None]
+    done = torch.zeros((B,), dtype=torch.bool, device=device)
+    for i in range(max_new_tokens):
+        out.append(tok)
+        if eos_id is not None:
+            done = done | (tok[:, 0] == eos_id)
+            if bool(done.all()):
+                break  # every request hit EOS: stop decoding early
+        if i == max_new_tokens - 1:
+            break
+        logits, cache = decode(params, tok, cache, {})
+        tok = sample(logits[:, -1])[:, None]
+        if eos_id is not None:
+            # finished rows are held at EOS: their continuations never leak
+            tok = torch.where(done[:, None], eos_id, tok)
+    res = torch.cat(out, dim=1)
+    full = S0 + max_new_tokens
+    if res.shape[1] < full:  # early EOS stop: pad to the fixed output shape
+        pad = torch.full((B, full - res.shape[1]), eos_id, dtype=res.dtype,
+                         device=device)
+        res = torch.cat([res, pad], dim=1)
+    return res

@@ -10,10 +10,11 @@ the port sums in another order (and the reference's oracles use library
 products and solves), so agreement is to fp32 rounding, not bitwise. The
 CUDA kernels themselves need the card; ``chip_smoke.py`` holds them against
 these plain versions there. The guards below check, for every kernel in
-``ops.KERNELS``, that a CUDA tensor can only reach a kernel, that a wrapper
-never computes on the CPU, and that the build fails loudly. The other
-kernels' plain versions are held against the reference in
-``tests/test_torch_ptrans.py`` and ``tests/test_torch_legacy.py``.
+``ops.KERNELS`` (all eleven), that a CUDA tensor can only reach a kernel,
+that a wrapper never computes on the CPU, and that the build fails loudly.
+The other kernels' plain versions are held against the reference in
+``tests/test_torch_ptrans.py``, ``tests/test_torch_legacy.py`` and
+``tests/test_torch_attention.py``.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.gemm import fit_block as jfit_block
 from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels import attention as kattention
 from repro_torch.kernels import gemm as kgemm
 from repro_torch.kernels import lu as klu
 from repro_torch.kernels import stream as kstream
@@ -172,7 +174,7 @@ MODULE = {"gemm_update": kgemm, "matmul": kgemm, "lu_factor_block": klu,
           "trsm_lower_left": klu, "trsm_upper_right": klu,
           "transpose_add": ktranspose, "stream_copy": kstream,
           "stream_scale": kstream, "stream_add": kstream,
-          "stream_triad": kstream}
+          "stream_triad": kstream, "flash_attention": kattention}
 OPS_CALL = {
     "gemm_update": lambda m, v: ops.gemm_update(m, m, m),
     "lu_factor_block": lambda m, v: ops.lu_factor_block(m),
@@ -184,6 +186,8 @@ OPS_CALL = {
     "stream_add": lambda m, v: ops.stream_add(v, v),
     "stream_triad": lambda m, v: ops.stream_triad(v, v, 3.0),
     "matmul": lambda m, v: ops.matmul(m, m),
+    "flash_attention": lambda m, v: ops.flash_attention(
+        *(m.reshape(1, 32, 1, 32),) * 3),
 }
 WRAPPER_CALL = {
     "gemm_update": lambda t: kgemm.gemm_update(t, t, t),
@@ -196,15 +200,18 @@ WRAPPER_CALL = {
     "stream_add": lambda t: kstream.stream_add(t, t),
     "stream_triad": lambda t: kstream.stream_triad(t, t, 3.0),
     "matmul": lambda t: kgemm.matmul(t, t),
+    "flash_attention": lambda t: kattention.flash_attention(
+        *(t.reshape(1, 32, 1, 32),) * 3),
 }
 
 
 def test_registry_covers_every_kernel():
     assert set(MODULE) == set(OPS_CALL) == set(WRAPPER_CALL) \
         == set(ops.KERNELS) == set(ops.launch_counts())
-    assert len(ops.KERNELS) == 10
+    assert len(ops.KERNELS) == 11
     assert set(ops.HPL_KERNELS) | set(ops.STREAM_KERNELS) \
-        | {"transpose_add", "matmul"} == set(ops.KERNELS)
+        | set(ops.SERVE_KERNELS) | {"transpose_add", "matmul"} \
+        == set(ops.KERNELS)
 
 
 @pytest.mark.parametrize("name", ops.KERNELS)
@@ -254,13 +261,15 @@ def test_wrapper_entry_points_exist_in_sources():
     """Every C symbol a wrapper binds through ctypes is defined, with C
     linkage, in the CUDA sources (they compile only on the card)."""
     text = {p.stem: p.read_text() for p in _build.sources()}
-    assert set(text) == {"gemm_update", "lu", "stream", "transpose_add"}
+    assert set(text) == {"gemm_update", "lu", "stream", "transpose_add",
+                         "flash_attention"}
     wanted = {"gemm_update": list(kgemm._ENTRY.values())
               + list(kgemm._MATMUL_ENTRY.values()),
               "lu": ["repro_lu_factor_block_f32", "repro_trsm_lower_left_f32",
                      "repro_trsm_upper_right_f32"],
               "stream": list(kstream._ENTRY.values()),
-              "transpose_add": list(ktranspose._ENTRY.values())}
+              "transpose_add": list(ktranspose._ENTRY.values()),
+              "flash_attention": list(kattention._ENTRY.values())}
     for stem, names in wanted.items():
         for name in names:
             assert re.search(rf'extern "C" int {name}\(', text[stem]), name
