@@ -6,11 +6,16 @@
 Phases, one JSON line each:
 
 1. build     — compile every CUDA source of the port with nvcc (sm_90a);
-2. kernels   — hold each of the eleven kernels against its plain PyTorch
+2. kernels   — hold each of the twelve kernels against its plain PyTorch
                version on the card, at its main path's shapes (HPL:
                m = 16384, b = 64; transpose_add 16384^2; STREAM 2^28
                elements; matmul 8192^3; flash_attention at the serving
-               prefill, q 8x1024x24x128, k/v 8x1024x8x128, bf16, causal)
+               prefill, q 8x1024x24x128, k/v 8x1024x8x128, bf16, causal;
+               ring_add_step at the largest per-hop chunk of the allreduce
+               phase, 6,291,456 fp32, and at a 32 MiB bucket's chunk, 2^28
+               fp32 and bf16, aliased, misaligned, and ragged in fp32 and
+               fp16; its device time alone, from a torch.profiler trace, at
+               every hop chunk of the allreduce phase and at 2^21)
                and at ragged and strided shapes and in bf16, and time
                kernel, plain version and the nearest PyTorch library call
                (fp32 library calls run with TF32 off). matmul's limit is
@@ -51,10 +56,26 @@ Phases, one JSON line each:
                fp32 prefill (B = 1, S = 1024) through flash against the
                same prefill through the plain ``attention`` (``mesh=None``),
                within FP32_PREFILL_ATOL, which the bf16 prefill's logits
-               exceed.
+               exceed;
+11. allreduce — four processes on the one card, a gloo ring that stages
+               every payload through host memory, each holding the gradient
+               of one llama3.2-3b decoder layer at full width (9 fp32
+               leaves, 100.7 M elements, 403 MB) on the card: every
+               allreduce schedule's ``allreduce_tree`` (32 MiB buckets,
+               ``bucket_bytes_for``) bit for bit against the sum of the four
+               ranks' integer-valued trees on every rank (int8_ef on
+               block-representable ones), rs_ag also in one bucket, a
+               quarter-tree bucket and one leaf per bucket; then normal
+               leaves through rs_ag, bit for bit across the ranks and
+               against a replay of the ring's order of additions with the
+               plain ``ring_add_step``, launching the kernel 3 times per
+               bucket with a nonempty chunk, as counted from
+               ``pack_buckets``. Its times are the host's loopback,
+               not a link rate.
 
 Each main-path phase zeroes the launch counts just before it runs and reads
-them just after. Then the card's ``nvidia-smi`` name and power limit, the
+them just after (the allreduce phase in each rank's process, around each
+``allreduce_tree``). Then the card's ``nvidia-smi`` name and power limit, the
 per-kernel summary line ``{"kernels": [...]}`` (each kernel's launches from
 the phase that drives it), and last ``{"ok": true, "device": ...}``. Any
 failed check raises and the script exits non-zero. Without a CUDA device,
@@ -79,6 +100,9 @@ STREAM_ELEMS = 1 << 28
 M_GEMM = 8192
 # the serving path: llama3.2-3b, 8 requests x 1024 prompt tokens, 32 new
 SERVE_ARCH, SERVE_B, SERVE_S, SERVE_NEW = "llama3.2-3b", 8, 1024, 32
+# the allreduce path: one layer of SERVE_ARCH's gradient on a ring of four
+# processes sharing the card
+ALLREDUCE_RANKS, ALLREDUCE_TIMEOUT = 4, 600.0
 # fp32 prefill, flash vs plain attention: both are fp32 throughout and
 # differ only in the order of the attention's sums (a few ulps per layer),
 # on logits of rms about 1; one bf16 rounding anywhere moves them by ~1e-2
@@ -110,7 +134,8 @@ SOURCES = {"gemm_update": CSRC + "gemm_update.cu",
            "stream_add": CSRC + "stream.cu",
            "stream_triad": CSRC + "stream.cu",
            "matmul": CSRC + "gemm_update.cu",
-           "flash_attention": CSRC + "flash_attention.cu"}
+           "flash_attention": CSRC + "flash_attention.cu",
+           "ring_add_step": CSRC + "ring_add.cu"}
 REPLACES = {"gemm_update": "src/repro/kernels/gemm.py:82",
             "lu_factor_block": "src/repro/kernels/lu.py:49",
             "trsm_lower_left": "src/repro/kernels/lu.py:86",
@@ -121,7 +146,8 @@ REPLACES = {"gemm_update": "src/repro/kernels/gemm.py:82",
             "stream_add": "src/repro/kernels/stream.py:43",
             "stream_triad": "src/repro/kernels/stream.py:43",
             "matmul": "src/repro/kernels/gemm.py:45",
-            "flash_attention": "src/repro/kernels/attention.py:69"}
+            "flash_attention": "src/repro/kernels/attention.py:69",
+            "ring_add_step": "src/repro/kernels/ring.py:27"}
 
 
 def emit(obj) -> None:
@@ -146,6 +172,28 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def profiled_ms(torch, fn, iters: int) -> float:
+    """Device time per call of ``fn``, without the host's: the CUDA
+    activities of ``iters`` warm calls under torch.profiler, summed, over
+    ``iters``. Raises unless the trace holds one kernel per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evts = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    check(sum(e.count for e in evts) == iters,
+          f"the trace holds {[(e.key, e.count) for e in evts]}, not "
+          f"{iters} kernels")
+    return sum(e.self_device_time_total for e in evts) / 1e3 / iters
 
 
 def bound(nbytes: float, flops: float, peak_flops: float = FP32_FLOPS):
@@ -370,6 +418,7 @@ def phase_kernels(torch):
     checked += kernels_stream(torch, randn, rows)
     checked += kernels_matmul(torch, randn, rows)
     checked += kernels_flash(torch, randn, rows)
+    checked += kernels_ring(torch, randn, rows)
     torch.cuda.synchronize()
     emit({"phase": "kernels", "main_path_shapes": rows,
           "ragged_max_abs_err": {k: v[1] for k, v in ragged.items()},
@@ -682,6 +731,104 @@ def kernels_flash(torch, randn, rows):
                       f"more than one bf16 rounding: {label}: {err}")
         checked.append(f"flash_attention {label}: max_abs_err {err:.3g} <= "
                        f"{tol:g} + {FLASH_RTOL:g}|want|")
+    return checked
+
+
+def layer_hop_chunks(n: int, bucket_bytes=None):
+    """Elements per ring hop of each bucket of one SERVE_ARCH layer's
+    gradient on a ring of ``n`` (32 MiB buckets unless given)."""
+    from repro_torch.benchmarks.overlap_bench import hop_chunks, layer_shapes
+    from repro_torch.comm.overlap import DEFAULT_BUCKET_BYTES
+    from repro_torch.configs import get_config
+
+    return hop_chunks(layer_shapes(get_config(SERVE_ARCH)),
+                      bucket_bytes or DEFAULT_BUCKET_BYTES, n)
+
+
+def kernels_ring(torch, randn, rows):
+    """ring_add_step at the allreduce phase's largest hop chunk, bit for bit
+    with its plain version; then at a 32 MiB bucket's chunk (which the L2
+    holds), at 2^28 fp32 and bf16, into ``out = acc``, on a misaligned
+    view (the scalar path) and, through ``fused_chunk_add``, ragged fp32
+    and fp16 chunks, which launch the kernel once each. Then the kernel's
+    and ``torch.add``'s device time alone at every hop chunk of the
+    allreduce phase and at 2^21."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ring as kring
+
+    chunks = layer_hop_chunks(ALLREDUCE_RANKS)
+    hop = max(chunks)
+    bf16 = torch.bfloat16
+    cases = {"largest hop chunk": (hop, torch.float32, 200),
+             "32 MiB bucket chunk (L2)": (1 << 21, torch.float32, 500),
+             "2^28 fp32 (HBM)": (1 << 28, torch.float32, 20),
+             "2^28 bf16 (HBM)": (1 << 28, bf16, 20)}
+    shapes = {}
+    for label, (n, dt, iters) in cases.items():
+        a, b = randn(n // 128, 128, dtype=dt), randn(n // 128, 128, dtype=dt)
+        want = ref.ring_add_step(a, b)
+        check(bitwise(torch, kring.ring_add_step(a, b), want),
+              f"ring_add_step differs from its plain version: {label}")
+        acc = a.clone()
+        kring.ring_add_step(acc, b, out=acc)
+        check(bitwise(torch, acc, want),
+              f"ring_add_step into out=acc differs: {label}")
+        size = a.element_size()
+        bms, by = bound(3 * size * n, n)
+        shapes[label] = dict(
+            shape=f"({n // 128},128) {str(dt)[6:]}",
+            max_abs_err=max_abs(acc, want), tol="bitwise",
+            ms=cuda_ms(torch, lambda: kring.ring_add_step(a, b), iters=iters),
+            ms_in_place=cuda_ms(torch, lambda: kring.ring_add_step(
+                acc, b, out=acc), iters=iters),
+            plain_ms=cuda_ms(torch, lambda: ref.ring_add_step(a, b),
+                             iters=max(iters // 4, 5)),
+            bound_ms=bms, bound_by=by,
+            library_ms=cuda_ms(torch, lambda: torch.add(a, b), iters=iters),
+            library="torch.add(acc, recv)")
+        if 3 * size * n <= 50e6:
+            shapes[label]["note"] = ("three arrays of %.1f MB fit the 50 MB "
+                                     "L2: the HBM bound does not bind, and "
+                                     "ms is no reading against it"
+                                     % (size * n / 1e6))
+        del a, b, want, acc
+        torch.cuda.empty_cache()
+    rows["ring_add_step"] = shapes["largest hop chunk"]
+    checked = []
+    m = 128 * 4099
+    big = randn(2 * m + 3)
+    x, y = big[1:1 + m].view(-1, 128), big[m + 2:2 + 2 * m].view(-1, 128)
+    check(bitwise(torch, kring.ring_add_step(x, y), ref.ring_add_step(x, y)),
+          "ring_add_step differs on misaligned operands")
+    checked.append("ring_add_step misaligned 128x4099: bitwise")
+    for dt in (torch.float32, torch.float16):
+        r1, r2 = randn(128 * 1000 + 37, dtype=dt), randn(128 * 1000 + 37,
+                                                       dtype=dt)
+        before = kring.ring_add_step.launches
+        out = kring.fused_chunk_add(r1, r2)
+        check(kring.ring_add_step.launches == before + 1,
+              f"fused_chunk_add did not launch the kernel once for a ragged "
+              f"{dt} chunk")
+        check(bitwise(torch, out, ref.ring_add_step(r1, r2)),
+              f"fused_chunk_add differs from its plain version on a ragged "
+              f"{dt} chunk")
+        checked.append(f"fused_chunk_add ragged 128000+37 {str(dt)[6:]}: "
+                       "1 launch, bitwise")
+    # device time alone: at the L2-resident sizes the CUDA events of
+    # back-to-back calls also hold the wrapper's host time
+    device = {}
+    for n in sorted(set(chunks) | {1 << 21}):
+        a, b = randn(n // 128, 128), randn(n // 128, 128)
+        device[n] = dict(
+            ring_add_step_ms=profiled_ms(
+                torch, lambda: kring.ring_add_step(a, b, out=a), 200),
+            torch_add_ms=profiled_ms(
+                torch, lambda: torch.add(a, b, out=a), 200),
+            events_ms=cuda_ms(
+                torch, lambda: kring.ring_add_step(a, b, out=a), 200),
+            bound_ms=bound(12 * n, n)[0])
+    emit({"phase": "kernels.ring", "shapes": shapes, "hop_chunks": chunks,
+          "device_ms_in_place_fp32": device})
     return checked
 
 
@@ -1009,6 +1156,86 @@ def phase_serve(torch):
     return counts
 
 
+def phase_allreduce(torch):
+    """Four processes on the card reduce one llama3.2-3b layer's gradient
+    through ``allreduce_tree``: every schedule exact on integer leaves, rs_ag
+    in every bucket mode, and normal leaves through rs_ag bit for bit across
+    the ranks and against the plain replay, with the kernel launched as
+    often as ``pack_buckets`` says."""
+    from repro_torch.benchmarks import overlap_bench as ob
+    from repro_torch.comm.engine import schedules_for
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build, ops
+
+    n = ALLREDUCE_RANKS
+    cfg = get_config(SERVE_ARCH)
+    shapes = ob.layer_shapes(cfg)
+    schedules = schedules_for("allreduce")
+    runs = [(s, "model", "int8_exact" if s == "int8_ef" else "ints")
+            for s in schedules]
+    runs += [("rs_ag", m, "ints") for m in ("monolithic", "bucketed",
+                                            "leafwise")]
+    runs.append(("rs_ag", "model", "normal"))
+    # the children only load the libraries, and find the card's memory free
+    _build.build()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = ob.run(n, shapes, runs, seed=0, device="cuda",
+                     timeout=ALLREDUCE_TIMEOUT)
+    wall = time.perf_counter() - t0
+    check(all(v == 0 for v in ops.launch_counts().values()),
+          "the parent launched kernels during the allreduce phase")
+    expected = {}
+    table = {}
+    for i, (schedule, mode, kind) in enumerate(runs):
+        recs = [r[i] for r in results]
+        chunks = layer_hop_chunks(n, recs[0]["bucket_bytes"])
+        launching = sum(1 for c in chunks if c)
+        want = (n - 1) * launching if schedule in (
+            "rs_ag", "ring2d", "int8_ef") else 0
+        expected[f"{schedule}/{mode}/{kind}"] = want
+        for rank, rec in enumerate(recs):
+            what = f"{schedule}/{mode}/{kind} rank {rank}"
+            check(rec["device"].startswith("cuda"), f"{what} on {rec['device']}")
+            check(rec.get("exact", True), f"{what}: not the exact sum")
+            check(rec["launches"] == ({"ring_add_step": want} if want else {}),
+                  f"{what} launched {rec['launches']}, expected "
+                  f"ring_add_step {want}")
+            check(rec["staged_bytes"] > 0, f"{what} staged nothing")
+            check(rec["buckets"] == len(chunks), f"{what}: {rec['buckets']} "
+                  f"buckets, pack_buckets gives {len(chunks)}")
+        if kind == "normal":
+            check(all(rec["replay_equal"] for rec in recs),
+                  f"{schedule}/{mode}: differs from the plain replay of the "
+                  "ring's order")
+            check(len({rec["digest"] for rec in recs}) == 1,
+                  f"{schedule}/{mode}: ranks disagree")
+        table[f"{schedule}/{mode}/{kind}"] = dict(
+            seconds=max(rec["seconds"] for rec in recs),
+            bucket_bytes=recs[0]["bucket_bytes"], buckets=recs[0]["buckets"],
+            staged_bytes_per_rank=recs[0]["staged_bytes"],
+            ring_add_step_per_rank=recs[0]["launches"].get("ring_add_step", 0))
+    main = [r[-1] for r in results]
+    launches = main[0]["launches"].get("ring_add_step", 0)
+    emit({"phase": "allreduce", "arch": SERVE_ARCH, "ranks": n,
+          "transport": "gloo, staged through host memory; kernels on the card",
+          "layer_shapes": shapes, "bytes_per_rank": main[0]["bytes"],
+          "cut": f"depth only: one of {cfg.num_layers} layers (every layer's "
+                 "leaves pack into the same buckets; the whole gradient is "
+                 f"{cfg.param_count() * 4 / 1e9:.1f} GB per rank)",
+          "hop_chunks_32MiB": layer_hop_chunks(n),
+          "runs": table, "ring_add_step_expected": expected,
+          "main_path": "rs_ag/model/normal: bitwise across ranks and with "
+                       "the plain replay",
+          "wall_s": wall,
+          "what_the_time_measures": "the host's loopback (gloo on one "
+                                    "machine), not a link rate"})
+    return launches, sum(rec["launches"].get("ring_add_step", 0)
+                         for rec in main)
+
+
 def main() -> int:
     import torch
 
@@ -1039,6 +1266,7 @@ def main() -> int:
     launches["matmul"] = phase_gemm(torch)["matmul"]
     phase_cpu(torch)
     launches["flash_attention"] = phase_serve(torch)["flash_attention"]
+    launches["ring_add_step"], ring_all_ranks = phase_allreduce(torch)
 
     check(set(launches) == set(rows) == set(SOURCES),
           f"kernels {sorted(rows)} vs launches {sorted(launches)}")
@@ -1048,6 +1276,8 @@ def main() -> int:
                      replaces=REPLACES[name], launches=launches[name])
         if name in ops.HPL_KERNELS:
             entry["launches_per_factorization"] = per_fact[name]
+        if name in ops.ALLREDUCE_KERNELS:
+            entry["launches_all_ranks"] = ring_all_ranks
         entry.update(r)
         entry["kernel_ms"] = r["ms"]
         kernels.append(entry)

@@ -1,8 +1,9 @@
 """Collective engine: named communication schedules behind one API.
 
 Port of ``repro/comm/engine.py`` (registry ``:95-145``, bcast schedules
-``:191-289``, ring_exchange ``:510-528``, grid_transpose ``:536-588``,
-``CollectiveEngine`` ``:597-1000``). Every collective op has
+``:191-289``, allreduce schedules ``:344-505``, ring_exchange ``:510-528``,
+grid_transpose ``:536-588``, ``CollectiveEngine`` ``:597-1000``). Every
+collective op has
 named implementations ("schedules") registered against it, and a
 :class:`CollectiveEngine` selects one per op from ``(CommunicationType,
 schedule name)``. Callers hold an engine and never branch on comm or
@@ -11,19 +12,33 @@ schedule themselves.
 Where the reference runs inside ``shard_map`` and hops with ``ppermute``,
 the port runs in one process per rank (:mod:`repro_torch.launch.mesh`) and
 each ring hop is an ``isend``/``irecv`` pair to the axis neighbours, posted
-together with ``batch_isend_irecv`` and then awaited. Every schedule moves
-bytes only (no arithmetic on the payload), so all of them deliver the same
-bits. On a size-1 axis every schedule is the identity and touches no
-process group.
+together with ``batch_isend_irecv`` and then awaited. The bcast and
+exchange schedules move bytes only, so all of them deliver the same bits;
+the allreduce schedules add in the reference's order, so on the same inputs
+they give the reference's bits (``native`` and ``staged`` sum in the
+library's order). On a size-1 axis every schedule is the identity and
+touches no process group.
+
+Every payload move goes through one transport helper (:func:`_post` for
+point-to-point hops, :func:`_all_gather`, :func:`_broadcast` and
+:func:`_all_reduce` for the library collectives). On a gloo group with a
+CUDA payload it stages the bytes through host memory: it copies the payload
+to the host, sends and receives there, and copies what arrived back to the
+card, counting the bytes it copies (:func:`staged_bytes`). Only the bytes
+move: every schedule's arithmetic stays on the payload's device. On any
+other group (NCCL, one rank per card) device tensors move as they are.
 
 Ported so far: ``bcast`` with ``chain``, ``native``, ``staged``, ``ring2d``
-and ``chain_rooted``; ``ring_exchange`` with ``direct``/``chain`` and
+and ``chain_rooted``; ``allreduce`` with ``native``, ``chain``,
+``chain_rooted``, ``staged``, ``rs_ag``, ``ring2d`` and ``int8_ef``, and
+``allreduce_tree``; ``ring_exchange`` with ``direct``/``chain`` and
 ``staged``; ``grid_transpose`` with ``direct``/``chain``, ``staged`` and
 ``ring2d``, over the flattened torus (``ProcessMesh.grid``); and
-``pipelined`` for ``bcast`` and ``grid_transpose``. The other ops raise
-:class:`NotImplementedError` naming the ROADMAP item that ports them. Until
-the cost model is ported (ROADMAP A8), ``auto`` resolves to the static
-per-op default and ``nchunks="auto"`` to 1.
+``pipelined`` for ``bcast``, ``allreduce`` and ``grid_transpose``.
+``all_to_all_tiles`` raises :class:`NotImplementedError` naming the ROADMAP
+item that ports it. Until the cost model is ported (ROADMAP A8), ``auto``
+resolves to the static per-op default, ``nchunks="auto"`` to 1 and
+``bucket_bytes_for`` to ``DEFAULT_BUCKET_BYTES``.
 """
 from __future__ import annotations
 
@@ -33,8 +48,12 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch.comm.compression import dequantize_ef, quantize_ef
+from repro_torch.comm.overlap import (DEFAULT_BUCKET_BYTES, pack_buckets,
+                                      tree_flatten, tree_unflatten)
 from repro_torch.comm.topology import MeshTopology
 from repro_torch.comm.types import CommunicationType, comm_type
+from repro_torch.kernels.ring import fused_chunk_add
 
 OPS: Tuple[str, ...] = ("bcast", "all_to_all_tiles", "allreduce",
                         "ring_exchange", "grid_transpose")
@@ -54,7 +73,6 @@ _AUTO = {
 # the ROADMAP item that ports each op still missing
 _PORTED_BY = {
     "all_to_all_tiles": "A10 (routed RandomAccess) and A11 (MoE)",
-    "allreduce": "A7 (allreduce family)",
 }
 
 
@@ -96,29 +114,100 @@ def known_schedules() -> Tuple[str, ...]:
 # ---------------------------------------------------------------------------
 
 
-def _ring_shift(x: torch.Tensor, ax, shift: int = 1) -> torch.Tensor:
-    """Every rank of axis ``ax`` sends ``x`` to index ``+shift`` and returns
-    what index ``-shift`` sent: one hop of the ring."""
-    x = x.contiguous()
-    recv = torch.empty_like(x)
-    ops = [dist.P2POp(dist.isend, x, ax.global_rank(ax.index + shift),
-                      group=ax.group),
-           dist.P2POp(dist.irecv, recv, ax.global_rank(ax.index - shift),
-                      group=ax.group)]
+_STAGED = [0]  # bytes copied between card and host by the transport
+
+
+def staged_bytes() -> int:
+    """Bytes this process's transport has copied between a card and the
+    host (both directions) since the last :func:`reset_staged_bytes`."""
+    return _STAGED[0]
+
+
+def reset_staged_bytes() -> None:
+    _STAGED[0] = 0
+
+
+def _staged(ax, x: torch.Tensor) -> bool:
+    """Whether a payload on ``x``'s device moves through host memory on
+    ``ax``'s group: gloo sends and receives only host tensors."""
+    return x.device.type == "cuda" and dist.get_backend(ax.group) == "gloo"
+
+
+def _to_host(x: torch.Tensor) -> torch.Tensor:
+    # .cpu() waits for the stream that produced x
+    _STAGED[0] += x.numel() * x.element_size()
+    return x.cpu()
+
+
+def _to_device(h: torch.Tensor, device) -> torch.Tensor:
+    _STAGED[0] += h.numel() * h.element_size()
+    return h.to(device)
+
+
+def _post(ax, sends, recvs):
+    """Post every ``(tensor, global peer)`` of ``sends`` and every
+    ``(template, global peer)`` of ``recvs`` on ``ax``'s group in one batch,
+    wait for all, and return the received tensors (shaped and typed as
+    their templates, on their device). Per peer, sends and receives match
+    in posting order."""
+    stage = _staged(ax, sends[0][0])
+    bufs = [_to_host(t) if stage else t.contiguous() for t, _ in sends]
+    got = [torch.empty(t.shape, dtype=t.dtype,
+                       device="cpu" if stage else t.device)
+           for t, _ in recvs]
+    ops = [dist.P2POp(dist.isend, b, peer, group=ax.group)
+           for b, (_, peer) in zip(bufs, sends)]
+    ops += [dist.P2POp(dist.irecv, g, peer, group=ax.group)
+            for g, (_, peer) in zip(got, recvs)]
     for req in dist.batch_isend_irecv(ops):
         req.wait()
-    return recv
+    if stage:
+        got = [_to_device(g, t.device) for g, (t, _) in zip(got, recvs)]
+    return got
+
+
+def _ring_shift_all(xs, ax, shift: int = 1) -> list:
+    """Every rank of axis ``ax`` sends each tensor of ``xs`` to index
+    ``+shift`` and returns what index ``-shift`` sent, in one batch: one
+    hop of the ring."""
+    right = ax.global_rank(ax.index + shift)
+    left = ax.global_rank(ax.index - shift)
+    return _post(ax, [(x, right) for x in xs], [(x, left) for x in xs])
+
+
+def _ring_shift(x: torch.Tensor, ax, shift: int = 1) -> torch.Tensor:
+    return _ring_shift_all([x], ax, shift)[0]
 
 
 def _swap(x: torch.Tensor, ax, peer: int) -> torch.Tensor:
     """Send ``x`` to global rank ``peer`` and return what it sent back."""
-    x = x.contiguous()
-    recv = torch.empty_like(x)
-    ops = [dist.P2POp(dist.isend, x, peer, group=ax.group),
-           dist.P2POp(dist.irecv, recv, peer, group=ax.group)]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    return recv
+    return _post(ax, [(x, peer)], [(x, peer)])[0]
+
+
+def _all_gather(x: torch.Tensor, ax) -> list:
+    """Every rank's ``x`` along ``ax``, in axis-index order."""
+    stage = _staged(ax, x)
+    buf = _to_host(x) if stage else x.contiguous()
+    out = [torch.empty_like(buf) for _ in range(ax.size)]
+    dist.all_gather(out, buf, group=ax.group)
+    return [_to_device(o, x.device) for o in out] if stage else out
+
+
+def _broadcast(x: torch.Tensor, ax, src: int) -> torch.Tensor:
+    """Index ``src``'s ``x`` on every rank of ``ax``."""
+    stage = _staged(ax, x)
+    buf = _to_host(x) if stage else x.contiguous().clone()
+    dist.broadcast(buf, src=ax.global_rank(src), group=ax.group)
+    return _to_device(buf, x.device) if stage else buf
+
+
+def _all_reduce(x: torch.Tensor, ax) -> torch.Tensor:
+    """The library's sum of ``x`` over ``ax`` (gloo sums on the host, NCCL
+    on the cards)."""
+    stage = _staged(ax, x)
+    buf = _to_host(x) if stage else x.contiguous().clone()
+    dist.all_reduce(buf, group=ax.group)
+    return _to_device(buf, x.device) if stage else buf
 
 
 def _pack_chunks(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -152,9 +241,7 @@ def _bcast_native(engine, val, ax, src):
     # the library collective over the axis group
     if ax.size == 1:
         return val
-    out = val.contiguous().clone()
-    dist.broadcast(out, src=ax.global_rank(src), group=ax.group)
-    return out
+    return _broadcast(val, ax, src)
 
 
 @register_schedule("bcast", "staged")
@@ -163,10 +250,7 @@ def _bcast_staged(engine, val, ax, src):
     # route HOST_STAGED forces)
     if ax.size == 1:
         return val
-    val = val.contiguous()
-    allv = [torch.empty_like(val) for _ in range(ax.size)]
-    dist.all_gather(allv, val, group=ax.group)
-    return allv[src]
+    return _all_gather(val, ax)[src]
 
 
 def _cut_hop(engine, ax) -> int:
@@ -232,6 +316,149 @@ def _bcast_ring2d(engine, val, ax, src):
 
 
 # ---------------------------------------------------------------------------
+# allreduce schedules
+# ---------------------------------------------------------------------------
+#
+# Each takes ``axis`` as the caller gave it: a name or a tuple of names.
+# ``native``, ``chain`` and ``staged`` reduce over a tuple as one flattened
+# ring or group (the reference's ``axis_size(tuple)``); ``chain_rooted``,
+# ``rs_ag``, ``ring2d`` and ``int8_ef`` make one pass per axis, in order.
+
+
+def _axis_names(axis) -> Tuple:
+    return tuple(axis) if isinstance(axis, (tuple, list)) else (axis,)
+
+
+def _fused_add(acc, recv):
+    """acc += recv, in place on a row of a schedule's chunk stack: the
+    per-hop ``ring_add_step`` for floating dtypes (reference
+    ``engine.py:176-183``), the plain add otherwise. On the card the kernel
+    takes fp32, bf16 and fp16 and refuses fp64, which the reference (JAX
+    without x64) never holds."""
+    if acc.is_floating_point():
+        return fused_chunk_add(acc, recv, out=acc)
+    return torch.add(acc, recv, out=acc)
+
+
+@register_schedule("allreduce", "native")
+def _allreduce_native(engine, x, axis):
+    ax = engine._axis(axis)
+    if ax.size == 1:
+        return x
+    return _all_reduce(x, ax)
+
+
+@register_schedule("allreduce", "chain")
+def _allreduce_chain(engine, x, axis):
+    # ring reduce: n-1 full-payload hops, paper-style store-and-forward
+    ax = engine._axis(axis)
+    acc = buf = x
+    for _ in range(ax.size - 1):
+        buf = _ring_shift(buf, ax, +1)
+        acc = acc + buf
+    return acc
+
+
+@register_schedule("allreduce", "chain_rooted")
+def _allreduce_chain_rooted(engine, x, axis):
+    # Dead-link allreduce: reduce along the open path to its head, then
+    # chain-broadcast the total back. Path position 0 sits just past the
+    # cut; backward shifts bring position p the payload of position p+r,
+    # replaced by zeros whenever p+r walked off the path end (a
+    # contribution that would have crossed the cut), so the head holds the
+    # path-order sum. The return broadcast is the forward arm of the rooted
+    # chain, leaving every rank with the head's total.
+    for name in _axis_names(axis):
+        ax = engine._axis(name)
+        n = ax.size
+        if n == 1:
+            continue
+        pos = (ax.index - (_cut_hop(engine, ax) + 1)) % n
+        acc = buf = x
+        for r in range(1, n):
+            buf = _ring_shift(buf, ax, -1)
+            acc = acc + (buf if pos + r <= n - 1 else torch.zeros_like(buf))
+        x = acc
+        for _ in range(n - 1):
+            nxt = _ring_shift(x, ax, +1)
+            if pos > 0:
+                x = nxt
+    return x
+
+
+@register_schedule("allreduce", "staged")
+def _allreduce_staged(engine, x, axis):
+    # every byte transits the staging domain: all_gather, then a local sum
+    ax = engine._axis(axis)
+    if ax.size == 1:
+        return x
+    return torch.stack(_all_gather(x, ax)).sum(0, dtype=x.dtype)
+
+
+@register_schedule("allreduce", "rs_ag")
+def _allreduce_rs_ag(engine, x, axis):
+    # bandwidth-optimal ring allreduce: reduce-scatter then all-gather,
+    # 2(n-1)/n of the payload per link, one pass per torus dimension. The
+    # per-hop accumulate is ring_add_step, into the chunk stack in place.
+    for name in _axis_names(axis):
+        ax = engine._axis(name)
+        n, idx = ax.size, ax.index
+        if n == 1:
+            continue
+        stack = _pack_chunks(x, n).clone()
+        # reduce-scatter: step s sends chunk (idx-s) right and accumulates
+        # the incoming chunk (idx-1-s); then rank i owns chunk (i+1) % n
+        for s in range(n - 1):
+            recv = _ring_shift(stack[(idx - s) % n], ax, +1)
+            _fused_add(stack[(idx - 1 - s) % n], recv)
+        # all-gather: circulate the owned chunk around the ring
+        cur = stack[(idx + 1) % n]
+        for s in range(n - 1):
+            cur = _ring_shift(cur, ax, +1)
+            stack[(idx - s) % n] = cur
+        x = stack.reshape(-1)[: x.numel()].reshape(x.shape)
+    return x
+
+
+@register_schedule("allreduce", "ring2d")
+def _allreduce_ring2d(engine, x, axis):
+    # torus-aware row/column schedule: a ring reduce-scatter/all-gather per
+    # torus dimension. For a single axis this is exactly rs_ag.
+    return _allreduce_rs_ag(engine, x, axis)
+
+
+@register_schedule("allreduce", "int8_ef")
+def _allreduce_int8_ef(engine, x, axis):
+    # int8 block-quantized wire over the rs_ag ring: every reduce-scatter
+    # hop quantizes the outgoing partial-sum chunk and its requantization
+    # residual and moves both (with their scales); the receiver adds payload
+    # + residual into its fp32 chunk. The all-gather half quantizes each
+    # owner's reduced chunk once and forwards the wire unchanged, and every
+    # rank, the owner too, keeps the dequantized wire value, so all ranks
+    # agree bit for bit. Exact whenever every hop's chunk is
+    # block-representable. Error feedback across steps is the caller's
+    # (compression.compressed_psum).
+    for name in _axis_names(axis):
+        ax = engine._axis(name)
+        n, idx = ax.size, ax.index
+        if n == 1:
+            continue
+        stack = _pack_chunks(x.float(), n).clone()
+        shape, size = stack.shape[1:], stack.shape[1]
+        for s in range(n - 1):
+            wire = _ring_shift_all(quantize_ef(stack[(idx - s) % n]), ax)
+            _fused_add(stack[(idx - 1 - s) % n],
+                       dequantize_ef(*wire, shape, size))
+        wire = quantize_ef(stack[(idx + 1) % n])
+        stack[(idx + 1) % n] = dequantize_ef(*wire, shape, size)
+        for s in range(n - 1):
+            wire = _ring_shift_all(wire, ax)
+            stack[(idx - s) % n] = dequantize_ef(*wire, shape, size)
+        x = stack.reshape(-1)[: x.numel()].reshape(x.shape).to(x.dtype)
+    return x
+
+
+# ---------------------------------------------------------------------------
 # ring_exchange schedules (b_eff)
 # ---------------------------------------------------------------------------
 
@@ -245,16 +472,10 @@ def _exchange_direct(engine, x_fwd, x_bwd, ax):
     # on a size-2 ring (left == right) fwd still lands in recv_l.
     if ax.size == 1:
         return x_fwd, x_bwd
-    x_fwd, x_bwd = x_fwd.contiguous(), x_bwd.contiguous()
-    recv_l, recv_r = torch.empty_like(x_fwd), torch.empty_like(x_bwd)
     right = ax.global_rank(ax.index + 1)
     left = ax.global_rank(ax.index - 1)
-    ops = [dist.P2POp(dist.isend, x_fwd, right, group=ax.group),
-           dist.P2POp(dist.irecv, recv_l, left, group=ax.group),
-           dist.P2POp(dist.isend, x_bwd, left, group=ax.group),
-           dist.P2POp(dist.irecv, recv_r, right, group=ax.group)]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
+    recv_l, recv_r = _post(ax, [(x_fwd, right), (x_bwd, left)],
+                           [(x_fwd, left), (x_bwd, right)])
     return recv_l, recv_r
 
 
@@ -263,11 +484,7 @@ def _exchange_staged(engine, x_fwd, x_bwd, ax):
     # both buffers transit the staging domain (all_gather + select)
     if ax.size == 1:
         return x_fwd, x_bwd
-    x_fwd, x_bwd = x_fwd.contiguous(), x_bwd.contiguous()
-    all_f = [torch.empty_like(x_fwd) for _ in range(ax.size)]
-    all_b = [torch.empty_like(x_bwd) for _ in range(ax.size)]
-    dist.all_gather(all_f, x_fwd, group=ax.group)
-    dist.all_gather(all_b, x_bwd, group=ax.group)
+    all_f, all_b = _all_gather(x_fwd, ax), _all_gather(x_bwd, ax)
     return all_f[(ax.index - 1) % ax.size], all_b[(ax.index + 1) % ax.size]
 
 
@@ -296,10 +513,7 @@ def _transpose_staged(engine, x, grid, pg):
     if pg == 1:
         return x
     r, c = divmod(grid.index, pg)
-    x = x.contiguous()
-    allx = [torch.empty_like(x) for _ in range(grid.size)]
-    dist.all_gather(allx, x, group=grid.group)
-    return allx[c * pg + r]
+    return _all_gather(x, grid)[c * pg + r]
 
 
 @register_schedule("grid_transpose", "ring2d")
@@ -404,7 +618,14 @@ class CollectiveEngine:
         if self.mesh is None:
             raise ValueError("the engine has no mesh to communicate over; "
                              "build it with CollectiveEngine.for_mesh")
+        if isinstance(axis, (tuple, list)) and len(axis) == 1:
+            axis = axis[0]
         return self.mesh.axis(axis)  # raises KeyError with the known axes
+
+    def _check_axis(self, axis) -> None:
+        """Raise KeyError unless every name of ``axis`` is a mesh axis."""
+        for name in _axis_names(axis):
+            self._axis(name)
 
     def pipeline_chunks(self, op: str, *, nbytes: Optional[int] = None,
                         axis=None, schedule: Optional[str] = None,
@@ -435,8 +656,56 @@ class CollectiveEngine:
     def all_to_all_tiles(self, *args, **kw):
         raise _not_ported("all_to_all_tiles")
 
-    def allreduce(self, *args, **kw):
-        raise _not_ported("allreduce")
+    def allreduce(self, x: torch.Tensor, axis, *,
+                  schedule: Optional[str] = None,
+                  callsite: Optional[str] = None) -> torch.Tensor:
+        """Sum ``x`` over all ranks of ``axis`` (a name or a tuple of
+        names). Every rank passes a tensor of one shape and dtype."""
+        self._check_axis(axis)
+        name = self.schedule_for("allreduce", schedule,
+                                 nbytes=x.numel() * x.element_size(),
+                                 axis=axis, callsite=callsite)
+        return _REGISTRY["allreduce"][name](self, x, axis)
+
+    def bucket_bytes_for(self, axis) -> int:
+        """Bucket size for :meth:`allreduce_tree` over ``axis``:
+        ``DEFAULT_BUCKET_BYTES`` (32 MiB), as the reference falls back to
+        it, until ``derive_bucket_bytes`` is ported with the cost model
+        (ROADMAP A8)."""
+        self._check_axis(axis)
+        return DEFAULT_BUCKET_BYTES
+
+    def allreduce_tree(self, tree, axis, *, bucket_bytes: Optional[int] = None,
+                       schedule: Optional[str] = None,
+                       callsite: Optional[str] = None):
+        """Sum a tree of tensors over ``axis`` in ~``bucket_bytes`` buckets.
+
+        Leaves (in ``jax.tree`` order: dict keys sorted) are packed greedily
+        in order (:func:`pack_buckets`); each bucket's same-dtype leaves are
+        flattened into one payload, concatenated in leaf order, and reduced
+        by the allreduce schedule. Zero-size leaves pass through untouched.
+        ``bucket_bytes=None`` takes :meth:`bucket_bytes_for`. Returns a new
+        tree of the same structure."""
+        self._check_axis(axis)
+        if bucket_bytes is None:
+            bucket_bytes = self.bucket_bytes_for(axis)
+        leaves, spec = tree_flatten(tree)
+        out = list(leaves)
+        for bucket in pack_buckets(leaves, bucket_bytes):
+            groups: Dict = {}
+            for i in bucket:
+                if leaves[i].numel():
+                    groups.setdefault(leaves[i].dtype, []).append(i)
+            for idxs in groups.values():
+                flat = torch.cat([leaves[i].reshape(-1) for i in idxs])
+                red = self.allreduce(flat, axis, schedule=schedule,
+                                     callsite=callsite)
+                off = 0
+                for i in idxs:
+                    n = leaves[i].numel()
+                    out[i] = red[off:off + n].reshape(leaves[i].shape)
+                    off += n
+        return tree_unflatten(spec, out)
 
     def ring_exchange(self, x_fwd: torch.Tensor, x_bwd: torch.Tensor,
                       axis: str, *, schedule: Optional[str] = None,
@@ -480,23 +749,27 @@ class CollectiveEngine:
         it lands. The results are concatenated along ``concat_axis``
         (default ``split_axis``). ``nchunks`` is clamped to the strips
         available; ``"auto"`` resolves through :meth:`pipeline_chunks`.
-        Every chunking equals the monolithic op bit for bit, since chunk
-        boundaries only partition the payload. The schedule is resolved
-        once, at the full payload.
+        For bcast and grid_transpose every chunking equals the monolithic
+        op bit for bit, since chunk boundaries only partition the payload;
+        an allreduce strip sums each element over the same ranks, so on
+        integer-valued payloads every chunking is exact too (with floats a
+        ring schedule's chunk layout, and so its order of additions, moves
+        with the strips). The schedule is resolved once, at the full
+        payload.
 
         Extra operands ride ``opkw``: ``src=`` for bcast, ``pg=`` for
-        grid_transpose. ``allreduce`` and ``all_to_all_tiles`` arrive with
-        their ops (ROADMAP A7, A10)."""
-        if op in ("allreduce", "all_to_all_tiles"):
+        grid_transpose. ``all_to_all_tiles`` arrives with its op (ROADMAP
+        A10)."""
+        if op == "all_to_all_tiles":
             raise NotImplementedError(
-                f"pipelined({op!r}) is not ported yet: ROADMAP A7 "
-                "(allreduce) and A10 (all_to_all_tiles)")
-        supported = ("bcast", "grid_transpose")
+                "pipelined('all_to_all_tiles') is not ported yet: ROADMAP "
+                "A10 (all_to_all_tiles)")
+        supported = ("bcast", "allreduce", "grid_transpose")
         if op not in supported:
             raise ValueError(f"pipelined supports single-payload ops "
                              f"{supported}, got {op!r}")
-        required = {"bcast": "src", "grid_transpose": "pg"}[op]
-        if required not in opkw:
+        required = {"bcast": "src", "grid_transpose": "pg"}.get(op)
+        if required is not None and required not in opkw:
             raise ValueError(f"pipelined({op!r}) requires the {required}= "
                              "operand")
         size = x.shape[split_axis]
@@ -516,6 +789,9 @@ class CollectiveEngine:
             if op == "bcast":
                 out = self.bcast(strip, axis, opkw["src"], schedule=resolved,
                                  callsite=callsite)
+            elif op == "allreduce":
+                out = self.allreduce(strip, axis, schedule=resolved,
+                                     callsite=callsite)
             else:
                 out = self.grid_transpose(strip, axis, opkw["pg"],
                                           schedule=resolved,

@@ -18,8 +18,13 @@ routes (``min(bq, Sq)`` and ``min(bk, Skv)`` must divide Sq and Skv); the
 CPU route computes over those blocks, the CUDA kernel over its own fixed
 tiles, which does not change the result beyond fp32 rounding.
 
-Eleven kernels: the four HPL kernels, ``transpose_add`` (PTRANS), the four
-STREAM ops, ``matmul`` (GEMM) and ``flash_attention`` (LM prefill).
+``ring_add_step`` keeps the reference's (rows, 128) assert on both routes
+and takes an optional ``out`` (which may be ``acc``), so the engine can
+accumulate into its chunk stack in place.
+
+Twelve kernels: the four HPL kernels, ``transpose_add`` (PTRANS), the four
+STREAM ops, ``matmul`` (GEMM), ``flash_attention`` (LM prefill) and
+``ring_add_step`` (the allreduce family's per-hop add).
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ from repro_torch.kernels import attention as _attention
 from repro_torch.kernels import gemm as _gemm
 from repro_torch.kernels import lu as _lu
 from repro_torch.kernels import ref
+from repro_torch.kernels import ring as _ring
 from repro_torch.kernels import stream as _stream
 from repro_torch.kernels import transpose as _transpose
 from repro_torch.kernels.gemm import fit_block  # noqa: F401  (public)
@@ -38,11 +44,12 @@ from repro_torch.kernels.gemm import fit_block  # noqa: F401  (public)
 KERNELS = ("gemm_update", "lu_factor_block", "trsm_lower_left",
            "trsm_upper_right", "transpose_add", "stream_copy",
            "stream_scale", "stream_add", "stream_triad", "matmul",
-           "flash_attention")
+           "flash_attention", "ring_add_step")
 # the kernels each benchmark's main path launches
 HPL_KERNELS = KERNELS[:4]
 STREAM_KERNELS = KERNELS[5:9]
 SERVE_KERNELS = ("flash_attention",)
+ALLREDUCE_KERNELS = ("ring_add_step",)
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -127,6 +134,14 @@ def flash_attention(q, k, v, *, causal=True, q_offset=0, bq=512, bk=512):
                                bq=bq, bk=bk)
 
 
+def ring_add_step(acc, recv, *, out=None):
+    _ring.check_operands(acc, recv, out)
+    if _on_card(acc):
+        return _ring.ring_add_step(acc, recv, out=out)
+    res = ref.ring_add_step(acc, recv)
+    return res if out is None else out.copy_(res)
+
+
 def _wrappers():
     return {"gemm_update": _gemm.gemm_update,
             "lu_factor_block": _lu.lu_factor_block,
@@ -138,7 +153,8 @@ def _wrappers():
             "stream_add": _stream.stream_add,
             "stream_triad": _stream.stream_triad,
             "matmul": _gemm.matmul,
-            "flash_attention": _attention.flash_attention}
+            "flash_attention": _attention.flash_attention,
+            "ring_add_step": _ring.ring_add_step}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -11,8 +11,8 @@ around it are. So a lookahead strip update equals the full update
 restricted to that strip bit for bit, on the CPU as on the card. The GEMM,
 LU and solve kernels contract each multiply-add into one fused operation,
 so kernel and plain version agree to rounding, not bitwise. The transpose-
-add and STREAM kernels round once per operation, as these do, so they agree
-bit for bit.
+add, STREAM and ring-add kernels round once per operation, as these do, so
+they agree bit for bit.
 
 The attention versions are the exception: ``attention`` is the dense
 oracle, and ``flash_attention`` follows the flash kernel's online softmax
@@ -62,6 +62,11 @@ def stream_scale(c: torch.Tensor, alpha: float) -> torch.Tensor:
 
 def stream_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.float() + b.float()).to(a.dtype)
+
+
+def ring_add_step(acc: torch.Tensor, recv: torch.Tensor) -> torch.Tensor:
+    """One ring hop's accumulate: acc + recv in fp32, cast to acc's dtype."""
+    return (acc.float() + recv.float()).to(acc.dtype)
 
 
 def stream_triad(b: torch.Tensor, c: torch.Tensor,

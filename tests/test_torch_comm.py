@@ -121,11 +121,11 @@ def test_schedule_for_rules():
     with pytest.raises(ValueError):
         eng.schedule_for("gather")
     assert engine.known_schedules() == \
-        ("auto", "chain", "chain_rooted", "direct", "native", "ring2d",
-         "staged")
+        ("auto", "chain", "chain_rooted", "direct", "int8_ef", "native",
+         "ring2d", "rs_ag", "staged")
 
 
-@pytest.mark.parametrize("op", ["all_to_all_tiles", "allreduce"])
+@pytest.mark.parametrize("op", ["all_to_all_tiles"])
 def test_unported_ops_name_their_roadmap_item(op):
     eng = CollectiveEngine.for_mesh(single_rank_mesh())
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
@@ -134,13 +134,23 @@ def test_unported_ops_name_their_roadmap_item(op):
         eng.schedule_for(op)
 
 
-@pytest.mark.parametrize("op", ["ring_exchange", "grid_transpose"])
+@pytest.mark.parametrize("op", ["ring_exchange", "grid_transpose",
+                                "allreduce"])
 def test_ported_exchanges_on_single_rank_are_identity(op):
     """On the 1x1 mesh (and the size-1 ring) every schedule of the two
-    exchanges returns its input and touches no process group."""
+    exchanges and of the allreduce returns its input and touches no process
+    group."""
     x, y = torch.arange(12.0).reshape(3, 4), torch.arange(5.0)
     for schedule in engine.schedules_for(op):
-        if op == "ring_exchange":
+        if op == "allreduce":
+            for mesh, axis in ((single_rank_mesh(("x",)), "x"),
+                               (single_rank_mesh(), ("rows", "cols"))):
+                eng = CollectiveEngine.for_mesh(mesh, schedule=schedule)
+                assert eng.allreduce(x, axis) is x
+                tree = eng.allreduce_tree({"w": x, "b": y}, axis,
+                                          bucket_bytes=16)
+                assert torch.equal(tree["w"], x) and torch.equal(tree["b"], y)
+        elif op == "ring_exchange":
             eng = CollectiveEngine.for_mesh(single_rank_mesh(("x",)),
                                             schedule=schedule)
             got = eng.ring_exchange(x, y, "x")

@@ -10,7 +10,7 @@ the port sums in another order (and the reference's oracles use library
 products and solves), so agreement is to fp32 rounding, not bitwise. The
 CUDA kernels themselves need the card; ``chip_smoke.py`` holds them against
 these plain versions there. The guards below check, for every kernel in
-``ops.KERNELS`` (all eleven), that a CUDA tensor can only reach a kernel,
+``ops.KERNELS`` (all twelve), that a CUDA tensor can only reach a kernel,
 that a wrapper never computes on the CPU, and that the build fails loudly.
 The other kernels' plain versions are held against the reference in
 ``tests/test_torch_ptrans.py``, ``tests/test_torch_legacy.py`` and
@@ -32,6 +32,7 @@ from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels import attention as kattention
 from repro_torch.kernels import gemm as kgemm
 from repro_torch.kernels import lu as klu
+from repro_torch.kernels import ring as kring
 from repro_torch.kernels import stream as kstream
 from repro_torch.kernels import transpose as ktranspose
 from repro_torch.kernels.gemm import fit_block
@@ -174,7 +175,8 @@ MODULE = {"gemm_update": kgemm, "matmul": kgemm, "lu_factor_block": klu,
           "trsm_lower_left": klu, "trsm_upper_right": klu,
           "transpose_add": ktranspose, "stream_copy": kstream,
           "stream_scale": kstream, "stream_add": kstream,
-          "stream_triad": kstream, "flash_attention": kattention}
+          "stream_triad": kstream, "flash_attention": kattention,
+          "ring_add_step": kring}
 OPS_CALL = {
     "gemm_update": lambda m, v: ops.gemm_update(m, m, m),
     "lu_factor_block": lambda m, v: ops.lu_factor_block(m),
@@ -188,6 +190,8 @@ OPS_CALL = {
     "matmul": lambda m, v: ops.matmul(m, m),
     "flash_attention": lambda m, v: ops.flash_attention(
         *(m.reshape(1, 32, 1, 32),) * 3),
+    "ring_add_step": lambda m, v: ops.ring_add_step(v.reshape(2, 128),
+                                                    v.reshape(2, 128)),
 }
 WRAPPER_CALL = {
     "gemm_update": lambda t: kgemm.gemm_update(t, t, t),
@@ -202,16 +206,17 @@ WRAPPER_CALL = {
     "matmul": lambda t: kgemm.matmul(t, t),
     "flash_attention": lambda t: kattention.flash_attention(
         *(t.reshape(1, 32, 1, 32),) * 3),
+    "ring_add_step": lambda t: kring.ring_add_step(t, t),
 }
 
 
 def test_registry_covers_every_kernel():
     assert set(MODULE) == set(OPS_CALL) == set(WRAPPER_CALL) \
         == set(ops.KERNELS) == set(ops.launch_counts())
-    assert len(ops.KERNELS) == 11
+    assert len(ops.KERNELS) == 12
     assert set(ops.HPL_KERNELS) | set(ops.STREAM_KERNELS) \
-        | set(ops.SERVE_KERNELS) | {"transpose_add", "matmul"} \
-        == set(ops.KERNELS)
+        | set(ops.SERVE_KERNELS) | set(ops.ALLREDUCE_KERNELS) \
+        | {"transpose_add", "matmul"} == set(ops.KERNELS)
 
 
 @pytest.mark.parametrize("name", ops.KERNELS)
@@ -262,14 +267,15 @@ def test_wrapper_entry_points_exist_in_sources():
     linkage, in the CUDA sources (they compile only on the card)."""
     text = {p.stem: p.read_text() for p in _build.sources()}
     assert set(text) == {"gemm_update", "lu", "stream", "transpose_add",
-                         "flash_attention"}
+                         "flash_attention", "ring_add"}
     wanted = {"gemm_update": list(kgemm._ENTRY.values())
               + list(kgemm._MATMUL_ENTRY.values()),
               "lu": ["repro_lu_factor_block_f32", "repro_trsm_lower_left_f32",
                      "repro_trsm_upper_right_f32"],
               "stream": list(kstream._ENTRY.values()),
               "transpose_add": list(ktranspose._ENTRY.values()),
-              "flash_attention": list(kattention._ENTRY.values())}
+              "flash_attention": list(kattention._ENTRY.values()),
+              "ring_add": list(kring._ENTRY.values())}
     for stem, names in wanted.items():
         for name in names:
             assert re.search(rf'extern "C" int {name}\(', text[stem]), name
