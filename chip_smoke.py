@@ -10,24 +10,30 @@ Phases, one JSON line each:
                version on the card, at its main path's shapes (HPL:
                m = 16384, b = 64; transpose_add 16384^2; STREAM 2^28
                elements; matmul 8192^3; flash_attention at the serving
-               prefill, q 8x1024x24x128, k/v 8x1024x8x128, bf16, causal;
-               ring_add_step at the largest per-hop chunk of the allreduce
-               phase, 6,291,456 fp32, and at a 32 MiB bucket's chunk, 2^28
-               fp32 and bf16, aliased, misaligned, and ragged in fp32 and
-               fp16; its device time alone, from a torch.profiler trace, at
-               every hop chunk of the allreduce phase and at 2^21)
-               and at ragged and strided shapes and in bf16, and time
-               kernel, plain version and the nearest PyTorch library call
-               (fp32 library calls run with TF32 off). matmul's limit is
-               fp32 rounding, which a TF32 product and a dropped K step
-               both exceed; flash_attention's limit (tests/test_kernels.py:
-               atol 8e-2 bf16, 2e-4 fp32, rtol 2e-2) refuses the kernel with
-               its causal mask off and with the wrong kv head, and in bf16
-               it is also held within one bf16 ulp of |want| plus 1e-3,
-               which refuses a kernel that drops the last q tile's diagonal
-               kv tile, or only the last query's own key (a fault small
-               enough to pass the reference limit), or shifts the mask by
-               one key in the late rows; the run shows that they do;
+               prefill, q 8x1024x24x128, k/v 8x1024x8x128, bf16, causal,
+               on its tensor-core route, and the same shape in fp32 on its
+               SIMT route; ring_add_step at the largest per-hop chunk of
+               the allreduce phase, 6,291,456 fp32, and at a 32 MiB
+               bucket's chunk, 2^28 fp32 and bf16, aliased, misaligned, and
+               ragged in fp32 and fp16; its device time alone, from a
+               torch.profiler trace, at every hop chunk of the allreduce
+               phase and at 2^21) and at ragged and strided shapes and in
+               bf16, and time kernel, plain version and the nearest PyTorch
+               library call (fp32 library calls run with TF32 off).
+               matmul's limit is fp32 rounding, which a TF32 product and a
+               dropped K step both exceed, and its sums must equal
+               gemm_update's order (C = 0 + 1 * A @ B) exactly;
+               flash_attention's limit (tests/test_kernels.py: atol 8e-2
+               bf16, 2e-4 fp32, rtol 2e-2) refuses the kernel with its
+               causal mask off and with the wrong kv head, and in bf16 it is
+               also held within one bf16 ulp of |want| plus 1e-3, which
+               refuses a kernel that drops the last q tile's diagonal kv
+               tile, or only the last query's own key (a fault small enough
+               to pass the reference limit), or shifts the mask by one key
+               in the late rows; the run shows that they do. Every bf16
+               flash call must launch on the ``wgmma_bf16`` route, every
+               fp32 one on ``simt_f32``; flash's TFLOP/s and its share of
+               the bf16 tensor-core bound are printed;
 3. hpl       — ``run_hpl`` on the 1x1 grid at n = 16384, b = 64: residual
                < 1, GFLOP/s, and each HPL kernel launched nb = 256 times per
                factorization;
@@ -49,14 +55,15 @@ Phases, one JSON line each:
 10. serve    — llama3.2-3b at full width and depth (28 layers, random
                weights from seed 0): ``generate`` on the one-rank mesh, 8
                requests x 1024 prompt tokens, 32 new tokens, greedy: 28
-               flash launches in the prefill and none in decode, output
+               flash launches in the prefill, all on ``wgmma_bf16``, and
+               none in decode, output
                (8, 1056) keeping the prompts, two runs bit-identical; the
                prefill and decode steps timed apart (prompt tokens/s, decode
                ms per step p50, generated tokens/s, peak memory); and an
-               fp32 prefill (B = 1, S = 1024) through flash against the
-               same prefill through the plain ``attention`` (``mesh=None``),
-               within FP32_PREFILL_ATOL, which the bf16 prefill's logits
-               exceed;
+               fp32 prefill (B = 1, S = 1024) through flash (28 launches
+               on ``simt_f32``) against the same prefill through the plain
+               ``attention`` (``mesh=None``), within FP32_PREFILL_ATOL,
+               which the bf16 prefill's logits exceed;
 11. allreduce — four processes on the one card, a gloo ring that stages
                every payload through host memory, each holding the gradient
                of one llama3.2-3b decoder layer at full width (9 fp32
@@ -133,7 +140,7 @@ SOURCES = {"gemm_update": CSRC + "gemm_update.cu",
            "stream_scale": CSRC + "stream.cu",
            "stream_add": CSRC + "stream.cu",
            "stream_triad": CSRC + "stream.cu",
-           "matmul": CSRC + "gemm_update.cu",
+           "matmul": CSRC + "matmul.cu",
            "flash_attention": CSRC + "flash_attention.cu",
            "ring_add_step": CSRC + "ring_add.cu"}
 REPLACES = {"gemm_update": "src/repro/kernels/gemm.py:82",
@@ -557,13 +564,19 @@ def kernels_matmul(torch, randn, rows):
     check(not ok_tf32 and not ok_drop,
           f"matmul's limit {atol} passes a TF32 product ({err_tf32}) or a "
           f"dropped K step ({err_drop})")
-    del got, want, tf32
+    # the order of sums is gemm_update's (ascending k, one FMA each from 0):
+    # C = 0 + 1 * sum equals the sum, up to the sign of a zero
+    order = kgemm.gemm_update(torch.zeros_like(got), a, b, alpha=1.0)
+    check(torch.equal(got, order), "matmul's sums differ from gemm_update's "
+                                   f"order: {max_abs(got, order)}")
+    del got, want, tf32, order
     torch.cuda.empty_cache()
     bms, by = bound(3 * 4 * m * m, 2 * m ** 3)
     rows["matmul"] = dict(
         shape=f"A({m},{m}) B({m},{m}) fp32", max_abs_err=err,
         max_abs_err_vs_library=err_lib,
         tol={"atol": atol, "rtol": 0.0, "rule": "16 eps K rms(a) rms(b)"},
+        equals_gemm_update_order=True,
         limit_rejects={"tf32_max_abs_err": err_tf32,
                        "dropped_k_step_max_abs_err": err_drop},
         ms=cuda_ms(torch, lambda: kgemm.matmul(a, b), iters=5, warmup=1),
@@ -634,14 +647,29 @@ def flash_faults(kfa, got, q, k, v):
             "mask_off_by_one_late_rows": shifted}
 
 
+def on_route(kfa, route, fn):
+    """``fn()``, which must launch flash_attention once, on ``route``."""
+    before = dict(kfa.flash_attention.launches_by_route)
+    out = fn()
+    delta = {r: n - before[r]
+             for r, n in kfa.flash_attention.launches_by_route.items()}
+    check(delta == {r: int(r == route) for r in delta},
+          f"flash_attention launched {delta}, expected one launch on {route}")
+    return out
+
+
 def kernels_flash(torch, randn, rows):
     """flash_attention at the serving prefill's shape (bf16, causal)
     against its plain version, within tests/test_kernels.py's bf16 limit
     and within FLASH_TIGHT (one bf16 ulp of |want| plus fp32 slack). The
     reference limit must refuse the kernel with its causal mask off and
     with the wrong kv head; the tight one must also refuse the three
-    faults of ``flash_faults``, which move only late rows. Then fp32, MQA, head dims 64 and 32,
-    non-causal, a q_offset and ragged lengths."""
+    faults of ``flash_faults``, which move only late rows. The same shape
+    in fp32 on its own route, timed. Then fp32 and bf16 cases: MQA, head
+    dims 64 and 32, non-causal GQA, q_offsets and ragged lengths (Sq = Skv
+    = 1000 is no multiple of the bf16 kernel's 128-row tile). Every bf16
+    call must run on the ``wgmma_bf16`` route and every fp32 call on
+    ``simt_f32``."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import attention as kfa
@@ -652,7 +680,8 @@ def kernels_flash(torch, randn, rows):
     q, k, v = randn(B, S, H, hd, dtype=bf16), randn(B, S, KV, hd, dtype=bf16), \
         randn(B, S, KV, hd, dtype=bf16)
     atol = FLASH_ATOL["bfloat16"]
-    got = kfa.flash_attention(q, k, v, causal=True)
+    got = on_route(kfa, "wgmma_bf16",
+                   lambda: kfa.flash_attention(q, k, v, causal=True))
     want = ref.flash_attention(q, k, v, causal=True)
     ok, err = allclose(torch, got, want, FLASH_RTOL, atol)
     check(ok, f"flash_attention disagrees with its plain version at the "
@@ -688,22 +717,54 @@ def kernels_flash(torch, randn, rows):
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, out, k, v
     flops = flash_flops(B, H, S, S, hd, True)
     bms, by = bound(nbytes, flops)
+    bms16 = bound(nbytes, flops, BF16_TENSOR_FLOPS)[0]
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    ms = cuda_ms(torch, lambda: kfa.flash_attention(q, k, v), iters=20)
     rows["flash_attention"] = dict(
         shape=f"q({B},{S},{H},{hd}) k,v({B},{S},{KV},{hd}) bf16 causal",
-        max_abs_err=err, tol={"atol": atol, "rtol": FLASH_RTOL},
-        tight_tol=FLASH_TIGHT, limit_rejects=rejects,
-        ms=cuda_ms(torch, lambda: kfa.flash_attention(q, k, v), iters=20),
+        kernel_route="wgmma_bf16", max_abs_err=err,
+        tol={"atol": atol, "rtol": FLASH_RTOL},
+        tight_tol=FLASH_TIGHT, limit_rejects=rejects, ms=ms,
         plain_ms=cuda_ms(torch, lambda: ref.flash_attention(q, k, v),
                          iters=3, warmup=1),
-        bound_ms=bms, bound_by=by,
+        bound_ms=bms, bound_by=by, bound_bf16_tensor_ms=bms16,
         library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), iters=20),
         library="F.scaled_dot_product_attention(is_causal=True, "
                 "enable_gqa=True), bf16")
+    del qt, kt, vt
+    # the fp32 route at the same shape
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    del q, k, v
+    got = on_route(kfa, "simt_f32", lambda: kfa.flash_attention(q32, k32, v32))
+    want = ref.flash_attention(q32, k32, v32)
+    ok, err32 = allclose(torch, got, want, FLASH_RTOL, FLASH_ATOL["float32"])
+    check(ok, f"flash_attention fp32 disagrees with its plain version at the "
+              f"serving shape: {err32}")
+    del got, want
+    qt, kt, vt = q32.transpose(1, 2), k32.transpose(1, 2), v32.transpose(1, 2)
+    bms32, by32 = bound(2 * nbytes, flops)
+    simt = dict(
+        shape=f"q({B},{S},{H},{hd}) k,v({B},{S},{KV},{hd}) fp32 causal",
+        kernel_route="simt_f32", max_abs_err=err32,
+        tol={"atol": FLASH_ATOL["float32"], "rtol": FLASH_RTOL},
+        ms=cuda_ms(torch, lambda: kfa.flash_attention(q32, k32, v32),
+                   iters=10),
+        plain_ms=cuda_ms(torch, lambda: ref.flash_attention(q32, k32, v32),
+                         iters=3, warmup=1),
+        bound_ms=bms32, bound_by=by32,
+        library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), iters=10),
+        library="F.scaled_dot_product_attention(is_causal=True, "
+                "enable_gqa=True), fp32")
     emit({"phase": "kernels.flash", "gflop": flops / 1e9,
-          "bound_bf16_tensor_ms": flops / BF16_TENSOR_FLOPS * 1e3})
-    del q, k, v, qt, kt, vt
+          "mma_gflop_split_p": 1.5 * flops / 1e9,
+          "bound_bf16_tensor_ms": bms16,
+          "tflops": flops / ms / 1e9,
+          "mma_tflops": 1.5 * flops / ms / 1e9,
+          "bf16_tensor_bound_share": bms16 / ms})
+    rows["flash_attention"]["simt_f32"] = simt
+    del q32, k32, v32, qt, kt, vt
     torch.cuda.empty_cache()
     checked = []
     f32 = torch.float32
@@ -714,13 +775,25 @@ def kernels_flash(torch, randn, rows):
         "MHA hd32 bf16 causal": (2, 128, 128, 4, 4, 32, bf16, True, 0),
         "q_offset 896 hd128 bf16": (2, 128, 1024, 24, 8, 128, bf16, True, 896),
         "ragged 100x200 hd64 q_offset 100": (1, 100, 200, 6, 3, 64, f32, True,
-                                             100)}
+                                             100),
+        "ragged 100x200 hd64 q_offset 100 bf16": (1, 100, 200, 6, 3, 64, bf16,
+                                                  True, 100),
+        "1000x1000 hd128 bf16 causal": (2, 1000, 1000, 24, 8, 128, bf16, True,
+                                        0),
+        "GQA 4:1 hd64 bf16 non-causal": (1, 256, 256, 8, 2, 64, bf16, False,
+                                         0)}
     for label, (b, sq, skv, h, kv, d, dt, causal, qo) in cases.items():
         x = randn(b, sq, h, d, dtype=dt)
         y, z = randn(b, skv, kv, d, dtype=dt), randn(b, skv, kv, d, dtype=dt)
         tol = FLASH_ATOL["float32" if dt == f32 else "bfloat16"]
-        got = kfa.flash_attention(x, y, z, causal=causal, q_offset=qo)
-        want = ref.flash_attention(x, y, z, causal=causal, q_offset=qo)
+        route = "simt_f32" if dt == f32 else "wgmma_bf16"
+        got = on_route(kfa, route, lambda: kfa.flash_attention(
+            x, y, z, causal=causal, q_offset=qo))
+        # the plain version keeps the reference's rule that its blocks
+        # divide the lengths (512 by default; 1000 takes one block)
+        bq, bk = (512 if n % min(512, n) == 0 else n for n in (sq, skv))
+        want = ref.flash_attention(x, y, z, causal=causal, q_offset=qo,
+                                   bq=bq, bk=bk)
         ok, err = allclose(torch, got, want, FLASH_RTOL, tol)
         check(ok, f"flash_attention disagrees with its plain version: "
                   f"{label}: {err}")
@@ -729,8 +802,8 @@ def kernels_flash(torch, randn, rows):
                              FLASH_TIGHT["atol"])
             check(ok, f"flash_attention differs from its plain version by "
                       f"more than one bf16 rounding: {label}: {err}")
-        checked.append(f"flash_attention {label}: max_abs_err {err:.3g} <= "
-                       f"{tol:g} + {FLASH_RTOL:g}|want|")
+        checked.append(f"flash_attention {label}: {route}, max_abs_err "
+                       f"{err:.3g} <= {tol:g} + {FLASH_RTOL:g}|want|")
     return checked
 
 
@@ -1032,6 +1105,7 @@ def phase_serve(torch):
     import dataclasses
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import attention as kfa
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import single_rank_mesh
     from repro_torch.models.model import build_model
@@ -1059,12 +1133,16 @@ def phase_serve(torch):
     torch.cuda.synchronize()
     generate_s = time.perf_counter() - t0
     counts = ops.launch_counts()
+    routes = dict(kfa.flash_attention.launches_by_route)
     peak = torch.cuda.max_memory_allocated()
     want = dict.fromkeys(ops.KERNELS, 0)
     want["flash_attention"] = cfg.num_layers
     check(counts == want, f"generate launched {counts}, expected one flash "
                           f"launch per layer ({cfg.num_layers}) and nothing "
                           "else")
+    check(routes == {"wgmma_bf16": cfg.num_layers, "simt_f32": 0},
+          f"generate's flash launches by route {routes}, expected all "
+          f"{cfg.num_layers} on wgmma_bf16")
     check(tuple(out.shape) == (B, S + new), f"output shape {tuple(out.shape)}")
     check(torch.equal(out[:, :S], prompts), "generate changed the prompts")
     check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
@@ -1116,14 +1194,22 @@ def phase_serve(torch):
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     model32 = build_model(cfg32)
     p1 = prompts[:1]
-    lg = {}
+    lg, prefill_routes = {}, {}
     for label, m, mdl, dt in (("flash", mesh, model32, torch.float32),
                               ("plain", None, model32, torch.float32),
                               ("flash_bf16", mesh, model, torch.bfloat16)):
         c = mdl.init_cache(1, S, dt, device=dev)
+        ops.reset_launch_counts()
         lg[label] = make_prefill_step(mdl, m)(cast_params(params, dt),
                                               {"tokens": p1}, c)[0].float()
+        prefill_routes[label] = dict(kfa.flash_attention.launches_by_route)
         del c
+    n = cfg.num_layers
+    check(prefill_routes == {
+        "flash": {"wgmma_bf16": 0, "simt_f32": n},
+        "plain": {"wgmma_bf16": 0, "simt_f32": 0},
+        "flash_bf16": {"wgmma_bf16": n, "simt_f32": 0}},
+        f"prefill flash launches by route {prefill_routes}")
     err32 = max_abs(lg["flash"], lg["plain"])
     err_bf16 = max_abs(lg["flash_bf16"], lg["plain"])
     check(bool(torch.isfinite(lg["flash"]).all()), "fp32 logits not finite")
@@ -1148,8 +1234,10 @@ def phase_serve(torch):
           "decode_tokens_per_s": B / p50,
           "peak_memory_gb": peak / 1e9, "launches": counts,
           "flash_launches": {"prefill": prefill_flash, "decode": decode_flash},
+          "flash_launches_by_route": routes,
           "bitwise_repeat": True,
-          "fp32_prefill": {"batch": 1, "max_abs_flash_vs_plain": err32,
+          "fp32_prefill": {"batch": 1, "flash_routes": prefill_routes,
+                           "max_abs_flash_vs_plain": err32,
                            "atol": FP32_PREFILL_ATOL,
                            "bf16_vs_fp32_max_abs": err_bf16,
                            "logit_rms": logit_rms}})

@@ -1,10 +1,7 @@
-// C <- C + alpha * A @ B, in place on C: HPL's trailing rank-b update; and
-// C = A @ B into a new C: the legacy suite's GEMM.
+// C <- C + alpha * A @ B, in place on C: HPL's trailing rank-b update.
 //
-// gemm_update replaces the TPU kernel repro/kernels/gemm.py:gemm_update
-// (_gemm_update_kernel); matmul replaces repro/kernels/gemm.py:matmul
-// (_matmul_kernel). Both are one kernel template; they differ only in the
-// epilogue. What bounds it on an H100: at HPL's shapes
+// Replaces the TPU kernel repro/kernels/gemm.py:gemm_update
+// (_gemm_update_kernel). What bounds it on an H100: at HPL's shapes
 // (M = N = 16384, K = b = 64, fp32) the call does 2*M*N*K = 34.4 GFLOP and
 // must move C in and out once, 2*4*M*N = 2.15 GB: about 0.51 ms of fp32
 // FMAs (67 TFLOP/s outside the tensor cores) against 0.64 ms of HBM traffic
@@ -27,17 +24,9 @@
 // as the full update restricted to that strip (HPL lookahead relies on it).
 //
 // Inputs are fp32 or bf16 (A, B and C of one type); the sums are fp32 and
-// the bf16 result is rounded to nearest even.
-//
-// matmul (C = A @ B, fp32 sums cast to out_dtype): the same tile and the
-// same ascending-K sums, with an epilogue that writes the sum into C
-// without reading it (no memset, no read of C). A and B are fp32 or bf16
-// of one type; C is fp32 or bf16 whatever the inputs are. What bounds it:
-// operations. At M = N = K = 8192 in fp32 it does 2 * 8192^3 = 1.10e12
-// FLOP, 16.4 ms at 67 TFLOP/s, against 0.8 GB of operands (0.24 ms).
-// The SIMT tile above reaches a fraction of that rate (no K pipeline, one
-// block per SM); a wgmma path for bf16 and a pipelined K loop are later
-// work.
+// the bf16 result is rounded to nearest even. The legacy GEMM's C = A @ B
+// has its own pipelined main loop in matmul.cu, with the same order of
+// sums.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,11 +55,10 @@ __device__ __forceinline__ int sub(int base, int q) {
   return (q < 4) ? base * 4 + q : 64 + base * 4 + (q - 4);
 }
 
-// UPDATE: C <- C + alpha * sum (gemm_update); else C = sum (matmul).
-template <typename T, typename TO, bool UPDATE>
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
 gemm_kernel(const T* __restrict__ A, int64_t lda, const T* __restrict__ B,
-            int64_t ldb, TO* C, int64_t ldc, int M, int N, int K,
+            int64_t ldb, T* C, int64_t ldc, int M, int N, int K,
             float alpha) {
   __shared__ __align__(16) float As[BK][PITCH];  // As[k][m] = A[m][k]
   __shared__ __align__(16) float Bs[BK][PITCH];  // Bs[k][n] = B[k][n]
@@ -126,22 +114,19 @@ gemm_kernel(const T* __restrict__ A, int64_t lda, const T* __restrict__ B,
     for (int j = 0; j < 8; ++j) {
       const int c = col0 + sub(tx, j);
       if (c >= N) continue;
-      TO* p = C + (int64_t)r * ldc + c;
-      if (UPDATE)
-        store_from_f32(p, fmaf(alpha, acc[i][j], to_f32(*p)));
-      else
-        store_from_f32(p, acc[i][j]);
+      T* p = C + (int64_t)r * ldc + c;
+      store_from_f32(p, fmaf(alpha, acc[i][j], to_f32(*p)));
     }
   }
 }
 
-template <typename T, typename TO, bool UPDATE>
+template <typename T>
 int launch(const void* a, int64_t lda, const void* b, int64_t ldb, void* c,
            int64_t ldc, int M, int N, int K, float alpha, void* stream) {
   if (M <= 0 || N <= 0) return 0;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_kernel<T, TO, UPDATE><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const T*)a, lda, (const T*)b, ldb, (TO*)c, ldc, M, N, K, alpha);
+  gemm_kernel<T><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const T*)a, lda, (const T*)b, ldb, (T*)c, ldc, M, N, K, alpha);
   return (int)cudaGetLastError();
 }
 
@@ -151,47 +136,13 @@ extern "C" int repro_gemm_update_f32(const void* a, int64_t lda,
                                      const void* b, int64_t ldb, void* c,
                                      int64_t ldc, int M, int N, int K,
                                      float alpha, void* stream) {
-  return launch<float, float, true>(a, lda, b, ldb, c, ldc, M, N, K, alpha,
-                                    stream);
+  return launch<float>(a, lda, b, ldb, c, ldc, M, N, K, alpha, stream);
 }
 
 extern "C" int repro_gemm_update_bf16(const void* a, int64_t lda,
                                       const void* b, int64_t ldb, void* c,
                                       int64_t ldc, int M, int N, int K,
                                       float alpha, void* stream) {
-  return launch<__nv_bfloat16, __nv_bfloat16, true>(
-      a, lda, b, ldb, c, ldc, M, N, K, alpha, stream);
-}
-
-// matmul: C (M, N) = A (M, K) @ B (K, N); the suffix names the input type,
-// then C's type.
-extern "C" int repro_matmul_f32_f32(const void* a, int64_t lda, const void* b,
-                                    int64_t ldb, void* c, int64_t ldc, int M,
-                                    int N, int K, void* stream) {
-  return launch<float, float, false>(a, lda, b, ldb, c, ldc, M, N, K, 1.f,
-                                     stream);
-}
-
-extern "C" int repro_matmul_f32_bf16(const void* a, int64_t lda,
-                                     const void* b, int64_t ldb, void* c,
-                                     int64_t ldc, int M, int N, int K,
-                                     void* stream) {
-  return launch<float, __nv_bfloat16, false>(a, lda, b, ldb, c, ldc, M, N, K,
-                                             1.f, stream);
-}
-
-extern "C" int repro_matmul_bf16_f32(const void* a, int64_t lda,
-                                     const void* b, int64_t ldb, void* c,
-                                     int64_t ldc, int M, int N, int K,
-                                     void* stream) {
-  return launch<__nv_bfloat16, float, false>(a, lda, b, ldb, c, ldc, M, N, K,
-                                             1.f, stream);
-}
-
-extern "C" int repro_matmul_bf16_bf16(const void* a, int64_t lda,
-                                      const void* b, int64_t ldb, void* c,
-                                      int64_t ldc, int M, int N, int K,
-                                      void* stream) {
-  return launch<__nv_bfloat16, __nv_bfloat16, false>(a, lda, b, ldb, c, ldc,
-                                                     M, N, K, 1.f, stream);
+  return launch<__nv_bfloat16>(a, lda, b, ldb, c, ldc, M, N, K, alpha,
+                               stream);
 }

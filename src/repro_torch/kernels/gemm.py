@@ -2,12 +2,22 @@
 (C = A @ B) on the card.
 
 Port of ``repro/kernels/gemm.py`` (``fit_block`` ``:24``, ``matmul``
-``:45``, ``gemm_update`` ``:82-111``). Both kernels are one template in
-``csrc/gemm_update.cu``: they replace the TPU kernels
-``repro/kernels/gemm.py:gemm_update`` and ``:matmul``; the note there says
-what bounds them on an H100 (device memory at HPL's shapes, operations for
-the legacy GEMM) and how the design answers. Their plain versions are
-:func:`repro_torch.kernels.ref.gemm_update` and ``ref.matmul``.
+``:45``, ``gemm_update`` ``:82-111``). ``gemm_update`` is
+``csrc/gemm_update.cu``: it replaces the TPU kernel
+``repro/kernels/gemm.py:gemm_update`` and is bounded on an H100 by device
+memory at HPL's shapes (K = 64: C in and out once). ``matmul`` is
+``csrc/matmul.cu``: it replaces ``repro/kernels/gemm.py:matmul`` and is
+bounded by fp32 operations (2 * 8192^3 FLOP at the GEMM phase's shape, 16.4
+ms at 67 TFLOP/s; TF32 tensor cores would round the operands). Its design
+answers with a main loop of its own: a 3-stage ``cp.async`` ring of 32-deep
+K slices that overlaps the global loads with the FMAs, and 128 x 256 block
+tiles of 8 x 16 sums per thread fed by float4 shared reads with
+double-buffered register fragments, so that shared-memory loads stay below
+the FMA rate. Both keep one order of sums: ascending k,
+one fused multiply-add per product, from 0, so ``matmul(a, b)`` equals
+``gemm_update(0, a, b, alpha=1)`` bit for bit. The notes in the sources say
+more. Their plain versions
+are :func:`repro_torch.kernels.ref.gemm_update` and ``ref.matmul``.
 """
 from __future__ import annotations
 
@@ -102,7 +112,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *,
                         f"{list(_SUFFIX)} and such an out_dtype, got "
                         f"{a.dtype}, {b.dtype} -> {out_dtype}")
     out = torch.empty((M, N), dtype=out_dtype, device=a.device)
-    fn = getattr(_build.load("gemm_update"), _MATMUL_ENTRY[a.dtype, out_dtype])
+    fn = getattr(_build.load("matmul"), _MATMUL_ENTRY[a.dtype, out_dtype])
     fn.argtypes, fn.restype = _MATMUL_ARGTYPES, ctypes.c_int
     _build.check(fn(a.data_ptr(), row_stride(a, "a"), b.data_ptr(),
                     row_stride(b, "b"), out.data_ptr(), max(N, 1), M, N, K,

@@ -15,8 +15,10 @@ on the tiling. The STREAM ops raise for a size that is not a multiple of
 
 ``flash_attention`` keeps the reference's ``bq``/``bk`` contract on both
 routes (``min(bq, Sq)`` and ``min(bk, Skv)`` must divide Sq and Skv); the
-CPU route computes over those blocks, the CUDA kernel over its own fixed
-tiles, which does not change the result beyond fp32 rounding.
+CPU route computes over those blocks, the CUDA kernels over their own fixed
+tiles, which does not change the result beyond fp32 rounding. On the card
+the dtype picks the kernel (bf16: tensor cores, fp32: SIMT), and the
+wrapper counts launches per route beside ``launches``.
 
 ``ring_add_step`` keeps the reference's (rows, 128) assert on both routes
 and takes an optional ``out`` (which may be ``acc``), so the engine can
@@ -163,5 +165,9 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
+    """Zero every wrapper's count, and ``flash_attention``'s counts by
+    route."""
     for w in _wrappers().values():
         w.launches = 0
+    _attention.flash_attention.launches_by_route = dict.fromkeys(
+        _attention.ROUTES.values(), 0)

@@ -253,6 +253,30 @@ def test_kernel_wrappers_reject_cpu_tensors(name):
     assert ops.launch_counts() == before
 
 
+def test_flash_bf16_refuses_what_tma_cannot_load():
+    """A bf16 flash call whose operands TMA cannot load raises ValueError
+    naming the rule, before any launch; it never takes another route."""
+    before = ops.launch_counts()
+    base = torch.zeros((1, 32, 2, 36), dtype=torch.bfloat16)
+    odd = base[..., :32].as_subclass(_CudaTyped)  # head stride of 72 bytes
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        kattention.flash_attention(odd, odd, odd)
+    flat = torch.zeros(1 + 32 * 2 * 32, dtype=torch.bfloat16)
+    shifted = flat[1:].view(1, 32, 2, 32).as_subclass(_CudaTyped)
+    with pytest.raises(ValueError, match="aligned address"):
+        kattention.flash_attention(shifted, shifted, shifted)
+    assert ops.launch_counts() == before
+
+
+def test_flash_routes_follow_the_dtype_and_reset():
+    assert kattention.ROUTES == {torch.float32: "simt_f32",
+                                 torch.bfloat16: "wgmma_bf16"}
+    kattention.flash_attention.launches_by_route["wgmma_bf16"] += 3
+    ops.reset_launch_counts()
+    assert kattention.flash_attention.launches_by_route == {
+        "simt_f32": 0, "wgmma_bf16": 0}
+
+
 def test_plain_versions_count_no_launches():
     ops.reset_launch_counts()
     m = torch.from_numpy(_dominant(15, 32))
@@ -266,10 +290,10 @@ def test_wrapper_entry_points_exist_in_sources():
     """Every C symbol a wrapper binds through ctypes is defined, with C
     linkage, in the CUDA sources (they compile only on the card)."""
     text = {p.stem: p.read_text() for p in _build.sources()}
-    assert set(text) == {"gemm_update", "lu", "stream", "transpose_add",
-                         "flash_attention", "ring_add"}
-    wanted = {"gemm_update": list(kgemm._ENTRY.values())
-              + list(kgemm._MATMUL_ENTRY.values()),
+    assert set(text) == {"gemm_update", "matmul", "lu", "stream",
+                         "transpose_add", "flash_attention", "ring_add"}
+    wanted = {"gemm_update": list(kgemm._ENTRY.values()),
+              "matmul": list(kgemm._MATMUL_ENTRY.values()),
               "lu": ["repro_lu_factor_block_f32", "repro_trsm_lower_left_f32",
                      "repro_trsm_upper_right_f32"],
               "stream": list(kstream._ENTRY.values()),
