@@ -716,8 +716,7 @@ def kernels_flash(torch, randn, rows):
     del got, want
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, out, k, v
     flops = flash_flops(B, H, S, S, hd, True)
-    bms, by = bound(nbytes, flops)
-    bms16 = bound(nbytes, flops, BF16_TENSOR_FLOPS)[0]
+    bms16, by16 = bound(nbytes, flops, BF16_TENSOR_FLOPS)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     ms = cuda_ms(torch, lambda: kfa.flash_attention(q, k, v), iters=20)
     rows["flash_attention"] = dict(
@@ -727,7 +726,7 @@ def kernels_flash(torch, randn, rows):
         tight_tol=FLASH_TIGHT, limit_rejects=rejects, ms=ms,
         plain_ms=cuda_ms(torch, lambda: ref.flash_attention(q, k, v),
                          iters=3, warmup=1),
-        bound_ms=bms, bound_by=by, bound_bf16_tensor_ms=bms16,
+        bound_ms=bms16, bound_by=by16, bound_peak="bf16 tensor cores",
         library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), iters=20),
         library="F.scaled_dot_product_attention(is_causal=True, "
@@ -752,7 +751,7 @@ def kernels_flash(torch, randn, rows):
                    iters=10),
         plain_ms=cuda_ms(torch, lambda: ref.flash_attention(q32, k32, v32),
                          iters=3, warmup=1),
-        bound_ms=bms32, bound_by=by32,
+        bound_ms=bms32, bound_by=by32, bound_peak="fp32 pipes",
         library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), iters=10),
         library="F.scaled_dot_product_attention(is_causal=True, "
@@ -782,6 +781,9 @@ def kernels_flash(torch, randn, rows):
                                         0),
         "GQA 4:1 hd64 bf16 non-causal": (1, 256, 256, 8, 2, 64, bf16, False,
                                          0)}
+    # the plain version keeps the reference's rule that its blocks divide
+    # the lengths: 1000 is no multiple of its default 512, so one block
+    plain_blocks = {"1000x1000 hd128 bf16 causal": dict(bq=1000, bk=1000)}
     for label, (b, sq, skv, h, kv, d, dt, causal, qo) in cases.items():
         x = randn(b, sq, h, d, dtype=dt)
         y, z = randn(b, skv, kv, d, dtype=dt), randn(b, skv, kv, d, dtype=dt)
@@ -789,11 +791,8 @@ def kernels_flash(torch, randn, rows):
         route = "simt_f32" if dt == f32 else "wgmma_bf16"
         got = on_route(kfa, route, lambda: kfa.flash_attention(
             x, y, z, causal=causal, q_offset=qo))
-        # the plain version keeps the reference's rule that its blocks
-        # divide the lengths (512 by default; 1000 takes one block)
-        bq, bk = (512 if n % min(512, n) == 0 else n for n in (sq, skv))
         want = ref.flash_attention(x, y, z, causal=causal, q_offset=qo,
-                                   bq=bq, bk=bk)
+                                   **plain_blocks.get(label, {}))
         ok, err = allclose(torch, got, want, FLASH_RTOL, tol)
         check(ok, f"flash_attention disagrees with its plain version: "
                   f"{label}: {err}")

@@ -297,29 +297,27 @@ int launch(const void* q, const void* k, const void* v, void* o, Strides sq,
   return (int)cudaGetLastError();
 }
 
+using Launch = int (*)(const void*, const void*, const void*, void*, Strides,
+                       Strides, Strides, Strides, int, int, int, int, int,
+                       int, int, float, cudaStream_t);
+
+// Both routes' input contract: the shape checks, the 12 strides and the
+// choice of head width. L32, L64 and L128 are the route's launchers.
+template <Launch L32, Launch L64, Launch L128>
 int dispatch(const void* q, const void* k, const void* v, void* o,
              const int64_t* strides, int B, int H, int KV, int Sq, int Skv,
              int hd, int causal, int q_offset, float scale, void* stream) {
   if (B <= 0 || H <= 0 || KV <= 0 || H % KV || Sq <= 0 || Skv <= 0)
     return (int)cudaErrorInvalidValue;
+  const Launch run = hd == 32 ? L32 : hd == 64 ? L64 : hd == 128 ? L128
+                                                                 : nullptr;
+  if (!run) return (int)cudaErrorInvalidValue;
   const Strides sq{strides[0], strides[1], strides[2]};
   const Strides sk{strides[3], strides[4], strides[5]};
   const Strides sv{strides[6], strides[7], strides[8]};
   const Strides so{strides[9], strides[10], strides[11]};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 32:
-      return launch<32>(q, k, v, o, sq, sk, sv, so, B, H, KV, Sq, Skv, causal,
-                        q_offset, scale, st);
-    case 64:
-      return launch<64>(q, k, v, o, sq, sk, sv, so, B, H, KV, Sq, Skv, causal,
-                        q_offset, scale, st);
-    case 128:
-      return launch<128>(q, k, v, o, sq, sk, sv, so, B, H, KV, Sq, Skv,
-                         causal, q_offset, scale, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return run(q, k, v, o, sq, sk, sv, so, B, H, KV, Sq, Skv, causal, q_offset,
+             scale, static_cast<cudaStream_t>(stream));
 }
 
 
@@ -991,31 +989,6 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
-int dispatch(const void* q, const void* k, const void* v, void* o,
-             const int64_t* strides, int B, int H, int KV, int Sq, int Skv,
-             int hd, int causal, int q_offset, float scale, void* stream) {
-  if (B <= 0 || H <= 0 || KV <= 0 || H % KV || Sq <= 0 || Skv <= 0)
-    return (int)cudaErrorInvalidValue;
-  const Strides sq{strides[0], strides[1], strides[2]};
-  const Strides sk{strides[3], strides[4], strides[5]};
-  const Strides sv{strides[6], strides[7], strides[8]};
-  const Strides so{strides[9], strides[10], strides[11]};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 32:
-      return launch_tc<32>(q, k, v, o, sq, sk, sv, so, B, H, KV, Sq, Skv,
-                           causal, q_offset, scale, st);
-    case 64:
-      return launch_tc<64>(q, k, v, o, sq, sk, sv, so, B, H, KV, Sq, Skv,
-                           causal, q_offset, scale, st);
-    case 128:
-      return launch_tc<128>(q, k, v, o, sq, sk, sv, so, B, H, KV, Sq, Skv,
-                            causal, q_offset, scale, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace tc
 
 }  // namespace
@@ -1027,8 +1000,9 @@ extern "C" int repro_flash_attention_f32(const void* q, const void* k,
                                          int KV, int Sq, int Skv, int hd,
                                          int causal, int q_offset,
                                          float scale, void* stream) {
-  return dispatch(q, k, v, o, strides, B, H, KV, Sq, Skv, hd, causal,
-                         q_offset, scale, stream);
+  return dispatch<launch<32>, launch<64>, launch<128>>(
+      q, k, v, o, strides, B, H, KV, Sq, Skv, hd, causal, q_offset, scale,
+      stream);
 }
 
 extern "C" int repro_flash_attention_bf16(const void* q, const void* k,
@@ -1037,6 +1011,7 @@ extern "C" int repro_flash_attention_bf16(const void* q, const void* k,
                                           int H, int KV, int Sq, int Skv,
                                           int hd, int causal, int q_offset,
                                           float scale, void* stream) {
-  return tc::dispatch(q, k, v, o, strides, B, H, KV, Sq, Skv, hd, causal,
-                      q_offset, scale, stream);
+  return dispatch<tc::launch_tc<32>, tc::launch_tc<64>, tc::launch_tc<128>>(
+      q, k, v, o, strides, B, H, KV, Sq, Skv, hd, causal, q_offset, scale,
+      stream);
 }

@@ -19,7 +19,9 @@ the reference.
 """
 from __future__ import annotations
 
+import ast
 import json
+from pathlib import Path
 
 import numpy as np
 import jax.numpy as jnp
@@ -30,8 +32,22 @@ from repro.kernels import ops as jops
 
 BN = 128                                  # the kernel's keys per tile
 MASKED = -1e30
-FLASH_TIGHT = {"atol": 1e-3, "rtol": 2.0 ** -7}   # chip_smoke.py
 SPLIT_BOUND = 2.0 ** -16
+
+
+def smoke_constant(name: str):
+    """The value chip_smoke.py assigns to ``name`` at module level, read
+    without importing the script."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    for node in ast.parse(path.read_text(), str(path)).body:
+        if (isinstance(node, ast.Assign) and len(node.targets) == 1
+                and getattr(node.targets[0], "id", None) == name):
+            return eval(compile(ast.Expression(node.value), str(path),
+                                "eval"), {})
+    raise LookupError(f"chip_smoke.py assigns no {name}")
+
+
+FLASH_TIGHT = smoke_constant("FLASH_TIGHT")
 
 CASES = {  # B, Sq, Skv, H, KV, hd, causal, q_offset
     "GQA 3:1 hd128 causal": (1, 256, 256, 6, 2, 128, True, 0),
