@@ -12,7 +12,13 @@ Phases, one JSON line each:
                elements; matmul 8192^3; flash_attention at the serving
                prefill, q 8x1024x24x128, k/v 8x1024x8x128, bf16, causal,
                on its tensor-core route, and the same shape in fp32 on its
-               SIMT route; ring_add_step at the largest per-hop chunk of
+               SIMT route; HPL's LU, Top- and Left-panel kernels also
+               on their routes at the ragged 48 (strided), at 128 and on
+               strided panels of prime width 1009, and their output bits
+               against LU_BITS (the first port's kernels'), timed queued behind a sleep kernel
+               (device time; back-to-back events time the host's wrapper
+               at a few microseconds a call); ring_add_step at the largest
+               per-hop chunk of
                the allreduce phase, 6,291,456 fp32, and at a 32 MiB
                bucket's chunk, 2^28 fp32 and bf16, aliased, misaligned, and
                ragged in fp32 and fp16; its device time alone, from a
@@ -35,10 +41,11 @@ Phases, one JSON line each:
                fp32 one on ``simt_f32``; flash's TFLOP/s and its share of
                the bf16 tensor-core bound are printed;
 3. hpl       — ``run_hpl`` on the 1x1 grid at n = 16384, b = 64: residual
-               < 1, GFLOP/s, and each HPL kernel launched nb = 256 times per
-               factorization;
+               < 1 (and whether it equals HPL_RESIDUAL), GFLOP/s, and each
+               HPL kernel launched nb = 256 times per factorization, the LU
+               and the Top panel every time on HPL_ROUTES' routes;
 4. lookahead — depths 1 and 2 at n = 4096 equal eager bit for bit, with the
-               launch counts the pipeline implies;
+               launch counts (and routes) the pipeline implies;
 5. ptrans    — ``run_ptrans`` on the 1x1 grid at n = 16384, b = 128: error
                0.0 against B + A^T on the host, one transpose_add per step;
                ``nchunks=4`` (four launches per step) equals ``nchunks=1``
@@ -91,6 +98,7 @@ before printing any result.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import subprocess
@@ -100,6 +108,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 N_MAIN, B_MAIN = 16384, 64
+# the route each redesigned HPL kernel takes at b = 64, on every launch
+HPL_ROUTES = {"lu_factor_block": "warp_regs", "trsm_lower_left": "regs64"}
+# HPL's residual at N_MAIN, B_MAIN with the first port's kernels, whose
+# bits every route keeps (reported, not required: it also rests on the
+# host's arithmetic)
+HPL_RESIDUAL = 0.0013926777755841613
 N_LOOKAHEAD = 4096
 N_CPU = 2048
 N_PTRANS, B_PTRANS = 16384, 128
@@ -130,6 +144,14 @@ LU_TOL = (1e-5, 1e-5)                             # rtol, atol
 FP32_EPS = 2.0 ** -23
 BF16_RTOL = 2.0 ** -7                             # one rounding to bf16
 TRSM_TOL = (1e-4, 1e-4)
+# sha256 (first 16 hex digits) of the outputs of ``lu_golden_calls``, as
+# the first port's kernels (one-CTA LU, left-looking lower solve, the same
+# upper solve) computed them on the card; every route keeps each element's
+# operations, so the bits must not move
+LU_BITS = {"lu64": "ec7b50fd4f142e9c", "lu48": "cec5aa2781f3ae5e",
+           "lu128": "c8dffd4abe86797a", "trsm64": "7a82ad5a1edce600",
+           "trsm48_1009": "2a91fd5c3d00b0a9", "trsm128": "029d3092a28149f0",
+           "upper64": "9e1412487aaeaafa", "lu64_odd": "9006050a846e6526"}
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {"gemm_update": CSRC + "gemm_update.cu",
            "lu_factor_block": CSRC + "lu.cu",
@@ -181,22 +203,51 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def queued_ms(torch, fn, iters: int) -> float:
+    """Device time per call of ``fn`` run back to back, the host's excluded:
+    the calls are queued behind a sleep kernel that outlasts their enqueue
+    four times over, then run between two CUDA events. For calls of a few
+    microseconds, where back-to-back events (``cuda_ms``) time the host."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(4 * host_s * 2e9))  # cycles, at <= 2 GHz
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def profiled_ms(torch, fn, iters: int) -> float:
     """Device time per call of ``fn``, without the host's: the CUDA
     activities of ``iters`` warm calls under torch.profiler, summed, over
-    ``iters``. Raises unless the trace holds one kernel per call."""
+    ``iters``. Raises unless the trace holds one kernel per call. A trace
+    that misses some (the profiler has been seen to drop one of 200) is
+    taken again, up to three traces in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    evts = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evts = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total]
+        if sum(e.count for e in evts) == iters:
+            break
     check(sum(e.count for e in evts) == iters,
           f"the trace holds {[(e.key, e.count) for e in evts]}, not "
           f"{iters} kernels")
@@ -333,63 +384,7 @@ def phase_kernels(torch):
     del c16, a16, b16, a, bb
     torch.cuda.empty_cache()
 
-    # lu_factor_block: HPL's (b, b) diagonal block
-    blk = dominant(b)
-    want, got = ref.lu_factor_block(blk), klu.lu_factor_block(blk)
-    ok, err = allclose(torch, got, want, *LU_TOL)
-    check(ok, f"lu_factor_block disagrees with its plain version: {err}")
-    flops = sum((b - k - 1) + 2 * (b - k - 1) ** 2 for k in range(b))
-    bms, by = bound(4 * 2 * b * b, flops)
-    rows["lu_factor_block"] = dict(
-        shape=f"({b},{b}) fp32", max_abs_err=err,
-        tol={"rtol": LU_TOL[0], "atol": LU_TOL[1]},
-        ms=cuda_ms(torch, lambda: klu.lu_factor_block(blk), iters=200),
-        plain_ms=cuda_ms(torch, lambda: ref.lu_factor_block(blk), iters=5),
-        bound_ms=bms, bound_by=by,
-        library_ms=cuda_ms(torch, lambda: torch.linalg.lu_factor_ex(
-            blk, pivot=False), iters=200),
-        library="torch.linalg.lu_factor_ex(a, pivot=False)")
-
-    # trsm_lower_left: the Top panel, X (b, m) = L^{-1} A_kj
-    lu_blk = want
-    panel = randn(b, m)
-    want = ref.trsm_lower_left(lu_blk, panel)
-    got = klu.trsm_lower_left(lu_blk, panel)
-    ok, err = allclose(torch, got, want, *TRSM_TOL)
-    check(ok, f"trsm_lower_left disagrees with its plain version: {err}")
-    bms, by = bound(4 * (b * b + 2 * b * m), m * b * (b - 1))
-    rows["trsm_lower_left"] = dict(
-        shape=f"lu({b},{b}) B({b},{m}) fp32", max_abs_err=err,
-        tol={"rtol": TRSM_TOL[0], "atol": TRSM_TOL[1]},
-        ms=cuda_ms(torch, lambda: klu.trsm_lower_left(lu_blk, panel),
-                   iters=100),
-        plain_ms=cuda_ms(torch, lambda: ref.trsm_lower_left(lu_blk, panel),
-                         iters=5),
-        bound_ms=bms, bound_by=by,
-        library_ms=cuda_ms(torch, lambda: torch.linalg.solve_triangular(
-            lu_blk, panel, upper=False, unitriangular=True), iters=100),
-        library="torch.linalg.solve_triangular(lu, b, upper=False, "
-                "unitriangular=True)")
-
-    # trsm_upper_right: the Left panel, X (m, b) = A_ik U^{-1}
-    panel = randn(m, b)
-    want = ref.trsm_upper_right(lu_blk, panel)
-    got = klu.trsm_upper_right(lu_blk, panel)
-    ok, err = allclose(torch, got, want, *TRSM_TOL)
-    check(ok, f"trsm_upper_right disagrees with its plain version: {err}")
-    bms, by = bound(4 * (b * b + 2 * b * m), m * b * b)
-    rows["trsm_upper_right"] = dict(
-        shape=f"lu({b},{b}) B({m},{b}) fp32", max_abs_err=err,
-        tol={"rtol": TRSM_TOL[0], "atol": TRSM_TOL[1]},
-        ms=cuda_ms(torch, lambda: klu.trsm_upper_right(lu_blk, panel),
-                   iters=100),
-        plain_ms=cuda_ms(torch, lambda: ref.trsm_upper_right(lu_blk, panel),
-                         iters=5),
-        bound_ms=bms, bound_by=by,
-        library_ms=cuda_ms(torch, lambda: torch.linalg.solve_triangular(
-            lu_blk, panel, upper=True, left=False), iters=100),
-        library="torch.linalg.solve_triangular(lu, b, upper=True, "
-                "left=False)")
+    checked_lu = kernels_lu(torch, randn, dominant, rows)
 
     # ragged and strided shapes: edges of tiles, slabs that are not 256
     # wide, a block of 48, views with row strides wider than their rows
@@ -419,9 +414,9 @@ def phase_kernels(torch):
     for name, (ok, err) in ragged.items():
         check(ok, f"{name} disagrees with its plain version on a ragged "
                   f"shape: {err}")
-    del big, c_view, a_view, b_small, want, got, panel, p
+    del big, c_view, a_view, b_small, want, got, p
     torch.cuda.empty_cache()
-    checked = kernels_transpose_add(torch, randn, rows)
+    checked = checked_lu + kernels_transpose_add(torch, randn, rows)
     checked += kernels_stream(torch, randn, rows)
     checked += kernels_matmul(torch, randn, rows)
     checked += kernels_flash(torch, randn, rows)
@@ -431,6 +426,173 @@ def phase_kernels(torch):
           "ragged_max_abs_err": {k: v[1] for k, v in ragged.items()},
           "also_checked": checked})
     return rows
+
+
+def lu_golden_calls(torch, klu):
+    """The HPL kernels' calls whose output bits :data:`LU_BITS` records:
+    inputs from numpy's generator (seed 16), the same on every machine, at
+    HPL's shapes, a strided 48 x 48 block, a strided prime-width panel, the
+    second routes' 128 and a 64 x 64 view off 16-byte alignment."""
+    import numpy as np
+
+    rng = np.random.default_rng(16)
+
+    def cuda(x):
+        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).cuda()
+
+    def dominant(n):
+        a = rng.standard_normal((n, n)).astype(np.float32)
+        a[np.arange(n), np.arange(n)] += n
+        return a
+
+    blk64, blk48 = cuda(dominant(64)), cuda(dominant(96))[:48, :48]
+    blk128 = cuda(dominant(128))
+    pk64, pk48 = cuda(dominant(64) / 64), cuda(dominant(48) / 48)
+    pk128 = cuda(dominant(128) / 128)  # packed L\U-like: unit-ish diagonal
+    top = cuda(rng.standard_normal((64, N_MAIN)))
+    top48 = cuda(rng.standard_normal((48, 1200)))[:, 100:1109]  # N = 1009
+    top128 = cuda(rng.standard_normal((128, 1000)))
+    left = cuda(rng.standard_normal((N_MAIN, 64)))
+    odd = cuda(dominant(70))[3:67, 3:67]  # unaligned: the general load
+    return {"lu64": lambda: klu.lu_factor_block(blk64),
+            "lu64_odd": lambda: klu.lu_factor_block(odd),
+            "lu48": lambda: klu.lu_factor_block(blk48),
+            "lu128": lambda: klu.lu_factor_block(blk128),
+            "trsm64": lambda: klu.trsm_lower_left(pk64, top),
+            "trsm48_1009": lambda: klu.trsm_lower_left(pk48, top48),
+            "trsm128": lambda: klu.trsm_lower_left(pk128, top128),
+            "upper64": lambda: klu.trsm_upper_right(pk64, left)}
+
+
+def bits_sha(t) -> str:
+    return hashlib.sha256(t.cpu().contiguous().numpy().tobytes()
+                          ).hexdigest()[:16]
+
+
+def kernels_lu(torch, randn, dominant, rows):
+    """HPL's three panel kernels at HPL's shapes (b = 64, m = 16384): each
+    against its plain version, timed with the nearest library call. The two
+    redesigned kernels on the route each shape must take, against their
+    plain versions also at the ragged 48, at 128 (their second routes), on
+    strided panels of prime width and on an unaligned 64 x 64 view; and
+    all three kernels' output bits against :data:`LU_BITS`. Times: ``queued_ms``, since back-to-back launches of a
+    kernel of a few microseconds time the host's wrapper (``cuda_ms``,
+    reported beside)."""
+    from repro_torch.kernels import lu as klu
+    from repro_torch.kernels import ref
+
+    m, b = N_MAIN, B_MAIN
+    checked = []
+    lu_w, lo_w = klu.lu_factor_block, klu.trsm_lower_left
+
+    def timed(fn, lib):
+        return dict(ms=queued_ms(torch, fn, 200),
+                    ms_events=cuda_ms(torch, fn, iters=200),
+                    library_ms=queued_ms(torch, lib, 200),
+                    library_ms_events=cuda_ms(torch, lib, iters=200),
+                    timing="ms, library_ms: queued_ms (device, back to "
+                           "back); *_events: cuda_ms (host-bound here)")
+
+    # lu_factor_block: HPL's (b, b) diagonal block
+    blk = dominant(b)
+    want = ref.lu_factor_block(blk)
+    got = on_route(lu_w, "warp_regs", lambda: klu.lu_factor_block(blk))
+    ok, err = allclose(torch, got, want, *LU_TOL)
+    check(ok, f"lu_factor_block disagrees with its plain version: {err}")
+    flops = sum((b - k - 1) + 2 * (b - k - 1) ** 2 for k in range(b))
+    bms, by = bound(4 * 2 * b * b, flops)
+    rows["lu_factor_block"] = dict(
+        shape=f"({b},{b}) fp32", kernel_route="warp_regs", max_abs_err=err,
+        tol={"rtol": LU_TOL[0], "atol": LU_TOL[1]},
+        plain_ms=cuda_ms(torch, lambda: ref.lu_factor_block(blk), iters=5),
+        bound_ms=bms, bound_by=by,
+        **timed(lambda: klu.lu_factor_block(blk),
+                lambda: torch.linalg.lu_factor_ex(blk, pivot=False)),
+        library="torch.linalg.lu_factor_ex(a, pivot=False)")
+
+    # trsm_lower_left: the Top panel, X (b, m) = L^{-1} A_kj
+    lu_blk = want
+    panel = randn(b, m)
+    want = ref.trsm_lower_left(lu_blk, panel)
+    got = on_route(lo_w, "regs64", lambda: klu.trsm_lower_left(lu_blk, panel))
+    ok, err = allclose(torch, got, want, *TRSM_TOL)
+    check(ok, f"trsm_lower_left disagrees with its plain version: {err}")
+    bms, by = bound(4 * (b * b + 2 * b * m), m * b * (b - 1))
+    rows["trsm_lower_left"] = dict(
+        shape=f"lu({b},{b}) B({b},{m}) fp32", kernel_route="regs64",
+        max_abs_err=err, tol={"rtol": TRSM_TOL[0], "atol": TRSM_TOL[1]},
+        plain_ms=cuda_ms(torch, lambda: ref.trsm_lower_left(lu_blk, panel),
+                         iters=5),
+        bound_ms=bms, bound_by=by,
+        **timed(lambda: klu.trsm_lower_left(lu_blk, panel),
+                lambda: torch.linalg.solve_triangular(
+                    lu_blk, panel, upper=False, unitriangular=True)),
+        library="torch.linalg.solve_triangular(lu, b, upper=False, "
+                "unitriangular=True)")
+
+    # trsm_upper_right: the Left panel, X (m, b) = A_ik U^{-1}
+    left = randn(m, b)
+    want = ref.trsm_upper_right(lu_blk, left)
+    got = klu.trsm_upper_right(lu_blk, left)
+    ok, err = allclose(torch, got, want, *TRSM_TOL)
+    check(ok, f"trsm_upper_right disagrees with its plain version: {err}")
+    bms, by = bound(4 * (b * b + 2 * b * m), m * b * b)
+    rows["trsm_upper_right"] = dict(
+        shape=f"lu({b},{b}) B({m},{b}) fp32", max_abs_err=err,
+        tol={"rtol": TRSM_TOL[0], "atol": TRSM_TOL[1]},
+        plain_ms=cuda_ms(torch, lambda: ref.trsm_upper_right(lu_blk, left),
+                         iters=5),
+        bound_ms=bms, bound_by=by,
+        **timed(lambda: klu.trsm_upper_right(lu_blk, left),
+                lambda: torch.linalg.solve_triangular(
+                    lu_blk, left, upper=True, left=False)),
+        library="torch.linalg.solve_triangular(lu, b, upper=True, "
+                "left=False)")
+    del want, got, left
+
+    # the ragged 48 (a strided view), the largest block 128, a strided
+    # panel of prime width: each on its route, against the plain version
+    blk48, blk128 = dominant(96)[:48, :48], dominant(128)
+    lu48, lu128 = ref.lu_factor_block(blk48), ref.lu_factor_block(blk128)
+    cases = {
+        "lu_factor_block n=48 (strided)": (
+            lu_w, "warp_regs", lambda: klu.lu_factor_block(blk48), lu48,
+            LU_TOL),
+        "lu_factor_block n=128": (
+            lu_w, "cta_smem", lambda: klu.lu_factor_block(blk128), lu128,
+            LU_TOL)}
+    for n, N, lu_n in ((48, 1000, lu48), (128, 1000, lu128),
+                       (b, 1009, lu_blk), (48, 1009, lu48)):
+        p = randn(n, N + 91)[:, 45:45 + N]
+        route = klu.trsm_lower_route(n)
+        cases[f"trsm_lower_left n={n} N={N} (strided)"] = (
+            lo_w, route,
+            lambda lu_n=lu_n, p=p: klu.trsm_lower_left(lu_n, p),
+            ref.trsm_lower_left(lu_n, p), TRSM_TOL)
+    for label, (wrapper, route, fn, want, tol) in cases.items():
+        ok, err = allclose(torch, on_route(wrapper, route, fn), want, *tol)
+        check(ok, f"{label} on {route} disagrees with its plain version: "
+                  f"{err}")
+        checked.append(f"{label}: {route}, max_abs_err {err:.3g}")
+
+    # a 64 x 64 view off 16-byte alignment (row stride 70, offset 213
+    # floats), diagonally dominant as HPL's blocks are: the warp route's
+    # general load, not the float4 one
+    blk_odd = dominant(70)[3:67, 3:67]
+    ok, err = allclose(torch, klu.lu_factor_block(blk_odd),
+                       ref.lu_factor_block(blk_odd), *LU_TOL)
+    check(ok, f"lu_factor_block on an unaligned 64 x 64 view disagrees with "
+              f"its plain version: {err}")
+    del panel, blk_odd
+
+    # every output bit as the first port's kernels gave it
+    for label, fn in lu_golden_calls(torch, klu).items():
+        got = bits_sha(fn())
+        check(got == LU_BITS[label], f"{label}: output bits {got}, not "
+                                     f"{LU_BITS[label]}")
+        checked.append(f"{label}: bits {got}, as recorded")
+    torch.cuda.empty_cache()
+    return checked
 
 
 def kernels_transpose_add(torch, randn, rows):
@@ -647,14 +809,15 @@ def flash_faults(kfa, got, q, k, v):
             "mask_off_by_one_late_rows": shifted}
 
 
-def on_route(kfa, route, fn):
-    """``fn()``, which must launch flash_attention once, on ``route``."""
-    before = dict(kfa.flash_attention.launches_by_route)
+def on_route(wrapper, route, fn):
+    """``fn()``, which must launch ``wrapper``'s kernel once, on
+    ``route``."""
+    before = dict(wrapper.launches_by_route)
     out = fn()
-    delta = {r: n - before[r]
-             for r, n in kfa.flash_attention.launches_by_route.items()}
+    delta = {r: n - before[r] for r, n in wrapper.launches_by_route.items()}
     check(delta == {r: int(r == route) for r in delta},
-          f"flash_attention launched {delta}, expected one launch on {route}")
+          f"{wrapper.__name__} launched {delta}, expected one launch on "
+          f"{route}")
     return out
 
 
@@ -680,7 +843,7 @@ def kernels_flash(torch, randn, rows):
     q, k, v = randn(B, S, H, hd, dtype=bf16), randn(B, S, KV, hd, dtype=bf16), \
         randn(B, S, KV, hd, dtype=bf16)
     atol = FLASH_ATOL["bfloat16"]
-    got = on_route(kfa, "wgmma_bf16",
+    got = on_route(kfa.flash_attention, "wgmma_bf16",
                    lambda: kfa.flash_attention(q, k, v, causal=True))
     want = ref.flash_attention(q, k, v, causal=True)
     ok, err = allclose(torch, got, want, FLASH_RTOL, atol)
@@ -735,7 +898,8 @@ def kernels_flash(torch, randn, rows):
     # the fp32 route at the same shape
     q32, k32, v32 = q.float(), k.float(), v.float()
     del q, k, v
-    got = on_route(kfa, "simt_f32", lambda: kfa.flash_attention(q32, k32, v32))
+    got = on_route(kfa.flash_attention, "simt_f32",
+                   lambda: kfa.flash_attention(q32, k32, v32))
     want = ref.flash_attention(q32, k32, v32)
     ok, err32 = allclose(torch, got, want, FLASH_RTOL, FLASH_ATOL["float32"])
     check(ok, f"flash_attention fp32 disagrees with its plain version at the "
@@ -789,8 +953,9 @@ def kernels_flash(torch, randn, rows):
         y, z = randn(b, skv, kv, d, dtype=dt), randn(b, skv, kv, d, dtype=dt)
         tol = FLASH_ATOL["float32" if dt == f32 else "bfloat16"]
         route = "simt_f32" if dt == f32 else "wgmma_bf16"
-        got = on_route(kfa, route, lambda: kfa.flash_attention(
-            x, y, z, causal=causal, q_offset=qo))
+        got = on_route(kfa.flash_attention, route,
+                       lambda: kfa.flash_attention(x, y, z, causal=causal,
+                                                   q_offset=qo))
         want = ref.flash_attention(x, y, z, causal=causal, q_offset=qo,
                                    **plain_blocks.get(label, {}))
         ok, err = allclose(torch, got, want, FLASH_RTOL, tol)
@@ -915,6 +1080,7 @@ def phase_hpl(torch):
     res = run_hpl(n=N_MAIN, b=B_MAIN, reps=reps, device="cuda")
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
+    routes = ops.launches_by_route()
     per_fact = res.details["launches"]
     check(res.error < 1.0, f"HPL residual {res.error} >= 1")
     for name in ops.KERNELS:
@@ -922,9 +1088,15 @@ def phase_hpl(torch):
         check(per_fact[name] == want and counts[name] == want * (reps + 1),
               f"{name} launched {counts[name]} times in {reps + 1} "
               f"factorizations, expected {want} each")
+    for name, route in HPL_ROUTES.items():
+        want = {r: nb * (reps + 1) * (r == route) for r in routes[name]}
+        check(routes[name] == want,
+              f"{name} launched {routes[name]} by route, expected {want}")
     emit({"phase": "hpl", "n": N_MAIN, "b": B_MAIN, "gflops": res.metric,
           "seconds": res.times["best"], "residual": res.error,
+          "residual_as_recorded": res.error == HPL_RESIDUAL,
           "factorizations": reps + 1, "launches": counts,
+          "launches_by_route": {k: routes[k] for k in HPL_ROUTES},
           "launches_per_factorization": per_fact, "wall_s": wall,
           "device": res.details["device"],
           "schedule": res.details["schedule"]})
@@ -956,6 +1128,11 @@ def phase_lookahead(torch):
                      "trsm_upper_right": nb + d})
         check(counts == want, f"lookahead d={d} launches {counts}, "
                               f"expected {want}")
+        routes = ops.launches_by_route()
+        for name, route in HPL_ROUTES.items():
+            check(routes[name][route] == nb + d,
+                  f"lookahead d={d}: {name} launched {routes[name]} by "
+                  f"route, expected {nb + d} on {route}")
         out[f"d{d}"] = {"bitwise_equal": True, "launches": counts}
     emit({"phase": "lookahead", "n": n, "b": b, **out})
 

@@ -7,34 +7,217 @@
 // What bounds them on an H100: latency, not bytes or FLOPs. At HPL's b = 64
 // the LU touches 16 KiB and does 2/3 b^3 = 0.17 MFLOP in b dependent steps;
 // each panel solve reads a (64 x 16384) panel (4 MiB) and does b^2 = 4096
-// FLOP per column, but as a chain of b dependent steps per column. The
-// design keeps every operand of those chains in shared memory, so each
-// step costs a few shared-memory accesses, and puts one independent column
-// (or row) on each thread.
+// FLOP per column, but as a chain of b dependent steps per column.
 //
-// - lu_factor_block: one CTA holds the (n, n) block in shared memory
-//   (16 KiB at n = 64, 64 KiB at n = 128, the most it takes) and runs the
-//   unpivoted Doolittle steps with a barrier between the pivot-column
-//   scaling and the rank-1 update of each step.
-// - trsm_lower_left: X = L^{-1} B. A grid over column slabs of B; each CTA
-//   loads the packed LU and its slab into shared memory, and each thread
-//   runs forward substitution down one column.
+// - lu_factor_block, route warp_regs (n <= 64; all of HPL's calls): one
+//   warp, no CTA barrier. The block, padded to 64 x 64 with an identity
+//   block ([[A, 0], [0, I]], whose top-left n x n factors are A's), lives in
+//   registers: each lane owns rows lane and lane + 32. A step costs a
+//   shuffle of the pivot, an IEEE division per row (every lane divides its
+//   own rows, side by side) and the FMAs, where the one-CTA kernel below
+//   pays two barriers and shared-memory round trips. What the design had to
+//   answer, measured with clock64 on the card: unrolling all 64 steps (so
+//   that register indices are constants) made ~160 KB of straight-line code
+//   that the warp fetched once, slower than the CTA kernel; so the rows
+//   shift left by one position a step and k runs in a loop over groups of 8
+//   steps of constant width (see lu_groups). A finished row takes no more
+//   updates (predicated FMAs, no select) and is stored whole, as float4s,
+//   when its slot is done; a division by garbage would take the slow path.
+//   Loads are issued all at once, a full aligned block straight into
+//   registers as float4s.
+// - lu_factor_block, route cta_smem (64 < n <= 128): one CTA holds the
+//   (n, n) block in shared memory (64 KiB at n = 128) and runs the steps
+//   with a barrier between the pivot-column scaling and the rank-1 update
+//   of each step. Registers cannot hold such a block on one warp.
+// - trsm_lower_left, routes regs64 (n <= 64) and regs128 (n <= 128), one
+//   template: each thread keeps one column of B in registers, padded to 64
+//   or 128 rows (missing rows load as 0 and are not stored), and walks
+//   right-looking, shifting as the LU does: once x_k is final it is stored
+//   and x_i -= L[i][k] x_k for every i > k, with L's column k from shared
+//   memory as float4 broadcasts. Every load of the column is issued before
+//   the first FMA, so the panel streams at full memory parallelism. 128
+//   columns per CTA: 128 CTAs of four warps for HPL's 16384 columns, one per
+//   SM, where the left-looking kernel this replaces ran 64 CTAs and exposed
+//   a shared-memory load on every term (64 and 32 columns per CTA measured
+//   slower: each CTA stages L). The ragged last CTA masks its columns, so
+//   any N works.
 // - trsm_upper_right: X = B U^{-1}. A grid over row slabs of B, loaded
 //   coalesced and stored transposed in shared memory; each thread solves
 //   one row, column by column, dividing by U[j, j].
 //
-// Every sum runs in ascending index order, one fused multiply-add per term.
-// Divisions are IEEE (the build does not use fast math).
+// Every sum runs in ascending index order, one fused multiply-add per term,
+// and each element sees the same operations in the same order on every
+// route (the LU: l = a[i][k] / pivot, then a[i][j] = fmaf(-l, a[k][j],
+// a[i][j]) for k = 0, 1, ...; the lower solve: x_i = fmaf(-L[i][k], x_k,
+// x_i) for k = 0, 1, ...), so the routes agree bit for bit, and with the
+// first port's kernels. Divisions are IEEE (the build does not use fast
+// math).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int LU_THREADS = 256;  // 8 warps; a warp covers 32 columns
+constexpr unsigned FULL_WARP = 0xffffffffu;
+
+// ---------------------------------------------------------------------------
+// lu_factor_block
+// ---------------------------------------------------------------------------
+
+constexpr int LU_NP = 64;  // the warp route's padded block
+// s's row pitch: lanes reading or writing their own rows (lane * 67 + j)
+// hit 32 distinct banks, and with 67 = 3 mod 4 each U row's part from the
+// diagonal on, s[k * 67 + k ...], starts 16-byte aligned
+constexpr int LU_PITCH = LU_NP + 3;
+constexpr int LU_GROUP = 8;      // warp_regs: steps per loop
+constexpr int LU_THREADS = 256;  // cta_smem: 8 warps, 32 columns each
+
+// Element i of a row held as float4s (16 of them at LU_NP = 64); with a
+// constant i it names one register.
+__device__ __forceinline__ float& elt(float4 (&r)[LU_NP / 4], int i) {
+  float4& q = r[i / 4];
+  return i % 4 == 0 ? q.x : i % 4 == 1 ? q.y : i % 4 == 2 ? q.z : q.w;
+}
+
+// Loads a float from global memory, always: a plain load whose value is
+// used under a condition moves behind a branch, and then each row's loads
+// wait for the previous row's.
+__device__ __forceinline__ float load_always(const float* p) {
+  float v;
+  asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
+}
+
+// Stores the row a lane holds in r (positions 0..LU_NP - 1 - i holding
+// columns i..LU_NP - 1 of row i) into row i of s, as float4s. A position
+// past the row's end lands in s's padding (columns 64..66).
+__device__ __forceinline__ void store_row(const float4 (&r)[LU_NP / 4], int i,
+                                          float* __restrict__ s) {
+  float4* dst = reinterpret_cast<float4*>(s + i * (LU_PITCH + 1));
+#pragma unroll
+  for (int q = 0; q < LU_NP / 4; ++q)
+    if (4 * q < LU_NP - i) dst[q] = r[q];
+}
+
+// Steps K0 .. K0 + LU_GROUP - 1 of the warp route, then the later groups.
+// Position c of a lane's row holds column k + c at step k: a step shifts
+// the row left by one as it updates it, so every register index is a
+// constant while k runs in a loop, and the loop body keeps the width the
+// group's first step needs (W + 1 = LU_NP - K0 positions; those past the
+// row's end hold garbage from columns >= 64).
+// Rows lane (r0) and lane + 32 (r1): until step 32 the pivot row is an r0
+// row and every r1 row lies below it; from step 32 on every r0 row is done.
+// Step k: the pivot row's lane broadcasts it by shuffles; each row below
+// the pivot divides its position 0 by the pivot (column k of L, written to
+// s), then takes the rank-1 update and the shift in one predicated FMA per
+// element. A row at or above the pivot takes no update, so it stays frozen
+// from its own pivot step on: U's row, columns i..63 in positions
+// 0..63 - i, written to s once, whole, when every row of its slot is done.
+template <int K0>
+__device__ __forceinline__ void lu_groups(float4 (&r0)[LU_NP / 4],
+                                          float4 (&r1)[LU_NP / 4], int lane,
+                                          float* __restrict__ s) {
+  constexpr int W = LU_NP - K0 - 1;
+  constexpr bool kPivotInR0 = K0 < 32;
+  float4(&rp)[LU_NP / 4] = kPivotInR0 ? r0 : r1;  // the pivot row's slot
+#pragma unroll 1
+  for (int k = K0; k < K0 + LU_GROUP; ++k) {
+    const int src = k % 32;  // the lane owning row k
+    const float pivot = __shfl_sync(FULL_WARP, elt(rp, 0), src);
+    const bool act0 = lane > k, act1 = kPivotInR0 || lane + 32 > k;
+    // a frozen row divides its own U diagonal, a finite number, so every
+    // division takes the fast path; only rows below the pivot use it
+    float l0 = 0.f;
+    if constexpr (kPivotInR0) {
+      l0 = elt(r0, 0) / pivot;
+      if (act0) s[lane * LU_PITCH + k] = l0;
+    }
+    const float l1 = elt(r1, 0) / pivot;
+    if (act1) s[(lane + 32) * LU_PITCH + k] = l1;
+#pragma unroll
+    for (int c = 0; c < W; ++c) {
+      const float u = __shfl_sync(FULL_WARP, elt(rp, c + 1), src);
+      if constexpr (kPivotInR0) {
+        if (act0) elt(r0, c) = fmaf(-l0, u, elt(r0, c + 1));
+      }
+      if (act1) elt(r1, c) = fmaf(-l1, u, elt(r1, c + 1));
+    }
+  }
+  if constexpr (K0 + LU_GROUP == 32) store_row(r0, lane, s);
+  if constexpr (K0 + LU_GROUP < LU_NP)
+    lu_groups<K0 + LU_GROUP>(r0, r1, lane, s);
+  else
+    store_row(r1, lane + 32, s);
+}
+
+// kFull: a full 64 x 64 block with 16-byte aligned rows (HPL's case),
+// loaded by each lane straight into its two rows as float4s and stored as
+// whole rows; otherwise loaded coalesced through s and padded with an
+// identity block.
+template <bool kFull>
+__global__ void __launch_bounds__(32)
+lu_warp_kernel(const float* __restrict__ A, int64_t lda,
+               float* __restrict__ out, int n) {
+  __shared__ __align__(16) float s[LU_NP * LU_PITCH];  // L\U out
+  const int lane = threadIdx.x;
+  float4 r0[LU_NP / 4], r1[LU_NP / 4];
+  if constexpr (kFull) {
+    const float4* a0 = reinterpret_cast<const float4*>(A + lane * lda);
+    const float4* a1 = reinterpret_cast<const float4*>(A + (lane + 32) * lda);
+#pragma unroll
+    for (int q = 0; q < LU_NP / 4; ++q) {
+      r0[q] = a0[q];
+      r1[q] = a1[q];
+    }
+  } else {
+    // every load in flight at once: rows past n re-read row n - 1 and
+    // columns past n column n - 1, and the padding is selected after
+    float v[LU_NP][2];
+    const int c0 = min(lane, n - 1), c1 = min(lane + 32, n - 1);
+#pragma unroll
+    for (int i = 0; i < LU_NP; ++i) {
+      const float* row = A + min(i, n - 1) * lda;
+      v[i][0] = load_always(row + c0);  // coalesced: 32 of a row per load
+      v[i][1] = load_always(row + c1);
+    }
+#pragma unroll
+    for (int i = 0; i < LU_NP; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = lane + 32 * h;
+        s[i * LU_PITCH + j] = (i < n && j < n) ? v[i][h]
+                                               : (i == j ? 1.f : 0.f);
+      }
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < LU_NP; ++j) {
+      elt(r0, j) = s[lane * LU_PITCH + j];
+      elt(r1, j) = s[(lane + 32) * LU_PITCH + j];
+    }
+    __syncwarp();
+  }
+  lu_groups<0>(r0, r1, lane, s);
+  __syncwarp();
+  if constexpr (kFull) {
+#pragma unroll
+    for (int i = 0; i < LU_NP; ++i) {
+      out[i * LU_NP + lane] = s[i * LU_PITCH + lane];
+      out[i * LU_NP + lane + 32] = s[i * LU_PITCH + lane + 32];
+    }
+  } else {
+#pragma unroll 8
+    for (int i = 0; i < n; ++i) {
+      float* o = out + i * n;
+      const float x0 = s[i * LU_PITCH + lane];
+      const float x1 = s[i * LU_PITCH + lane + 32];
+      if (lane < n) o[lane] = x0;
+      if (lane + 32 < n) o[lane + 32] = x1;
+    }
+  }
+}
 
 __global__ void __launch_bounds__(LU_THREADS)
-lu_factor_block_kernel(const float* __restrict__ A, int64_t lda,
-                       float* __restrict__ out, int n) {
+lu_cta_kernel(const float* __restrict__ A, int64_t lda,
+              float* __restrict__ out, int n) {
   extern __shared__ float s[];  // s[i * n + j] = block[i][j]
   const int tid = threadIdx.x;
   const int tx = tid % 32, ty = tid / 32;
@@ -56,29 +239,87 @@ lu_factor_block_kernel(const float* __restrict__ A, int64_t lda,
   for (int e = tid; e < n * n; e += LU_THREADS) out[e] = s[e];
 }
 
-__global__ void trsm_lower_left_kernel(const float* __restrict__ LU,
-                                       int64_t ldl,
-                                       const float* __restrict__ B,
-                                       int64_t ldb, float* __restrict__ X,
-                                       int n, int N) {
-  extern __shared__ float sm[];
-  float* L = sm;           // n x n packed LU
-  float* Xs = sm + n * n;  // Xs[i * slab + t] = column t of this slab
-  const int slab = blockDim.x;
-  const int t = threadIdx.x;
-  const int j = blockIdx.x * slab + t;
-  for (int e = t; e < n * n; e += slab) L[e] = LU[(int64_t)(e / n) * ldl + e % n];
-  for (int i = 0; i < n; ++i)
-    Xs[i * slab + t] = (j < N) ? B[(int64_t)i * ldb + j] : 0.f;
-  __syncthreads();
-  for (int i = 1; i < n; ++i) {
-    float acc = Xs[i * slab + t];
-    for (int k = 0; k < i; ++k) acc = fmaf(-L[i * n + k], Xs[k * slab + t], acc);
-    Xs[i * slab + t] = acc;
+// ---------------------------------------------------------------------------
+// trsm_lower_left
+// ---------------------------------------------------------------------------
+
+constexpr int TRSM_COLS = 128;  // columns per CTA, one per thread
+constexpr int TRSM_GROUP = 8;   // steps per loop
+
+// Steps K0 .. K0 + TRSM_GROUP - 1 of the lower solve, then the later groups.
+// As in lu_groups, position c holds row k + c at step k: a step stores
+// x[0] = x_k, final, and shifts the rest left as it subtracts L[k + 1 + c][k]
+// x_k, so the indices are constants, k runs in a loop, and the loop body
+// keeps the group's first width W.
+template <int NP, int K0>
+__device__ __forceinline__ void trsm_groups(float (&x)[NP],
+                                            const float4* __restrict__ lt4,
+                                            float* __restrict__ X, int64_t j,
+                                            int N, int n, bool col) {
+  constexpr int W = NP - K0 - 1, P4 = (NP + 4) / 4;
+#pragma unroll 1
+  for (int k = K0; k < K0 + TRSM_GROUP; ++k) {
+    const float xk = x[0];
+    if (col && k < n) X[(int64_t)k * N + j] = xk;
+    const float4* l = lt4 + k * P4;  // L[k + 1 + c][k] at c
+#pragma unroll
+    for (int g = 0; g < (W + 3) / 4; ++g) {
+      const float4 l4 = l[g];
+      const float lv[4] = {l4.x, l4.y, l4.z, l4.w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (4 * g + c < W) x[4 * g + c] = fmaf(-lv[c], xk, x[4 * g + c + 1]);
+    }
   }
-  if (j < N)
-    for (int i = 0; i < n; ++i) X[(int64_t)i * N + j] = Xs[i * slab + t];
+  if constexpr (K0 + TRSM_GROUP < NP)
+    trsm_groups<NP, K0 + TRSM_GROUP>(x, lt4, X, j, N, n, col);
 }
+
+template <int NP>
+__global__ void __launch_bounds__(TRSM_COLS)
+trsm_lower_kernel(const float* __restrict__ LU, int64_t ldl,
+                  const float* __restrict__ B, int64_t ldb,
+                  float* __restrict__ X, int n, int N) {
+  constexpr int P = NP + 4;  // lt's pitch: rows stay 16-byte aligned
+  extern __shared__ float4 lt4[];
+  float* lt = reinterpret_cast<float*>(lt4);  // lt[k * P + c] = L[k + 1 + c][k]
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  const int64_t j = (int64_t)blockIdx.x * TRSM_COLS + t;
+  const bool col = j < N;
+  float x[NP];
+#pragma unroll
+  for (int i = 0; i < NP; ++i)
+    x[i] = (col && i < n) ? B[(int64_t)i * ldb + j] : 0.f;
+  // L's strict lower part, column k from row k + 1 on, while the column's
+  // loads fly: each warp moves 8 (k) x 4 (i) tiles, reading 32-byte row
+  // pieces, CHUNK loads in flight at a time
+  constexpr int TILES = (NP / 8) * (NP / 4) / (TRSM_COLS / 32);  // a warp's
+  constexpr int CHUNK = TILES < 32 ? TILES : 32;
+#pragma unroll 1
+  for (int c0 = 0; c0 < TILES; c0 += CHUNK) {
+    float v[CHUNK];
+#pragma unroll
+    for (int c = 0; c < CHUNK; ++c) {
+      const int tile = (c0 + c) * (TRSM_COLS / 32) + warp;
+      const int k = (tile % (NP / 8)) * 8 + lane / 4;
+      const int i = (tile / (NP / 8)) * 4 + lane % 4;
+      v[c] = (k < i && i < n) ? LU[(int64_t)i * ldl + k] : 0.f;
+    }
+#pragma unroll
+    for (int c = 0; c < CHUNK; ++c) {
+      const int tile = (c0 + c) * (TRSM_COLS / 32) + warp;
+      const int k = (tile % (NP / 8)) * 8 + lane / 4;
+      const int i = (tile / (NP / 8)) * 4 + lane % 4;
+      if (k < i) lt[k * P + i - k - 1] = v[c];
+    }
+  }
+  __syncthreads();
+  trsm_groups<NP, 0>(x, lt4, X, j, N, n, col);
+}
+
+// ---------------------------------------------------------------------------
+// trsm_upper_right
+// ---------------------------------------------------------------------------
 
 __global__ void trsm_upper_right_kernel(const float* __restrict__ LU,
                                         int64_t ldl,
@@ -118,32 +359,65 @@ cudaError_t allow_smem(F kernel, size_t bytes) {
                               (int)bytes);
 }
 
+template <int NP>
+cudaError_t launch_trsm_lower(const float* lu, int64_t ldl, const float* b,
+                              int64_t ldb, float* x, int n, int N, int ctas,
+                              cudaStream_t stream) {
+  const size_t smem = (size_t)NP * (NP + 4) * sizeof(float);
+  cudaError_t err = allow_smem(trsm_lower_kernel<NP>, smem);
+  if (err != cudaSuccess) return err;
+  trsm_lower_kernel<NP><<<ctas, TRSM_COLS, smem, stream>>>(lu, ldl, b, ldb,
+                                                           x, n, N);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // out (n x n, contiguous) = packed L\U of the (n x n) block at a (row stride
-// lda).
+// lda). route 0 (warp_regs) takes n <= 64, route 1 (cta_smem) n <= 128.
 extern "C" int repro_lu_factor_block_f32(const void* a, int64_t lda, void* out,
-                                         int n, void* stream) {
+                                         int n, int route, void* stream) {
+  if (n <= 0) return 0;
+  if (route == 0) {
+    if (n > LU_NP) return (int)cudaErrorInvalidValue;
+    const bool full = n == LU_NP && lda % 4 == 0 && (uintptr_t)a % 16 == 0;
+    if (full)
+      lu_warp_kernel<true><<<1, 32, 0, (cudaStream_t)stream>>>(
+          (const float*)a, lda, (float*)out, n);
+    else
+      lu_warp_kernel<false><<<1, 32, 0, (cudaStream_t)stream>>>(
+          (const float*)a, lda, (float*)out, n);
+    return (int)cudaGetLastError();
+  }
+  if (route != 1 || n > 128) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)n * n * sizeof(float);
-  cudaError_t err = allow_smem(lu_factor_block_kernel, smem);
+  cudaError_t err = allow_smem(lu_cta_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  lu_factor_block_kernel<<<1, LU_THREADS, smem, (cudaStream_t)stream>>>(
+  lu_cta_kernel<<<1, LU_THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)a, lda, (float*)out, n);
   return (int)cudaGetLastError();
 }
 
-// x (n x N, contiguous) = L^{-1} b for the (n x N) panel b (row stride ldb);
-// slab columns per CTA, N % slab == 0.
+// x (n x N, contiguous) = L^{-1} b for the (n x N) panel b (row stride ldb),
+// rows padded to np (64 or 128, n <= np); ctas CTAs of TRSM_COLS columns
+// cover N, the last one masked.
 extern "C" int repro_trsm_lower_left_f32(const void* lu, int64_t ldl,
                                          const void* b, int64_t ldb, void* x,
-                                         int n, int N, int slab, void* stream) {
-  if (N <= 0) return 0;
-  const size_t smem = (size_t)n * (n + slab) * sizeof(float);
-  cudaError_t err = allow_smem(trsm_lower_left_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  trsm_lower_left_kernel<<<N / slab, slab, smem, (cudaStream_t)stream>>>(
-      (const float*)lu, ldl, (const float*)b, ldb, (float*)x, n, N);
-  return (int)cudaGetLastError();
+                                         int n, int N, int np, int ctas,
+                                         void* stream) {
+  if (n <= 0 || N <= 0) return 0;
+  if (n > np || (int64_t)ctas * TRSM_COLS < N ||
+      (int64_t)(ctas - 1) * TRSM_COLS >= N)
+    return (int)cudaErrorInvalidValue;
+  const float *l = (const float*)lu, *bb = (const float*)b;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (np == 64)
+    return (int)launch_trsm_lower<64>(l, ldl, bb, ldb, (float*)x, n, N, ctas,
+                                      s);
+  if (np == 128)
+    return (int)launch_trsm_lower<128>(l, ldl, bb, ldb, (float*)x, n, N,
+                                       ctas, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // x (M x n, contiguous) = b U^{-1} for the (M x n) panel b (row stride ldb);

@@ -20,6 +20,12 @@ tiles, which does not change the result beyond fp32 rounding. On the card
 the dtype picks the kernel (bf16: tensor cores, fp32: SIMT), and the
 wrapper counts launches per route beside ``launches``.
 
+``lu_factor_block`` and ``trsm_lower_left`` pick their CUDA route by the
+block size (``kernels/lu.py``) and count launches per route too;
+:func:`launches_by_route` gathers every kernel's counts by route.
+``trsm_lower_left`` accepts the reference's ``bn`` and ignores it on the
+card, where the kernel's CTA width is fixed and the last CTA is masked.
+
 ``ring_add_step`` keeps the reference's (rows, 128) assert on both routes
 and takes an optional ``out`` (which may be ``acc``), so the engine can
 accumulate into its chunk stack in place.
@@ -76,7 +82,7 @@ def lu_factor_block(a):
 
 def trsm_lower_left(lu, b, *, bn=256):
     if _on_card(b):
-        return _lu.trsm_lower_left(lu, b, bn=bn)
+        return _lu.trsm_lower_left(lu, b)
     return ref.trsm_lower_left(lu, b)
 
 
@@ -164,10 +170,16 @@ def launch_counts() -> Dict[str, int]:
     return {name: w.launches for name, w in _wrappers().items()}
 
 
+def launches_by_route() -> Dict[str, Dict[str, int]]:
+    """Kernel launches so far by route, for the kernels that have routes
+    (``flash_attention``, ``lu_factor_block``, ``trsm_lower_left``)."""
+    return {name: dict(w.launches_by_route) for name, w in _wrappers().items()
+            if hasattr(w, "launches_by_route")}
+
+
 def reset_launch_counts() -> None:
-    """Zero every wrapper's count, and ``flash_attention``'s counts by
-    route."""
+    """Zero every wrapper's count, and the counts by route."""
     for w in _wrappers().values():
         w.launches = 0
-    _attention.flash_attention.launches_by_route = dict.fromkeys(
-        _attention.ROUTES.values(), 0)
+        if hasattr(w, "launches_by_route"):
+            w.launches_by_route = dict.fromkeys(w.launches_by_route, 0)

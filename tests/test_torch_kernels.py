@@ -69,7 +69,12 @@ def test_gemm_update(oracle, dtype, alpha):
         want = jops.gemm_update(jc, ja, jb, alpha=alpha, bm=64, bn=32, bk=32)
     else:
         want = jref.gemm_update(jc, ja, jb, alpha=alpha)
-    tc = torch.from_numpy(c).to(dtype)
+    # jnp.asarray and torch.from_numpy both alias a float32 ``c``: read the
+    # oracle's result out before the in-place update, and give the port a
+    # buffer of its own, or the update can land in the oracle's input
+    # before its asynchronous dispatch has read it
+    want = np.array(want)
+    tc = torch.from_numpy(c.copy()).to(dtype)
     out = ops.gemm_update(tc, torch.from_numpy(a).to(dtype),
                           torch.from_numpy(b).to(dtype), alpha=alpha,
                           bm=64, bn=32, bk=32)
