@@ -14,8 +14,10 @@ Phases, one JSON line each:
                on its tensor-core route, and the same shape in fp32 on its
                SIMT route; HPL's LU, Top- and Left-panel kernels also
                on their routes at the ragged 48 (strided), at 128 and on
-               strided panels of prime width 1009, and their output bits
-               against LU_BITS (the first port's kernels'), timed queued behind a sleep kernel
+               strided panels of prime width (Top) or height (Left) 1009,
+               the Left panel at HPL's layout (a column strip, row stride
+               16384), and their output bits against LU_BITS (the first
+               port's kernels'), timed queued behind a sleep kernel
                (device time; back-to-back events time the host's wrapper
                at a few microseconds a call); ring_add_step at the largest
                per-hop chunk of
@@ -25,7 +27,10 @@ Phases, one JSON line each:
                torch.profiler trace, at every hop chunk of the allreduce
                phase and at 2^21) and at ragged and strided shapes and in
                bf16, and time kernel, plain version and the nearest PyTorch
-               library call (fp32 library calls run with TF32 off).
+               library call (fp32 library calls run with TF32 off; the
+               STREAM ops and their library calls in STREAM_ROUNDS
+               alternated rounds, medians, with their share of the HBM
+               rate).
                matmul's limit is fp32 rounding, which a TF32 product and a
                dropped K step both exceed, and its sums must equal
                gemm_update's order (C = 0 + 1 * A @ B) exactly;
@@ -43,7 +48,7 @@ Phases, one JSON line each:
 3. hpl       — ``run_hpl`` on the 1x1 grid at n = 16384, b = 64: residual
                < 1 (and whether it equals HPL_RESIDUAL), GFLOP/s, and each
                HPL kernel launched nb = 256 times per factorization, the LU
-               and the Top panel every time on HPL_ROUTES' routes;
+               and both panels every time on HPL_ROUTES' routes;
 4. lookahead — depths 1 and 2 at n = 4096 equal eager bit for bit, with the
                launch counts (and routes) the pipeline implies;
 5. ptrans    — ``run_ptrans`` on the 1x1 grid at n = 16384, b = 128: error
@@ -109,7 +114,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 N_MAIN, B_MAIN = 16384, 64
 # the route each redesigned HPL kernel takes at b = 64, on every launch
-HPL_ROUTES = {"lu_factor_block": "warp_regs", "trsm_lower_left": "regs64"}
+HPL_ROUTES = {"lu_factor_block": "warp_regs", "trsm_lower_left": "regs64",
+              "trsm_upper_right": "regs64"}
 # HPL's residual at N_MAIN, B_MAIN with the first port's kernels, whose
 # bits every route keeps (reported, not required: it also rests on the
 # host's arithmetic)
@@ -118,6 +124,7 @@ N_LOOKAHEAD = 4096
 N_CPU = 2048
 N_PTRANS, B_PTRANS = 16384, 128
 STREAM_ELEMS = 1 << 28
+STREAM_ROUNDS = 7  # alternated rounds of kernel and library call
 M_GEMM = 8192
 # the serving path: llama3.2-3b, 8 requests x 1024 prompt tokens, 32 new
 SERVE_ARCH, SERVE_B, SERVE_S, SERVE_NEW = "llama3.2-3b", 8, 1024, 32
@@ -190,40 +197,24 @@ def check(cond: bool, what: str) -> None:
 
 def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    from repro_torch.benchmarks.common import cuda_ms as timer
+    return timer(fn, iters, warmup)
+
+
+def alternated_ms(torch, fns, rounds: int, iters: int) -> dict:
+    """Median ``cuda_ms`` of each of ``fns`` over ``rounds`` rounds, the
+    order rotated and reversed from round to round."""
+    from repro_torch.benchmarks.common import alternated
+    return alternated(lambda fn: cuda_ms(torch, fn, iters, warmup=1), fns,
+                      rounds)
 
 
 def queued_ms(torch, fn, iters: int) -> float:
-    """Device time per call of ``fn`` run back to back, the host's excluded:
-    the calls are queued behind a sleep kernel that outlasts their enqueue
-    four times over, then run between two CUDA events. For calls of a few
-    microseconds, where back-to-back events (``cuda_ms``) time the host."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    host_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(4 * host_s * 2e9))  # cycles, at <= 2 GHz
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    """Device time per call of ``fn`` run back to back, the host's excluded
+    (calls queued behind a sleep kernel), for calls of a few microseconds,
+    where back-to-back events (``cuda_ms``) time the host."""
+    from repro_torch.benchmarks.common import queued_ms as timer
+    return timer(fn, iters)
 
 
 def profiled_ms(torch, fn, iters: int) -> float:
@@ -470,12 +461,13 @@ def bits_sha(t) -> str:
 
 
 def kernels_lu(torch, randn, dominant, rows):
-    """HPL's three panel kernels at HPL's shapes (b = 64, m = 16384): each
-    against its plain version, timed with the nearest library call. The two
-    redesigned kernels on the route each shape must take, against their
-    plain versions also at the ragged 48, at 128 (their second routes), on
-    strided panels of prime width and on an unaligned 64 x 64 view; and
-    all three kernels' output bits against :data:`LU_BITS`. Times: ``queued_ms``, since back-to-back launches of a
+    """HPL's three panel kernels at HPL's shapes (b = 64, m = 16384; the
+    Left panel a column strip of an m x m matrix, as HPL passes it): each
+    on the route the shape must take, against its plain version, timed with
+    the nearest library call; also at the ragged 48, at 128 (their second
+    routes), on strided panels of prime width or height and on an
+    unaligned 64 x 64 view; and all three kernels' output bits against
+    :data:`LU_BITS`. Times: ``queued_ms``, since back-to-back launches of a
     kernel of a few microseconds time the host's wrapper (``cuda_ms``,
     reported beside)."""
     from repro_torch.kernels import lu as klu
@@ -484,6 +476,7 @@ def kernels_lu(torch, randn, dominant, rows):
     m, b = N_MAIN, B_MAIN
     checked = []
     lu_w, lo_w = klu.lu_factor_block, klu.trsm_lower_left
+    up_w = klu.trsm_upper_right
 
     def timed(fn, lib):
         return dict(ms=queued_ms(torch, fn, 200),
@@ -530,15 +523,18 @@ def kernels_lu(torch, randn, dominant, rows):
         library="torch.linalg.solve_triangular(lu, b, upper=False, "
                 "unitriangular=True)")
 
-    # trsm_upper_right: the Left panel, X (m, b) = A_ik U^{-1}
-    left = randn(m, b)
+    # trsm_upper_right: the Left panel, X (m, b) = A_ik U^{-1}, on HPL's
+    # layout: a column strip of an (m, m) matrix, row stride m
+    matrix = randn(m, m)
+    left = matrix[:, b:2 * b]
     want = ref.trsm_upper_right(lu_blk, left)
-    got = klu.trsm_upper_right(lu_blk, left)
+    got = on_route(up_w, "regs64", lambda: klu.trsm_upper_right(lu_blk, left))
     ok, err = allclose(torch, got, want, *TRSM_TOL)
     check(ok, f"trsm_upper_right disagrees with its plain version: {err}")
     bms, by = bound(4 * (b * b + 2 * b * m), m * b * b)
     rows["trsm_upper_right"] = dict(
-        shape=f"lu({b},{b}) B({m},{b}) fp32", max_abs_err=err,
+        shape=f"lu({b},{b}) B({m},{b}) row stride {m} fp32",
+        kernel_route="regs64", max_abs_err=err,
         tol={"rtol": TRSM_TOL[0], "atol": TRSM_TOL[1]},
         plain_ms=cuda_ms(torch, lambda: ref.trsm_upper_right(lu_blk, left),
                          iters=5),
@@ -548,10 +544,10 @@ def kernels_lu(torch, randn, dominant, rows):
                     lu_blk, left, upper=True, left=False)),
         library="torch.linalg.solve_triangular(lu, b, upper=True, "
                 "left=False)")
-    del want, got, left
+    del want, got, left, matrix
 
-    # the ragged 48 (a strided view), the largest block 128, a strided
-    # panel of prime width: each on its route, against the plain version
+    # the ragged 48 (a strided view), the largest block 128, strided panels
+    # of prime width (height): each on its route, against the plain version
     blk48, blk128 = dominant(96)[:48, :48], dominant(128)
     lu48, lu128 = ref.lu_factor_block(blk48), ref.lu_factor_block(blk128)
     cases = {
@@ -569,6 +565,14 @@ def kernels_lu(torch, randn, dominant, rows):
             lo_w, route,
             lambda lu_n=lu_n, p=p: klu.trsm_lower_left(lu_n, p),
             ref.trsm_lower_left(lu_n, p), TRSM_TOL)
+    for n, M, lu_n in ((48, 1009, lu48), (128, 1000, lu128),
+                       (b, m, lu_blk)):
+        p = randn(M, n + 91)[:, 45:45 + n]
+        route = klu.trsm_upper_route(n)
+        cases[f"trsm_upper_right n={n} M={M} (strided)"] = (
+            up_w, route,
+            lambda lu_n=lu_n, p=p: klu.trsm_upper_right(lu_n, p),
+            ref.trsm_upper_right(lu_n, p), TRSM_TOL)
     for label, (wrapper, route, fn, want, tol) in cases.items():
         ok, err = allclose(torch, on_route(wrapper, route, fn), want, *tol)
         check(ok, f"{label} on {route} disagrees with its plain version: "
@@ -637,8 +641,10 @@ def kernels_transpose_add(torch, randn, rows):
 
 
 def kernels_stream(torch, randn, rows):
-    """The four STREAM ops at 2^28 fp32 elements, bit for bit; then a size
-    of 128 x odd on misaligned views (the scalar path) and bf16."""
+    """The four STREAM ops at 2^28 fp32 elements, bit for bit, each timed
+    against its library call in STREAM_ROUNDS alternated rounds; then a
+    size of 128 x odd on misaligned views (the scalar path) and aligned
+    (the vector path's partial last tile), and bf16."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import stream as kst
 
@@ -665,12 +671,17 @@ def kernels_stream(torch, randn, rows):
         err = max_abs(got, want)
         del got, want
         bms, by = bound(nbytes * 4 * n, nops * n)
+        med = alternated_ms(torch, {"kernel": kern, "library": lib},
+                            STREAM_ROUNDS, iters=10)
         rows[name] = dict(
             shape=f"{n} fp32", max_abs_err=err, tol="bitwise",
-            ms=cuda_ms(torch, kern, iters=20),
-            plain_ms=cuda_ms(torch, plain, iters=5), bound_ms=bms,
-            bound_by=by, library_ms=cuda_ms(torch, lib, iters=20),
-            library=libname)
+            ms=med["kernel"], plain_ms=cuda_ms(torch, plain, iters=5),
+            bound_ms=bms, bound_by=by, library_ms=med["library"],
+            library=libname, ms_over_library=med["kernel"] / med["library"],
+            hbm_share=bms / med["kernel"],
+            library_hbm_share=bms / med["library"],
+            timing=f"ms, library_ms: medians of {STREAM_ROUNDS} alternated "
+                   "rounds of cuda_ms over 10 calls")
         torch.cuda.empty_cache()
     del a, b
     torch.cuda.empty_cache()
@@ -680,7 +691,9 @@ def kernels_stream(torch, randn, rows):
     x, y = big[1:1 + m], big[m + 2:2 + 2 * m]  # not 16-byte aligned
     x16, y16 = randn(1 << 20, dtype=torch.bfloat16), \
         randn(1 << 20, dtype=torch.bfloat16)
+    # 128 x 4099 aligned: the vector path's last tile, partial and masked
     for label, (u, v) in {"misaligned 128x4099": (x, y),
+                          "aligned 128x4099": (randn(m), randn(m)),
                           "bf16 2^20": (x16, y16)}.items():
         for name, kern, plain in (
                 ("stream_copy", lambda: kst.stream_copy(u),

@@ -41,16 +41,33 @@
 //   a shared-memory load on every term (64 and 32 columns per CTA measured
 //   slower: each CTA stages L). The ragged last CTA masks its columns, so
 //   any N works.
-// - trsm_upper_right: X = B U^{-1}. A grid over row slabs of B, loaded
-//   coalesced and stored transposed in shared memory; each thread solves
-//   one row, column by column, dividing by U[j, j].
+// - trsm_upper_right, routes regs64 (n <= 64) and regs128 (n <= 128), one
+//   template, the lower solve's mirror image: X = B U^{-1}, one row of B per
+//   thread in registers, padded to 64 or 128 columns (missing columns load
+//   as 0 and are not stored), right-looking and shifting: x_k = x[0] /
+//   U[k][k] is final (an IEEE division; a zero x[0], which `/` would send
+//   down its slow path, takes its signed-zero quotient directly), then
+//   x_j = fmaf(-x_k, U[k][j], x_j) for every j > k, with U's row k from
+//   shared memory as float4 broadcasts. Each thread loads its own row, every
+//   load in flight at once, as float4s where aligned (B arrives as a column
+//   strip of HPL's matrix, row stride 16384); finished columns go through a
+//   per-warp tile in shared memory and leave as 32-byte row pieces at the
+//   end of every 8 steps. 128 rows per CTA: 128 CTAs for HPL's 16384 rows,
+//   the last CTA masked, so any M works. On the card, loading each warp's
+//   32 rows coalesced through the tile measured slower (python -m
+//   repro_torch.benchmarks.upper_solve_probe), and so did 64 rows per CTA
+//   (python -m repro_torch.benchmarks.kernel_variants).
+//   The first port's kernel, a slab of 256 rows per CTA (64 CTAs) solved
+//   left-looking with both operands of every term read from shared memory,
+//   ran 1.04x solve_triangular (NVIDIA H100 80GB HBM3, 700 W).
 //
 // Every sum runs in ascending index order, one fused multiply-add per term,
 // and each element sees the same operations in the same order on every
 // route (the LU: l = a[i][k] / pivot, then a[i][j] = fmaf(-l, a[k][j],
 // a[i][j]) for k = 0, 1, ...; the lower solve: x_i = fmaf(-L[i][k], x_k,
-// x_i) for k = 0, 1, ...), so the routes agree bit for bit, and with the
-// first port's kernels. Divisions are IEEE (the build does not use fast
+// x_i) for k = 0, 1, ...; the upper solve: x_j = fmaf(-x_k, U[k][j], x_j)
+// for k = 0, 1, ..., then x_j / U[j][j]), so the routes agree bit for bit,
+// and with the first port's kernels. Divisions are IEEE (the build does not use fast
 // math).
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -84,6 +101,15 @@ __device__ __forceinline__ float& elt(float4 (&r)[LU_NP / 4], int i) {
 __device__ __forceinline__ float load_always(const float* p) {
   float v;
   asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
+}
+
+// Loads 16 bytes from global memory, always (see load_always).
+__device__ __forceinline__ float4 load4_always(const float* p) {
+  float4 v;
+  asm volatile("ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "l"(p));
   return v;
 }
 
@@ -321,33 +347,162 @@ trsm_lower_kernel(const float* __restrict__ LU, int64_t ldl,
 // trsm_upper_right
 // ---------------------------------------------------------------------------
 
-__global__ void trsm_upper_right_kernel(const float* __restrict__ LU,
-                                        int64_t ldl,
-                                        const float* __restrict__ B,
-                                        int64_t ldb, float* __restrict__ X,
-                                        int n, int M) {
-  extern __shared__ float sm[];
-  float* U = sm;           // n x n packed LU
-  float* Xs = sm + n * n;  // Xs[j * pitch + r] = row r of this slab, col j
-  const int slab = blockDim.x, pitch = slab + 1;
-  const int t = threadIdx.x;
-  const int r0 = blockIdx.x * slab;
-  for (int e = t; e < n * n; e += slab) U[e] = LU[(int64_t)(e / n) * ldl + e % n];
-  for (int e = t; e < slab * n; e += slab) {
-    const int r = e / n, c = e % n;  // neighbours read neighbouring columns
-    Xs[c * pitch + r] = (r0 + r < M) ? B[(int64_t)(r0 + r) * ldb + c] : 0.f;
+// Rows per CTA, one per thread; a build may override it (-D) to time 64
+// (python -m repro_torch.benchmarks.kernel_variants).
+#ifndef UPPER_ROWS
+#define UPPER_ROWS 128
+#endif
+constexpr int UPPER_GROUP = 8;  // steps per loop
+
+// x / d, IEEE, without `/` for a zero x: x / d is then the zero of sign
+// (sign x) xor (sign d) for every d but 0 and NaN, and `/` would take its
+// slow path (hundreds of cycles) on it; `/` divides 1 instead, unused. HPL's
+// Left panel holds the diagonal block's own rows, whose solution, L, has
+// 2,016 zeros above its diagonal in every iteration. The dividend is chosen
+// in PTX: a select in C++ lets the compiler see that the quotient is unused
+// where the dividend is 1, and divide x after all.
+__device__ __forceinline__ float quotient(float x, float d) {
+  const bool zero = x == 0.f && fabsf(d) > 0.f;  // false for a NaN d
+  float num;
+  asm("{\n .reg .pred zp;\n setp.ne.b32 zp, %2, 0;\n"
+      " selp.f32 %0, 0f3F800000, %1, zp;\n}"
+      : "=f"(num)
+      : "f"(x), "r"((int)zero));
+  const float q = num / d;
+  return zero ? __int_as_float((__float_as_int(x) ^ __float_as_int(d)) &
+                               0x80000000)
+              : q;
+}
+
+// Steps K0 .. K0 + UPPER_GROUP - 1 of the upper solve, then the later
+// groups: the lower solve's steps over a row. At step k position c of the
+// row holds column k + c (c >= 1) and xk holds x_k, final: it is staged in
+// the warp's tile for the store, every column right of it takes its term
+// and shifts left by one, x[c] = fmaf(-U[k][k + 1 + c], x_k, x[c + 1]) with
+// column k + 1 first, so the indices are constants while k runs in a loop
+// and the loop body keeps the group's first width W; then x_{k+1} =
+// x[0] / U[k+1][k+1] (quotient), last in the step, so its division shares
+// a basic block with the step's FMAs. Step n - 1 only stages x_{n-1}. u0 is the
+// first float4 of the step's U row, loaded a step ahead. At the end of a
+// group the warp stores the group's columns of its 32 rows.
+template <int NP, int K0>
+__device__ __forceinline__ void upper_groups(
+    float (&x)[NP], float& xk, float4& u0, const float4* __restrict__ ut4,
+    const float* __restrict__ diag, float* __restrict__ tile,
+    float* __restrict__ X, int64_t row0, int M, int n, int lane) {
+  // P4: ut's pitch in float4s; TP: the tile's pitch (lanes writing their
+  // own rows hit 32 banks)
+  constexpr int W = NP - K0 - 1, P4 = (NP + 4) / 4, TP = NP + 1;
+  if (K0 >= n) return;
+  const int kend = K0 + UPPER_GROUP < n ? K0 + UPPER_GROUP : n;
+#pragma unroll 1
+  for (int k = K0; k < kend; ++k) {
+    tile[lane * TP + k] = xk;
+    if (k + 1 == n) break;
+    const float4* u = ut4 + k * P4;  // U[k][k + 1 + c] at c
+    const float4 un = u[P4];         // the next step's u0
+    const float d = diag[k + 1];
+#pragma unroll
+    for (int g = 0; g < (W + 3) / 4; ++g) {
+      const float4 u4 = g == 0 ? u0 : u[g];
+      const float uv[4] = {u4.x, u4.y, u4.z, u4.w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (4 * g + c < W) x[4 * g + c] = fmaf(-uv[c], xk, x[4 * g + c + 1]);
+    }
+    xk = quotient(x[0], d);
+    u0 = un;
   }
+  // the group's columns: a lane stores column K0 + lane % G of rows
+  // lane / G + R i, every shared-memory read first
+  constexpr int G = UPPER_GROUP, R = 32 / G;
+  __syncwarp();
+  const int col = K0 + lane % G;
+  float v[G];
+#pragma unroll
+  for (int i = 0; i < G; ++i) v[i] = tile[(lane / G + R * i) * TP + col];
+#pragma unroll
+  for (int i = 0; i < G; ++i) {
+    const int64_t r = row0 + lane / G + R * i;
+    if (r < M && col < n) X[r * n + col] = v[i];
+  }
+  if constexpr (K0 + UPPER_GROUP < NP)
+    upper_groups<NP, K0 + UPPER_GROUP>(x, xk, u0, ut4, diag, tile, X, row0,
+                                       M, n, lane);
+}
+
+// One thread per row of B, UPPER_ROWS rows per CTA, the last CTA masked
+// (its rows past M repeat row M - 1 and are not stored); columns past n
+// load as 0, and U is padded with zeros (its diagonal with ones). kVec: the
+// rows load as float4s.
+template <int NP, bool kVec>
+__global__ void __launch_bounds__(UPPER_ROWS)
+trsm_upper_kernel(const float* __restrict__ LU, int64_t ldl,
+                  const float* __restrict__ B, int64_t ldb,
+                  float* __restrict__ X, int n, int M) {
+  constexpr int P = NP + 4;  // ut's pitch: 16-byte rows
+  extern __shared__ float4 smem4[];
+  float* ut = reinterpret_cast<float*>(smem4);  // ut[k * P + c] = U[k][k+1+c]
+  float* diag = ut + NP * P;                    // diag[k] = U[k][k]
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  float* tile = diag + NP + warp * 32 * (NP + 1);  // the warp's rows of X
+  const int64_t row0 = (int64_t)blockIdx.x * UPPER_ROWS + warp * 32;
+  const int64_t last = (int64_t)M - 1;
+  // U first (every CTA reads the same block, from L2), CHUNK loads in
+  // flight per thread, all of ut written (zeros past U's rows) so that the
+  // positions past a row's end hold finite values
+  constexpr int UPT = NP * P / UPPER_ROWS, CHUNKS = (UPT + 35) / 36;
+  constexpr int CHUNK = UPT / CHUNKS;
+  static_assert(NP * P % UPPER_ROWS == 0 && CHUNK * CHUNKS == UPT, "U split");
+  float w[CHUNK];
+  const auto u_load = [&](int e0) {
+#pragma unroll
+    for (int c = 0; c < CHUNK; ++c) {
+      const int e = e0 + c * UPPER_ROWS + t, k = e / P, j = k + 1 + e % P;
+      w[c] = load_always(LU + min(k, n - 1) * ldl + min(j, n - 1));
+    }
+  };
+  const auto u_store = [&](int e0) {
+#pragma unroll
+    for (int c = 0; c < CHUNK; ++c) {
+      const int e = e0 + c * UPPER_ROWS + t, k = e / P, j = k + 1 + e % P;
+      ut[e] = (k < n && j < n) ? w[c] : 0.f;
+    }
+  };
+  const float dk = load_always(LU + min(t, n - 1) * (ldl + 1));
+  u_load(0);
+  // the thread's own row of B, every load in flight at once: as float4s
+  // where rows are 16-byte aligned and n % 4 == 0 (kVec), else as floats
+  float x[NP];
+  const float* row = B + min(row0 + lane, last) * ldb;
+  if constexpr (kVec) {
+#pragma unroll
+    for (int q = 0; q < NP / 4; ++q) {
+      const float4 f = load4_always(row + min(4 * q, n - 4));
+      const bool in = 4 * q < n;
+      x[4 * q] = in ? f.x : 0.f, x[4 * q + 1] = in ? f.y : 0.f;
+      x[4 * q + 2] = in ? f.z : 0.f, x[4 * q + 3] = in ? f.w : 0.f;
+    }
+  } else {
+    float v[NP];
+#pragma unroll
+    for (int c = 0; c < NP; ++c) v[c] = load_always(row + min(c, n - 1));
+#pragma unroll
+    for (int c = 0; c < NP; ++c) x[c] = c < n ? v[c] : 0.f;
+  }
+  u_store(0);
+#pragma unroll 1
+  for (int e0 = UPPER_ROWS * CHUNK; e0 < NP * P; e0 += UPPER_ROWS * CHUNK) {
+    u_load(e0);
+    u_store(e0);
+  }
+  if (t < NP) diag[t] = t < n ? dk : 1.f;
+  for (int k = t + UPPER_ROWS; k < NP; k += UPPER_ROWS)  // 64 rows, NP 128
+    diag[k] = k < n ? LU[(int64_t)k * (ldl + 1)] : 1.f;
   __syncthreads();
-  for (int c = 0; c < n; ++c) {
-    float acc = Xs[c * pitch + t];
-    for (int k = 0; k < c; ++k) acc = fmaf(-Xs[k * pitch + t], U[k * n + c], acc);
-    Xs[c * pitch + t] = acc / U[c * n + c];
-  }
-  __syncthreads();
-  for (int e = t; e < slab * n; e += slab) {
-    const int r = e / n, c = e % n;
-    if (r0 + r < M) X[(int64_t)(r0 + r) * n + c] = Xs[c * pitch + r];
-  }
+  float xk = quotient(x[0], diag[0]);
+  float4 u0 = smem4[0];
+  upper_groups<NP, 0>(x, xk, u0, smem4, diag, tile, X, row0, M, n, lane);
 }
 
 // Opts a kernel into more than the default 48 KiB of dynamic shared memory.
@@ -368,6 +523,21 @@ cudaError_t launch_trsm_lower(const float* lu, int64_t ldl, const float* b,
   if (err != cudaSuccess) return err;
   trsm_lower_kernel<NP><<<ctas, TRSM_COLS, smem, stream>>>(lu, ldl, b, ldb,
                                                            x, n, N);
+  return cudaGetLastError();
+}
+
+template <int NP>
+cudaError_t launch_trsm_upper(const float* lu, int64_t ldl, const float* b,
+                              int64_t ldb, float* x, int n, int M, int ctas,
+                              cudaStream_t stream) {
+  const size_t smem =
+      ((size_t)NP * (NP + 4) + NP + UPPER_ROWS * (NP + 1)) * sizeof(float);
+  const bool vec = n % 4 == 0 && ldb % 4 == 0 && (uintptr_t)b % 16 == 0;
+  auto kernel =
+      vec ? trsm_upper_kernel<NP, true> : trsm_upper_kernel<NP, false>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<ctas, UPPER_ROWS, smem, stream>>>(lu, ldl, b, ldb, x, n, M);
   return cudaGetLastError();
 }
 
@@ -420,17 +590,24 @@ extern "C" int repro_trsm_lower_left_f32(const void* lu, int64_t ldl,
   return (int)cudaErrorInvalidValue;
 }
 
-// x (M x n, contiguous) = b U^{-1} for the (M x n) panel b (row stride ldb);
-// slab rows per CTA, M % slab == 0.
+// x (M x n, contiguous) = b U^{-1} for the (M x n) panel b (row stride
+// ldb), columns padded to np (64 or 128, n <= np); ctas CTAs of UPPER_ROWS
+// rows cover M, the last one masked.
 extern "C" int repro_trsm_upper_right_f32(const void* lu, int64_t ldl,
                                           const void* b, int64_t ldb, void* x,
-                                          int n, int M, int slab,
+                                          int n, int M, int np, int ctas,
                                           void* stream) {
-  if (M <= 0) return 0;
-  const size_t smem = ((size_t)n * n + (size_t)n * (slab + 1)) * sizeof(float);
-  cudaError_t err = allow_smem(trsm_upper_right_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  trsm_upper_right_kernel<<<M / slab, slab, smem, (cudaStream_t)stream>>>(
-      (const float*)lu, ldl, (const float*)b, ldb, (float*)x, n, M);
-  return (int)cudaGetLastError();
+  if (n <= 0 || M <= 0) return 0;
+  if (n > np || (int64_t)ctas * UPPER_ROWS < M ||
+      (int64_t)(ctas - 1) * UPPER_ROWS >= M)
+    return (int)cudaErrorInvalidValue;
+  const float *l = (const float*)lu, *bb = (const float*)b;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (np == 64)
+    return (int)launch_trsm_upper<64>(l, ldl, bb, ldb, (float*)x, n, M, ctas,
+                                      s);
+  if (np == 128)
+    return (int)launch_trsm_upper<128>(l, ldl, bb, ldb, (float*)x, n, M,
+                                       ctas, s);
+  return (int)cudaErrorInvalidValue;
 }

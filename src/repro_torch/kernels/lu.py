@@ -20,16 +20,22 @@ steps (b = 64 at HPL). For each:
   HPL's 16384 columns make 128 CTAs, one per SM, the last CTA masked
   where 128 does not divide N.
 - ``trsm_upper_right`` replaces ``:trsm_upper_right``
-  (``_trsm_upper_kernel``), the Left panel: a grid of row slabs, one row
-  per thread, from shared memory.
+  (``_trsm_upper_kernel``), HPL's Left panel, the lower solve's mirror
+  image: one row per thread in registers, padded to 64 columns (route
+  ``regs64``) or 128 (``regs128``), solved right-looking, each step's
+  quotient an IEEE division (a zero dividend's signed zero without ``/``,
+  whose slow path it would take); each thread loads its own row of the
+  strided panel, every load in flight at once; 128 rows per CTA, so HPL's
+  16384 rows make 128 CTAs, the last CTA masked where 128 does not divide
+  M.
 
 Each element sees the same operations in the same order on every route, so
 the routes agree bit for bit. Their plain versions are in
 :mod:`repro_torch.kernels.ref`.
 
 All three take fp32 CUDA tensors. The block size ``n`` is at most
-:data:`MAX_BLOCK`. The wrappers count their launches, and the first two
-their launches by route (``launches_by_route``).
+:data:`MAX_BLOCK`. The wrappers count their launches, and their launches by
+route (``launches_by_route``).
 """
 from __future__ import annotations
 
@@ -38,14 +44,15 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.gemm import check_cuda, fit_block, row_stride
+from repro_torch.kernels.gemm import check_cuda, row_stride
 
 MAX_BLOCK = 128   # the largest block any route takes
-MAX_SLAB = 256    # threads per CTA of trsm_upper_right
 # route -> the largest block it takes; the order is the order of choice
 LU_ROUTES = {"warp_regs": 64, "cta_smem": 128}
 TRSM_LOWER_ROUTES = {"regs64": 64, "regs128": 128}  # route -> padded rows
 TRSM_LOWER_COLS = 128  # columns per CTA (csrc/lu.cu: TRSM_COLS)
+TRSM_UPPER_ROUTES = {"regs64": 64, "regs128": 128}  # route -> padded columns
+TRSM_UPPER_ROWS = 128  # rows per CTA (csrc/lu.cu: UPPER_ROWS)
 
 _VP, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 
@@ -86,6 +93,18 @@ def trsm_lower_geometry(N: int):
     enough CTAs of :data:`TRSM_LOWER_COLS` columns to cover N, the last one
     masked where they do not divide it."""
     return -(-N // TRSM_LOWER_COLS), TRSM_LOWER_COLS
+
+
+def trsm_upper_route(n: int) -> str:
+    """The route ``trsm_upper_right`` takes for an (n, n) block."""
+    return _route(TRSM_UPPER_ROUTES, n)
+
+
+def trsm_upper_geometry(M: int):
+    """(CTAs, rows per CTA) of ``trsm_upper_right`` on an (M, n) panel:
+    enough CTAs of :data:`TRSM_UPPER_ROWS` rows to cover M, the last one
+    masked where they do not divide it."""
+    return -(-M // TRSM_UPPER_ROWS), TRSM_UPPER_ROWS
 
 
 def _check_block(lu: torch.Tensor, name: str) -> int:
@@ -144,22 +163,29 @@ def trsm_lower_left(lu: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def trsm_upper_right(lu: torch.Tensor, b: torch.Tensor, *,
                      bm: int = 256) -> torch.Tensor:
-    """Launch the kernel: X = B U^{-1} for packed ``lu`` (n, n) and panel
-    ``b`` (M, n), one CTA per ``fit_block(M, bm)`` rows."""
+    """Launch the kernel of :func:`trsm_upper_route`'s route: X = B U^{-1}
+    for packed ``lu`` (n, n) and panel ``b`` (M, n), any M, in
+    :func:`trsm_upper_geometry`'s CTAs. ``bm``, the reference's row block,
+    is accepted and ignored: the kernel's CTA height is fixed and its last
+    CTA masked."""
     check_cuda(("lu", lu), ("b", b))
     n = _check_block(lu, "lu")
     if b.dim() != 2 or b.shape[1] != n or b.dtype != torch.float32:
         raise ValueError(f"b must be float32 (M, {n}), got "
                          f"{b.dtype} {tuple(b.shape)}")
+    route = trsm_upper_route(n)
     M = b.shape[0]
     out = torch.empty((M, n), dtype=torch.float32, device=b.device)
-    slab = fit_block(M, min(bm, MAX_SLAB)) if M else 1
+    if n == 0 or M == 0:
+        return out
     fn = _entry("repro_trsm_upper_right_f32",
-                [_VP, _I64, _VP, _I64, _VP, _INT, _INT, _INT, _VP])
+                [_VP, _I64, _VP, _I64, _VP, _INT, _INT, _INT, _INT, _VP])
     _build.check(fn(lu.data_ptr(), row_stride(lu, "lu"), b.data_ptr(),
-                    row_stride(b, "b"), out.data_ptr(), n, M, slab,
+                    row_stride(b, "b"), out.data_ptr(), n, M,
+                    TRSM_UPPER_ROUTES[route], trsm_upper_geometry(M)[0],
                     _stream(b)), "trsm_upper_right")
     trsm_upper_right.launches += 1
+    trsm_upper_right.launches_by_route[route] += 1
     return out
 
 
@@ -168,3 +194,4 @@ lu_factor_block.launches_by_route = dict.fromkeys(LU_ROUTES, 0)
 trsm_lower_left.launches = 0
 trsm_lower_left.launches_by_route = dict.fromkeys(TRSM_LOWER_ROUTES, 0)
 trsm_upper_right.launches = 0
+trsm_upper_right.launches_by_route = dict.fromkeys(TRSM_UPPER_ROUTES, 0)

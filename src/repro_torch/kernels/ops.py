@@ -20,11 +20,12 @@ tiles, which does not change the result beyond fp32 rounding. On the card
 the dtype picks the kernel (bf16: tensor cores, fp32: SIMT), and the
 wrapper counts launches per route beside ``launches``.
 
-``lu_factor_block`` and ``trsm_lower_left`` pick their CUDA route by the
-block size (``kernels/lu.py``) and count launches per route too;
-:func:`launches_by_route` gathers every kernel's counts by route.
-``trsm_lower_left`` accepts the reference's ``bn`` and ignores it on the
-card, where the kernel's CTA width is fixed and the last CTA is masked.
+``lu_factor_block``, ``trsm_lower_left`` and ``trsm_upper_right`` pick
+their CUDA route by the block size (``kernels/lu.py``) and count launches
+per route too; :func:`launches_by_route` gathers every kernel's counts by
+route. ``trsm_lower_left`` accepts the reference's ``bn`` and
+``trsm_upper_right`` its ``bm``, and both ignore them on the card, where the
+kernel's CTA width (height) is fixed and the last CTA is masked.
 
 ``ring_add_step`` keeps the reference's (rows, 128) assert on both routes
 and takes an optional ``out`` (which may be ``acc``), so the engine can
@@ -172,7 +173,8 @@ def launch_counts() -> Dict[str, int]:
 
 def launches_by_route() -> Dict[str, Dict[str, int]]:
     """Kernel launches so far by route, for the kernels that have routes
-    (``flash_attention``, ``lu_factor_block``, ``trsm_lower_left``)."""
+    (``flash_attention``, ``lu_factor_block``, ``trsm_lower_left``,
+    ``trsm_upper_right``)."""
     return {name: dict(w.launches_by_route) for name, w in _wrappers().items()
             if hasattr(w, "launches_by_route")}
 
