@@ -23,8 +23,8 @@ Phases, one JSON line each:
                per-hop chunk of
                the allreduce phase, 6,291,456 fp32, and at a 32 MiB
                bucket's chunk, 2^28 fp32 and bf16, aliased, misaligned, and
-               ragged in fp32 and fp16; its device time alone, from a
-               torch.profiler trace, at every hop chunk of the allreduce
+               ragged in fp32 and fp16; its device time alone, queued
+               behind a sleep kernel, at every hop chunk of the allreduce
                phase and at 2^21) and at ragged and strided shapes and in
                bf16, and time kernel, plain version and the nearest PyTorch
                library call (fp32 library calls run with TF32 off; the
@@ -106,6 +106,7 @@ from __future__ import annotations
 import hashlib
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -197,52 +198,52 @@ def check(cond: bool, what: str) -> None:
 
 def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
-    from repro_torch.benchmarks.common import cuda_ms as timer
-    return timer(fn, iters, warmup)
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def alternated_ms(torch, fns, rounds: int, iters: int) -> dict:
     """Median ``cuda_ms`` of each of ``fns`` over ``rounds`` rounds, the
-    order rotated and reversed from round to round."""
-    from repro_torch.benchmarks.common import alternated
-    return alternated(lambda fn: cuda_ms(torch, fn, iters, warmup=1), fns,
-                      rounds)
+    order rotated and reversed from round to round, so that clock and
+    thermal drift fall on every function alike."""
+    names, times = list(fns), {k: [] for k in fns}
+    for r in range(rounds):
+        order = names[r % len(names):] + names[:r % len(names)]
+        for k in (order[::-1] if r % 2 else order):
+            times[k].append(cuda_ms(torch, fns[k], iters, warmup=1))
+    return {k: statistics.median(v) for k, v in times.items()}
 
 
 def queued_ms(torch, fn, iters: int) -> float:
-    """Device time per call of ``fn`` run back to back, the host's excluded
-    (calls queued behind a sleep kernel), for calls of a few microseconds,
-    where back-to-back events (``cuda_ms``) time the host."""
-    from repro_torch.benchmarks.common import queued_ms as timer
-    return timer(fn, iters)
-
-
-def profiled_ms(torch, fn, iters: int) -> float:
-    """Device time per call of ``fn``, without the host's: the CUDA
-    activities of ``iters`` warm calls under torch.profiler, summed, over
-    ``iters``. Raises unless the trace holds one kernel per call. A trace
-    that misses some (the profiler has been seen to drop one of 200) is
-    taken again, up to three traces in all."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """Device time per call of ``fn`` run back to back, the host's excluded:
+    the calls are queued behind a sleep kernel that outlasts their enqueue
+    four times over, then run between two CUDA events. For calls of a few
+    microseconds, where back-to-back events (``cuda_ms``) time the host."""
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        evts = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and e.self_device_time_total]
-        if sum(e.count for e in evts) == iters:
-            break
-    check(sum(e.count for e in evts) == iters,
-          f"the trace holds {[(e.key, e.count) for e in evts]}, not "
-          f"{iters} kernels")
-    return sum(e.self_device_time_total for e in evts) / 1e3 / iters
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(4 * host_s * 2e9))  # cycles, at <= 2 GHz
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def bound(nbytes: float, flops: float, peak_flops: float = FP32_FLOPS):
@@ -1070,9 +1071,9 @@ def kernels_ring(torch, randn, rows):
     for n in sorted(set(chunks) | {1 << 21}):
         a, b = randn(n // 128, 128), randn(n // 128, 128)
         device[n] = dict(
-            ring_add_step_ms=profiled_ms(
+            ring_add_step_ms=queued_ms(
                 torch, lambda: kring.ring_add_step(a, b, out=a), 200),
-            torch_add_ms=profiled_ms(
+            torch_add_ms=queued_ms(
                 torch, lambda: torch.add(a, b, out=a), 200),
             events_ms=cuda_ms(
                 torch, lambda: kring.ring_add_step(a, b, out=a), 200),

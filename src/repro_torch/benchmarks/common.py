@@ -1,18 +1,14 @@
-"""Shared helpers of the port's benchmark scripts: tables, units, results,
-device timers.
+"""Shared helpers of the port's benchmark scripts: tables, units, results.
 
 The port's own copy of ``benchmarks/common.py``'s ``table``, ``fmt_bw`` and
 ``save_result``. Results go to ``results/bench/torch_<name>.json`` at the
-root of the checkout. The timers (:func:`cuda_ms`, :func:`queued_ms`,
-:func:`alternated`) need a CUDA card; ``chip_smoke.py`` uses them too.
+root of the checkout.
 """
 from __future__ import annotations
 
 import json
-import statistics
-import time
 from pathlib import Path
-from typing import Callable, Dict, List
+from typing import Dict, List
 
 RESULTS = Path(__file__).resolve().parents[3] / "results" / "bench"
 
@@ -41,60 +37,3 @@ def fmt_bw(b: float) -> str:
             return f"{b:.2f}{unit}"
         b /= 1000
     return f"{b:.2f}PB/s"
-
-
-def cuda_ms(fn: Callable, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls, between
-    two CUDA events."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def queued_ms(fn: Callable, iters: int) -> float:
-    """Device time per call of ``fn`` run back to back, the host's excluded:
-    the calls are queued behind a sleep kernel that outlasts their enqueue
-    four times over, then run between two CUDA events. For calls of a few
-    microseconds, where back-to-back events (:func:`cuda_ms`) time the
-    host."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    host_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(4 * host_s * 2e9))  # cycles, at <= 2 GHz
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def alternated(time_fn: Callable, fns: Dict[str, Callable],
-               rounds: int) -> Dict[str, float]:
-    """Median of ``time_fn(fn)`` for each of ``fns`` over ``rounds`` rounds,
-    the order rotated and reversed from round to round, so that clock and
-    thermal drift fall on every function alike."""
-    names, times = list(fns), {k: [] for k in fns}
-    for r in range(rounds):
-        order = names[r % len(names):] + names[:r % len(names)]
-        for k in (order[::-1] if r % 2 else order):
-            times[k].append(time_fn(fns[k]))
-    return {k: statistics.median(v) for k, v in times.items()}

@@ -54,9 +54,8 @@
 //   per-warp tile in shared memory and leave as 32-byte row pieces at the
 //   end of every 8 steps. 128 rows per CTA: 128 CTAs for HPL's 16384 rows,
 //   the last CTA masked, so any M works. On the card, loading each warp's
-//   32 rows coalesced through the tile measured slower (python -m
-//   repro_torch.benchmarks.upper_solve_probe), and so did 64 rows per CTA
-//   (python -m repro_torch.benchmarks.kernel_variants).
+//   32 rows coalesced through the tile measured slower, and so did 64 rows
+//   per CTA (PERF.md, section 6).
 //   The first port's kernel, a slab of 256 rows per CTA (64 CTAs) solved
 //   left-looking with both operands of every term read from shared memory,
 //   ran 1.04x solve_triangular (NVIDIA H100 80GB HBM3, 700 W).
@@ -347,11 +346,7 @@ trsm_lower_kernel(const float* __restrict__ LU, int64_t ldl,
 // trsm_upper_right
 // ---------------------------------------------------------------------------
 
-// Rows per CTA, one per thread; a build may override it (-D) to time 64
-// (python -m repro_torch.benchmarks.kernel_variants).
-#ifndef UPPER_ROWS
-#define UPPER_ROWS 128
-#endif
+constexpr int UPPER_ROWS = 128;  // rows per CTA, one per thread
 constexpr int UPPER_GROUP = 8;  // steps per loop
 
 // x / d, IEEE, without `/` for a zero x: x / d is then the zero of sign

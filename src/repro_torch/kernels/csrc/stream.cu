@@ -9,27 +9,20 @@
 // 3.35 TB/s) and add and triad 3 GiB (0.961 ms), for at most two
 // operations per element.
 //
-// Design: when every pointer is 16-byte aligned, the array is cut into
-// tiles of THREADS * STREAM_UNROLL 16-byte vectors (4 fp32 or 8 bf16 values
-// each), and the host sizes the grid (kernels/stream.py:stream_geometry):
-// one CTA per tile, the array's last tile masked. A thread issues its
-// STREAM_UNROLL loads per operand, THREADS vectors apart (a warp's load
-// covers 512 contiguous bytes), before its first store. The SMs take the
-// CTAs in order, so the tiles in flight at any time form one window that
-// sweeps through the arrays. The kernel also takes a grid capped below one
-// CTA per tile, each CTA then walking a contiguous run of tiles. Measured
-// at 2^28 fp32 against the library's elementwise kernels (NVIDIA H100 80GB
-// HBM3, 700 W; python -m repro_torch.benchmarks.kernel_variants, which
-// builds the alternatives with -D overrides of STREAM_UNROLL and
-// STREAM_HINT; four runs): one resident wave of such runs (132 SMs x 8
-// CTAs) ran 1.04-1.07x their time, the first port's grid-stride loop over
-// 132 x 32 blocks 1.04-1.06x, and one CTA per tile 0.996-0.999x with 1
-// vector per thread (the default), 0.997-1.002x with 2, 0.999-1.009x with
-// 4 and 1.000-1.009x with 8. Evict-first loads (STREAM_HINT 1, __ldcs) ran
-// 1.01-1.03x; evict-first stores (2, __stcs) and both (3) came within the
-// runs' spread of none (0), so the default is none. Otherwise (an operand
-// off 16-byte alignment) a scalar grid-stride kernel does the same work one
-// element per thread. No shared memory: nothing is reused.
+// Design: when every pointer is 16-byte aligned, the array is read as
+// 16-byte vectors (4 fp32 or 8 bf16 values each), one per thread, THREADS
+// per CTA, and the host sizes the grid (kernels/stream.py:stream_geometry):
+// one CTA per THREADS vectors, the last CTA masked. A warp's load covers
+// 512 contiguous bytes. The SMs take the CTAs in order, so the vectors in
+// flight at any time form one window that sweeps through the arrays.
+// Measured at 2^28 fp32 on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md,
+// section 6): this design runs 0.996-1.004x the library's elementwise
+// kernels; one resident wave of CTAs each walking a contiguous run, with 4
+// vectors per thread in flight, ran 1.04-1.07x, the first port's
+// grid-stride loop 1.04-1.06x, more vectors per thread and evict-first
+// cache hints no faster. Otherwise (an operand off 16-byte alignment) a
+// scalar grid-stride kernel does the same work one element per thread. No
+// shared memory: nothing is reused.
 //
 // Math: each value is widened to fp32; scale is one rounded multiply, add
 // one rounded addition, and triad a rounded multiply then a rounded
@@ -41,18 +34,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#ifndef STREAM_UNROLL
-#define STREAM_UNROLL 1
-#endif
-#ifndef STREAM_HINT
-#define STREAM_HINT 0
-#endif
-
 namespace {
 
 enum Op { COPY = 0, SCALE = 1, ADD = 2, TRIAD = 3 };
-constexpr int THREADS = 256;
-constexpr int64_t TILE = (int64_t)THREADS * STREAM_UNROLL;  // vectors
+constexpr int THREADS = 256;  // 16-byte vectors per CTA, one per thread
 constexpr int64_t SCALAR_BLOCKS = 132 * 32;  // the scalar path's grid-stride
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -72,18 +57,6 @@ __device__ __forceinline__ float apply(float x, float y, float alpha) {
   return __fadd_rn(x, __fmul_rn(alpha, y));  // TRIAD
 }
 
-__device__ __forceinline__ uint4 load16(const uint4* p) {
-  if constexpr (STREAM_HINT & 1) return __ldcs(p);
-  return *p;
-}
-
-__device__ __forceinline__ void store16(uint4* p, uint4 v) {
-  if constexpr (STREAM_HINT & 2)
-    __stcs(p, v);
-  else
-    *p = v;
-}
-
 template <typename T, int OP>
 __device__ __forceinline__ uint4 apply16(uint4 xs, uint4 ys, float alpha) {
   if constexpr (OP == COPY) {
@@ -101,50 +74,18 @@ __device__ __forceinline__ uint4 apply16(uint4 xs, uint4 ys, float alpha) {
   }
 }
 
-// One tile: STREAM_UNROLL vectors per thread from i0 on, THREADS apart,
-// every load issued before the first store; kFull: the whole tile lies
-// inside nvec, else each vector is masked.
-template <typename T, int OP, bool kFull>
-__device__ __forceinline__ void stream_tile(const uint4* __restrict__ xv,
-                                            const uint4* __restrict__ yv,
-                                            uint4* __restrict__ ov, int64_t i0,
-                                            int64_t nvec, float alpha) {
-  constexpr bool kY = OP == ADD || OP == TRIAD;
-  uint4 xs[STREAM_UNROLL], ys[STREAM_UNROLL];
-#pragma unroll
-  for (int u = 0; u < STREAM_UNROLL; ++u) {
-    const int64_t i = i0 + u * THREADS;
-    if (kFull || i < nvec) {
-      xs[u] = load16(xv + i);
-      if (kY) ys[u] = load16(yv + i);
-    }
-  }
-#pragma unroll
-  for (int u = 0; u < STREAM_UNROLL; ++u) {
-    const int64_t i = i0 + u * THREADS;
-    if (kFull || i < nvec)
-      store16(ov + i, apply16<T, OP>(xs[u], kY ? ys[u] : xs[u], alpha));
-  }
-}
-
-// CTA b takes tiles b * tiles_per_cta .. (b + 1) * tiles_per_cta - 1, those
-// that exist; only the array's last tile can be partial.
+// Vector i = blockIdx.x * THREADS + threadIdx.x, those below nvec.
 template <typename T, int OP>
 __global__ void __launch_bounds__(THREADS)
 stream_vec_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                  T* __restrict__ out, int64_t nvec, int64_t tiles_per_cta,
-                  float alpha) {
-  const uint4* xv = reinterpret_cast<const uint4*>(x);
-  const uint4* yv = reinterpret_cast<const uint4*>(y);
-  uint4* ov = reinterpret_cast<uint4*>(out);
-  const int64_t first = (int64_t)blockIdx.x * tiles_per_cta * TILE;
-  const int64_t stop = first + tiles_per_cta * TILE;
-  const int64_t end = stop < nvec ? stop : nvec;
-  int64_t t0 = first;
-  for (; t0 + TILE <= end; t0 += TILE)
-    stream_tile<T, OP, true>(xv, yv, ov, t0 + threadIdx.x, nvec, alpha);
-  if (t0 < end)
-    stream_tile<T, OP, false>(xv, yv, ov, t0 + threadIdx.x, nvec, alpha);
+                  T* __restrict__ out, int64_t nvec, float alpha) {
+  const int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x;
+  if (i >= nvec) return;
+  const uint4 xs = reinterpret_cast<const uint4*>(x)[i];
+  const uint4 ys = (OP == ADD || OP == TRIAD)
+                       ? reinterpret_cast<const uint4*>(y)[i]
+                       : xs;
+  reinterpret_cast<uint4*>(out)[i] = apply16<T, OP>(xs, ys, alpha);
 }
 
 template <typename T, int OP>
@@ -165,20 +106,20 @@ stream_scalar_kernel(const T* __restrict__ x, const T* __restrict__ y,
 
 template <typename T, int OP>
 int launch(const void* x, const void* y, void* out, int64_t n, float alpha,
-           int64_t ctas, int64_t tiles_per_cta, void* stream) {
+           int64_t ctas, void* stream) {
   if (n <= 0) return 0;
   constexpr int V = 16 / sizeof(T);
   const uintptr_t addr = (uintptr_t)x | (uintptr_t)out |
                          ((OP == ADD || OP == TRIAD) ? (uintptr_t)y : 0);
   cudaStream_t s = (cudaStream_t)stream;
   if (addr % 16 == 0 && n % V == 0) {
-    // the host's geometry must cover the vectors, with no CTA left empty
-    const int64_t nvec = n / V, per_cta = tiles_per_cta * TILE;
-    if (ctas <= 0 || tiles_per_cta <= 0 || ctas > INT32_MAX ||
-        ctas * per_cta < nvec || (ctas - 1) * per_cta >= nvec)
+    // the host's grid must cover the vectors, with no CTA left empty
+    const int64_t nvec = n / V;
+    if (ctas <= 0 || ctas > INT32_MAX || ctas * THREADS < nvec ||
+        (ctas - 1) * THREADS >= nvec)
       return (int)cudaErrorInvalidValue;
     stream_vec_kernel<T, OP><<<(int)ctas, THREADS, 0, s>>>(
-        (const T*)x, (const T*)y, (T*)out, nvec, tiles_per_cta, alpha);
+        (const T*)x, (const T*)y, (T*)out, nvec, alpha);
   } else {
     const int64_t b = (n + THREADS - 1) / THREADS;
     stream_scalar_kernel<T, OP>
@@ -190,18 +131,12 @@ int launch(const void* x, const void* y, void* out, int64_t n, float alpha,
 
 template <typename T>
 int dispatch(int op, const void* x, const void* y, void* out, int64_t n,
-             float alpha, int64_t ctas, int64_t tiles_per_cta, void* stream) {
+             float alpha, int64_t ctas, void* stream) {
   switch (op) {
-    case COPY:
-      return launch<T, COPY>(x, y, out, n, alpha, ctas, tiles_per_cta, stream);
-    case SCALE:
-      return launch<T, SCALE>(x, y, out, n, alpha, ctas, tiles_per_cta,
-                              stream);
-    case ADD:
-      return launch<T, ADD>(x, y, out, n, alpha, ctas, tiles_per_cta, stream);
-    case TRIAD:
-      return launch<T, TRIAD>(x, y, out, n, alpha, ctas, tiles_per_cta,
-                              stream);
+    case COPY: return launch<T, COPY>(x, y, out, n, alpha, ctas, stream);
+    case SCALE: return launch<T, SCALE>(x, y, out, n, alpha, ctas, stream);
+    case ADD: return launch<T, ADD>(x, y, out, n, alpha, ctas, stream);
+    case TRIAD: return launch<T, TRIAD>(x, y, out, n, alpha, ctas, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -210,25 +145,17 @@ int dispatch(int op, const void* x, const void* y, void* out, int64_t n,
 
 // op: 0 copy (out = x), 1 scale (alpha * x), 2 add (x + y),
 // 3 triad (x + alpha * y). y is read by add and triad only. On the vector
-// path ctas CTAs take tiles_per_cta tiles of repro_stream_tile_vectors()
-// vectors each, a contiguous run per CTA, and must cover the n elements
-// with no CTA left empty; the scalar path (an operand off 16-byte
-// alignment) ignores both.
+// path ctas CTAs of 256 16-byte vectors must cover the n elements with no
+// CTA left empty; the scalar path (an operand off 16-byte alignment)
+// ignores ctas.
 extern "C" int repro_stream_f32(int op, const void* x, const void* y,
                                 void* out, int64_t n, float alpha,
-                                int64_t ctas, int64_t tiles_per_cta,
-                                void* stream) {
-  return dispatch<float>(op, x, y, out, n, alpha, ctas, tiles_per_cta,
-                         stream);
+                                int64_t ctas, void* stream) {
+  return dispatch<float>(op, x, y, out, n, alpha, ctas, stream);
 }
 
 extern "C" int repro_stream_bf16(int op, const void* x, const void* y,
                                  void* out, int64_t n, float alpha,
-                                 int64_t ctas, int64_t tiles_per_cta,
-                                 void* stream) {
-  return dispatch<__nv_bfloat16>(op, x, y, out, n, alpha, ctas,
-                                 tiles_per_cta, stream);
+                                 int64_t ctas, void* stream) {
+  return dispatch<__nv_bfloat16>(op, x, y, out, n, alpha, ctas, stream);
 }
-
-// 16-byte vectors per tile: THREADS * STREAM_UNROLL.
-extern "C" int64_t repro_stream_tile_vectors() { return TILE; }

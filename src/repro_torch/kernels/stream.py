@@ -6,10 +6,8 @@ replace the TPU kernel ``repro/kernels/stream.py:_run``; the note there says
 what bounds them on an H100 (device memory) and how the design answers.
 Their plain versions are in :mod:`repro_torch.kernels.ref`.
 
-The grid is sized here, by :func:`stream_geometry`: one CTA per tile of
-the kernel's (``repro_stream_tile_vectors``) 16-byte vectors. One resident
-wave of CTAs each walking a contiguous run of tiles, which the kernel also
-takes, measured slower on the card (``csrc/stream.cu``).
+The grid is sized here, by :func:`stream_geometry`: one CTA per
+:data:`CTA_VECTORS` 16-byte vectors, one per thread.
 
 Operands are fp32 or bf16 CUDA tensors of one dtype and one size, which
 must be a multiple of :data:`LANES` (the reference asserts the same,
@@ -21,7 +19,6 @@ versions bit for bit.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
 
 import torch
 
@@ -31,32 +28,18 @@ from repro_torch.kernels.gemm import check_cuda
 LANES = 128
 _OPS = {"copy": 0, "scale": 1, "add": 2, "triad": 3}
 _ARGTYPES = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int64, ctypes.c_float, ctypes.c_int64, ctypes.c_int64,
-             ctypes.c_void_p]
+             ctypes.c_int64, ctypes.c_float, ctypes.c_int64, ctypes.c_void_p]
 _ENTRY = {torch.float32: "repro_stream_f32",
           torch.bfloat16: "repro_stream_bf16"}
+CTA_VECTORS = 256  # 16-byte vectors per CTA (csrc/stream.cu: THREADS)
 
 
-def stream_geometry(nvec: int, tile: int,
-                    max_ctas: Optional[int] = None) -> Tuple[int, int]:
-    """(CTAs, tiles per CTA) for ``nvec`` 16-byte vectors in tiles of
-    ``tile``: one CTA per tile, the array's last tile partial where ``tile``
-    does not divide ``nvec``; or, given ``max_ctas``, at most that many
-    CTAs, each a contiguous run of the same number of tiles but the last,
-    which takes the rest. No CTA is left empty."""
-    if nvec <= 0 or tile <= 0 or (max_ctas is not None and max_ctas <= 0):
-        raise ValueError(f"no geometry for {nvec} vectors in tiles of {tile} "
-                         f"on at most {max_ctas} CTAs")
-    tiles = -(-nvec // tile)
-    per_cta = 1 if max_ctas is None else -(-tiles // max_ctas)
-    return -(-tiles // per_cta), per_cta
-
-
-def tile_vectors(lib) -> int:
-    """The 16-byte vectors per tile of the loaded stream library."""
-    fn = lib.repro_stream_tile_vectors
-    fn.restype = ctypes.c_int64
-    return fn()
+def stream_geometry(nvec: int, tile: int) -> int:
+    """CTAs for ``nvec`` 16-byte vectors, one CTA per ``tile`` of them, the
+    last one partial where ``tile`` does not divide ``nvec``."""
+    if nvec <= 0 or tile <= 0:
+        raise ValueError(f"no geometry for {nvec} vectors in tiles of {tile}")
+    return -(-nvec // tile)
 
 
 def check_size(x: torch.Tensor) -> None:
@@ -79,13 +62,11 @@ def _run(op: str, x: torch.Tensor, y: torch.Tensor,
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    lib = _build.load("stream")
-    ctas, per_cta = stream_geometry(x.numel() * x.element_size() // 16,
-                                    tile_vectors(lib))
-    fn = getattr(lib, _ENTRY[x.dtype])
+    ctas = stream_geometry(x.numel() * x.element_size() // 16, CTA_VECTORS)
+    fn = getattr(_build.load("stream"), _ENTRY[x.dtype])
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     _build.check(fn(_OPS[op], x.data_ptr(), y.data_ptr(), out.data_ptr(),
-                    x.numel(), float(alpha), ctas, per_cta,
+                    x.numel(), float(alpha), ctas,
                     torch.cuda.current_stream(x.device).cuda_stream),
                  f"stream_{op}")
     return out

@@ -2,12 +2,11 @@
 
 The vector kernel in ``csrc/stream.cu`` takes its grid from the host:
 :func:`repro_torch.kernels.stream.stream_geometry`, plain Python, gives one
-CTA per tile of the library's ``repro_stream_tile_vectors`` 16-byte vectors,
-or, capped, contiguous runs of tiles per CTA (the resident wave the card
-measured slower). The C entry point refuses a geometry that leaves a vector
-uncovered or a CTA empty; here the function is held to the same rule, and
-the wrapper is followed to the C call with the library replaced by a
-recorder. The kernels themselves run in ``chip_smoke.py`` phase
+CTA per tile of :data:`~repro_torch.kernels.stream.CTA_VECTORS` 16-byte
+vectors, the last one masked. The C entry point refuses a grid that leaves
+a vector uncovered or a CTA empty; here the function is held to the same
+rule, and the wrapper is followed to the C call with the library replaced
+by a recorder. The kernels themselves run in ``chip_smoke.py`` phase
 ``kernels``.
 """
 from __future__ import annotations
@@ -22,51 +21,36 @@ import torch
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import stream as kstream
 
-TILE = 1024  # a tile of 256 threads x 4 vectors (the library reports its own)
-WAVE = 132 * 8  # an H100's SMs x the CTAs of 256 threads one SM holds
+TILE = kstream.CTA_VECTORS
 
 
-def _covers(nvec, tile, ctas, per_cta):
+def _covers(nvec, tile, ctas):
     """The C entry point's rule: every vector covered, no CTA empty."""
-    return ctas * per_cta * tile >= nvec > (ctas - 1) * per_cta * tile
+    return ctas * tile >= nvec > (ctas - 1) * tile
 
 
 @pytest.mark.parametrize("nvec,ctas", [
-    (1 << 26, 65536),   # 2^28 fp32: 65,536 full tiles
-    (1 << 17, 128),     # 2^20 bf16
-    (32, 1),            # 128 fp32, the smallest size: one partial tile
-    (131_168, 129)])    # 128 x 4099 fp32: a partial last tile
+    (1 << 26, 262_144),  # 2^28 fp32: 262,144 full tiles
+    (1 << 17, 512),      # 2^20 bf16
+    (32, 1),             # 128 fp32, the smallest size: one partial tile
+    (131_168, 513)])     # 128 x 4099 fp32: a partial last tile
 def test_stream_geometry_is_one_cta_per_tile(nvec, ctas):
-    assert kstream.stream_geometry(nvec, TILE) == (ctas, 1)
-    assert _covers(nvec, TILE, ctas, 1)
-
-
-@pytest.mark.parametrize("nvec,ctas,per_cta", [
-    (1 << 26, 1041, 63),    # 2^28 fp32: 65,536 tiles over 1,056 slots
-    (1 << 17, 128, 1),      # fewer tiles than slots: one each
-    (1056 * 1024, 1056, 1),  # exactly one tile per slot
-    (1056 * 1024 + 1, 529, 2)])
-def test_stream_geometry_capped_is_one_wave_of_runs(nvec, ctas, per_cta):
-    got = kstream.stream_geometry(nvec, TILE, WAVE)
-    assert got == (ctas, per_cta)
-    assert ctas <= WAVE and _covers(nvec, TILE, ctas, per_cta)
+    assert TILE == 256
+    assert kstream.stream_geometry(nvec, TILE) == ctas
+    assert _covers(nvec, TILE, ctas)
 
 
 @pytest.mark.parametrize("tile", [256, 1024, 2048])
-@pytest.mark.parametrize("cap", [None, 1056, 132, 21])
-def test_stream_geometry_covers_every_size(tile, cap):
-    for nvec in (1, tile - 1, tile, tile + 1, 5 * tile * 1056 + 3,
-                 (1 << 26) + 17):
-        ctas, per_cta = kstream.stream_geometry(nvec, tile, cap)
-        tiles = -(-nvec // tile)
-        assert _covers(nvec, tile, ctas, per_cta)
-        if cap is None:
-            assert (ctas, per_cta) == (tiles, 1)
-        else:  # the runs are as short as the cap allows
-            assert 1 <= ctas <= cap and per_cta == -(-tiles // cap)
+@pytest.mark.parametrize("size", ["one", "tile-1", "tile", "tile+1",
+                                  "many+3", "2^26+17"])
+def test_stream_geometry_covers_every_size(tile, size):
+    nvec = {"one": 1, "tile-1": tile - 1, "tile": tile, "tile+1": tile + 1,
+            "many+3": 5 * tile * 1056 + 3, "2^26+17": (1 << 26) + 17}[size]
+    ctas = kstream.stream_geometry(nvec, tile)
+    assert ctas == -(-nvec // tile) and _covers(nvec, tile, ctas)
 
 
-@pytest.mark.parametrize("args", [(0, TILE), (32, 0), (32, TILE, 0)])
+@pytest.mark.parametrize("args", [(0, TILE), (32, 0)])
 def test_stream_geometry_refuses_an_empty_grid(args):
     with pytest.raises(ValueError, match="no geometry"):
         kstream.stream_geometry(*args)
@@ -98,7 +82,6 @@ def recorder(monkeypatch):
     calls = []
     lib = SimpleNamespace(**{name: _Fn(name, calls) for name in (
         "repro_stream_f32", "repro_stream_bf16")})
-    lib.repro_stream_tile_vectors = lambda: TILE
     monkeypatch.setattr(kstream._build, "load", lambda stem: lib)
     monkeypatch.setattr(kstream.torch.cuda, "current_stream",
                         lambda dev: SimpleNamespace(cuda_stream=0))
@@ -121,8 +104,8 @@ def test_stream_wrapper_launches_its_geometry(recorder, op, dtype, n):
     assert name == kstream._ENTRY[dtype]
     assert launch[0] == kstream._OPS[op] and launch[4] == n
     nvec = n * x.element_size() // 16
-    assert launch[6:8] == kstream.stream_geometry(nvec, TILE) \
-        == (-(-nvec // TILE), 1)
+    assert launch[6] == kstream.stream_geometry(nvec, TILE) \
+        == -(-nvec // TILE)
     assert ops.launch_counts()[f"stream_{op}"] == 1
 
 
@@ -136,12 +119,13 @@ def test_stream_wrapper_raises_on_a_refused_launch(recorder):
 
 
 def test_stream_geometry_entry_points_exist_in_the_source():
-    """The C symbols the wrapper binds for the geometry are defined, with C
-    linkage, in ``csrc/stream.cu``, which takes the wrapper's grid and
-    checks it."""
+    """The C symbols the wrapper binds are defined, with C linkage, in
+    ``csrc/stream.cu``, which takes the wrapper's grid, checks it, and
+    holds as many vectors per CTA as the wrapper assumes."""
     src = (_build.CSRC / "stream.cu").read_text()
-    for name in ("repro_stream_tile_vectors", *kstream._ENTRY.values()):
-        assert re.search(rf'extern "C" \w+ {name}\(', src), name
-    assert "int64_t ctas, int64_t tiles_per_cta" in src
-    assert len(kstream._ARGTYPES) == 9
-    assert kstream._ARGTYPES[6:8] == [ctypes.c_int64, ctypes.c_int64]
+    for name in kstream._ENTRY.values():
+        assert re.search(rf'extern "C" int {name}\([^)]*float alpha,\s*'
+                         r'int64_t ctas, void\* stream\)', src), name
+    assert f"constexpr int THREADS = {TILE};" in src
+    assert len(kstream._ARGTYPES) == 8
+    assert kstream._ARGTYPES[6] == ctypes.c_int64
