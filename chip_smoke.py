@@ -17,7 +17,13 @@ Phases, one JSON line each:
                strided panels of prime width (Top) or height (Left) 1009,
                the Left panel at HPL's layout (a column strip, row stride
                16384), and their output bits against LU_BITS (the first
-               port's kernels'), timed queued behind a sleep kernel
+               port's kernels'); gemm_update timed against torch.addmm
+               in STREAM_ROUNDS alternated rounds, also at HPL's trailing
+               views (GEMM_TRAILING, row stride 16384) and the lookahead's
+               64 x 16384 and 16384 x 64 strips (the row's ``shapes``),
+               and its output bits against GEMM_BITS (the first port's
+               kernel's) at those shapes, a ragged view and in bf16;
+               the LU family timed queued behind a sleep kernel
                (device time; back-to-back events time the host's wrapper
                at a few microseconds a call); ring_add_step at the largest
                per-hop chunk of
@@ -160,6 +166,17 @@ LU_BITS = {"lu64": "ec7b50fd4f142e9c", "lu48": "cec5aa2781f3ae5e",
            "lu128": "c8dffd4abe86797a", "trsm64": "7a82ad5a1edce600",
            "trsm48_1009": "2a91fd5c3d00b0a9", "trsm128": "029d3092a28149f0",
            "upper64": "9e1412487aaeaafa", "lu64_odd": "9006050a846e6526"}
+# sha256 (first 16 hex digits) of the outputs of ``gemm_golden_calls``, as
+# the first port's gemm_update kernel computed them on the card; every
+# design keeps each output's sums (ascending k, one fused multiply-add per
+# product from +0, then fmaf(alpha, sum, c)), so the bits must not move
+GEMM_BITS = {"hpl16384": "4baa42302537cd4f", "row_strip": "3a2fd3a9586b7761",
+             "col_strip": "31b023ce8e054b65",
+             "trailing8192": "ef17d0bba6e34e7a",
+             "ragged37": "d4ef6ee3bdb9fd99", "bf16_16384": "56bcb59b282cd5f0"}
+# trailing updates timed in phase ``kernels``: views of HPL's C, row stride
+# N_MAIN, as an update restricted to the trailing matrix would pass them
+GEMM_TRAILING = (12288, 8192, 4096, 1024)
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {"gemm_update": CSRC + "gemm_update.cu",
            "lu_factor_block": CSRC + "lu.cu",
@@ -211,15 +228,17 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def alternated_ms(torch, fns, rounds: int, iters: int) -> dict:
-    """Median ``cuda_ms`` of each of ``fns`` over ``rounds`` rounds, the
-    order rotated and reversed from round to round, so that clock and
-    thermal drift fall on every function alike."""
+def alternated_ms(torch, fns, rounds: int, iters: int, timer=None) -> dict:
+    """Median time of each of ``fns`` (``cuda_ms`` with one warm-up call,
+    or ``timer``) over ``rounds`` rounds, the order rotated and reversed
+    from round to round, so that clock and thermal drift fall on every
+    function alike."""
     names, times = list(fns), {k: [] for k in fns}
     for r in range(rounds):
         order = names[r % len(names):] + names[:r % len(names)]
         for k in (order[::-1] if r % 2 else order):
-            times[k].append(cuda_ms(torch, fns[k], iters, warmup=1))
+            times[k].append(timer(torch, fns[k], iters) if timer else
+                            cuda_ms(torch, fns[k], iters, warmup=1))
     return {k: statistics.median(v) for k, v in times.items()}
 
 
@@ -332,50 +351,7 @@ def phase_kernels(torch):
     m, b = N_MAIN, B_MAIN
     rows = {}
 
-    # gemm_update: HPL's trailing update, C (m, m) -= L (m, b) @ U (b, m)
-    c0, a, bb = randn(m, m), randn(m, b), randn(b, m)
-    want = ref.gemm_update(c0, a, bb, alpha=-1.0)
-    got = kgemm.gemm_update(c0.clone(), a, bb, alpha=-1.0)
-    atol = GEMM_ATOL["float32"] * math.sqrt(b)
-    ok, err = allclose(torch, got, want, 1e-2, atol)
-    check(ok, f"gemm_update fp32 disagrees with its plain version: {err}")
-    del want, got
-    c_run = c0.clone()
-    ms = cuda_ms(torch, lambda: kgemm.gemm_update(c_run, a, bb), iters=10)
-    plain_ms = cuda_ms(torch, lambda: ref.gemm_update(c0, a, bb), iters=2,
-                       warmup=1)
-    lib_ms = cuda_ms(torch, lambda: torch.addmm(c0, a, bb, alpha=-1.0),
-                     iters=10)
-    bms, by = bound(4 * (m * b + b * m + 2 * m * m), 2 * m * m * b)
-    rows["gemm_update"] = dict(
-        shape=f"C({m},{m}) A({m},{b}) B({b},{m}) fp32", max_abs_err=err,
-        tol={"atol": atol, "rtol": 1e-2}, ms=ms, plain_ms=plain_ms,
-        bound_ms=bms, bound_by=by, library_ms=lib_ms,
-        library="torch.addmm(c, a, b, alpha=-1), allow_tf32=False")
-    del c_run
-
-    # the same update in bf16 (fp32 sums, rounded once)
-    c16, a16, b16 = c0.bfloat16(), a.bfloat16(), bb.bfloat16()
-    del c0
-    want = ref.gemm_update(c16, a16, b16, alpha=-1.0)
-    got = kgemm.gemm_update(c16.clone(), a16, b16, alpha=-1.0)
-    atol16 = GEMM_ATOL["bfloat16"] * math.sqrt(b)
-    ok, err16 = allclose(torch, got, want, 1e-2, atol16)
-    check(ok, f"gemm_update bf16 disagrees with its plain version: {err16}")
-    del want, got
-    ms16 = cuda_ms(torch, lambda: kgemm.gemm_update(c16, a16, b16), iters=10)
-    lib16 = cuda_ms(torch, lambda: torch.addmm(c16, a16, b16, alpha=-1.0),
-                    iters=10)
-    bms16, by16 = bound(2 * (m * b + b * m + 2 * m * m), 2 * m * m * b,
-                        BF16_TENSOR_FLOPS)
-    emit({"phase": "kernels.bf16", "kernel": "gemm_update",
-          "shape": f"C({m},{m}) A({m},{b}) B({b},{m}) bf16",
-          "max_abs_err": err16, "tol": {"atol": atol16, "rtol": 1e-2},
-          "ms": ms16, "library_ms": lib16, "bound_ms": bms16,
-          "bound_by": by16})
-    del c16, a16, b16, a, bb
-    torch.cuda.empty_cache()
-
+    checked_gemm = kernels_gemm(torch, randn, rows)
     checked_lu = kernels_lu(torch, randn, dominant, rows)
 
     # ragged and strided shapes: edges of tiles, slabs that are not 256
@@ -408,7 +384,8 @@ def phase_kernels(torch):
                   f"shape: {err}")
     del big, c_view, a_view, b_small, want, got, p
     torch.cuda.empty_cache()
-    checked = checked_lu + kernels_transpose_add(torch, randn, rows)
+    checked = checked_gemm + checked_lu
+    checked += kernels_transpose_add(torch, randn, rows)
     checked += kernels_stream(torch, randn, rows)
     checked += kernels_matmul(torch, randn, rows)
     checked += kernels_flash(torch, randn, rows)
@@ -418,6 +395,112 @@ def phase_kernels(torch):
           "ragged_max_abs_err": {k: v[1] for k, v in ragged.items()},
           "also_checked": checked})
     return rows
+
+
+def kernels_gemm(torch, randn, rows):
+    """gemm_update at HPL's update, C (m, m) -= L (m, b) @ U (b, m), fp32,
+    against its plain version, timed against ``torch.addmm`` (TF32 off) in
+    STREAM_ROUNDS alternated rounds; the shape table: trailing views of
+    that C (GEMM_TRAILING, row stride m) and the lookahead's two strips,
+    each against its plain version and timed with ``torch.addmm``
+    (``queued_ms``, alternated); the same update in bf16; and the output
+    bits of ``gemm_golden_calls`` against :data:`GEMM_BITS` (the first
+    port's kernel's)."""
+    from repro_torch.kernels import gemm as kgemm
+    from repro_torch.kernels import ref
+
+    m, b = N_MAIN, B_MAIN
+    c0, a, bb = randn(m, m), randn(m, b), randn(b, m)
+    want = ref.gemm_update(c0, a, bb, alpha=-1.0)
+    got = kgemm.gemm_update(c0.clone(), a, bb, alpha=-1.0)
+    atol = GEMM_ATOL["float32"] * math.sqrt(b)
+    ok, err = allclose(torch, got, want, 1e-2, atol)
+    check(ok, f"gemm_update fp32 disagrees with its plain version: {err}")
+    del want, got
+    c_run = c0.clone()
+    med = alternated_ms(torch, {
+        "kernel": lambda: kgemm.gemm_update(c_run, a, bb),
+        "library": lambda: torch.addmm(c0, a, bb, alpha=-1.0)},
+        STREAM_ROUNDS, iters=10)
+    plain_ms = cuda_ms(torch, lambda: ref.gemm_update(c0, a, bb), iters=2,
+                       warmup=1)
+    del c_run
+
+    def update_bound(M, N, esize=4, peak=FP32_FLOPS):
+        return bound(esize * (M * b + b * N + 2 * M * N), 2 * M * N * b,
+                     peak)
+
+    # the shape table: trailing views of C (row stride m) and the strips
+    # HPL's lookahead updates, 64 x m and m x 64 (core/hpl.py)
+    s, work = slice(b, 2 * b), c0.clone()
+    shapes = {f"trailing {t}^2, row stride {m}": (
+        c0[m - t:, m - t:], a[m - t:], bb[:, m - t:], work[m - t:, m - t:])
+        for t in GEMM_TRAILING}
+    shapes[f"row strip ({b},{m})"] = (c0[s, :].clone(), a[s, :], bb,
+                                      c0[s, :].clone())
+    shapes[f"column strip ({m},{b})"] = (c0[:, s].clone(), a, bb[:, s],
+                                         c0[:, s].clone())
+    table = {}
+    for label, (c, x, y, c_run) in shapes.items():
+        want = ref.gemm_update(c, x, y, alpha=-1.0)
+        c_run.copy_(c)  # a larger view's runs updated it
+        ok, err_s = allclose(torch, kgemm.gemm_update(c_run, x, y), want,
+                             1e-2, atol)
+        check(ok, f"gemm_update disagrees with its plain version: {label}: "
+                  f"{err_s}")
+        del want
+        times = alternated_ms(torch, {
+            "kernel": lambda: kgemm.gemm_update(c_run, x, y),
+            "library": lambda: torch.addmm(c, x, y, alpha=-1.0)},
+            3, iters=20, timer=queued_ms)
+        bms_s, by_s = update_bound(*c.shape)
+        table[label] = dict(ms=times["kernel"], bound_ms=bms_s, bound_by=by_s,
+                            library_ms=times["library"], max_abs_err=err_s)
+    del shapes, work
+    bms, by = update_bound(m, m)
+    rows["gemm_update"] = dict(
+        shape=f"C({m},{m}) A({m},{b}) B({b},{m}) fp32", max_abs_err=err,
+        tol={"atol": atol, "rtol": 1e-2}, ms=med["kernel"], plain_ms=plain_ms,
+        bound_ms=bms, bound_by=by, library_ms=med["library"],
+        library="torch.addmm(c, a, b, alpha=-1), allow_tf32=False",
+        ms_over_library=med["kernel"] / med["library"],
+        bound_share=bms / med["kernel"],
+        timing=f"ms, library_ms: medians of {STREAM_ROUNDS} alternated "
+               "rounds of cuda_ms over 10 calls; shapes: 3 alternated "
+               "rounds of queued_ms over 20 calls",
+        shapes=table)
+
+    # the same update in bf16 (fp32 sums, rounded once)
+    c16, a16, b16 = c0.bfloat16(), a.bfloat16(), bb.bfloat16()
+    del c0
+    want = ref.gemm_update(c16, a16, b16, alpha=-1.0)
+    got = kgemm.gemm_update(c16.clone(), a16, b16, alpha=-1.0)
+    atol16 = GEMM_ATOL["bfloat16"] * math.sqrt(b)
+    ok, err16 = allclose(torch, got, want, 1e-2, atol16)
+    check(ok, f"gemm_update bf16 disagrees with its plain version: {err16}")
+    del want, got
+    med16 = alternated_ms(torch, {
+        "kernel": lambda: kgemm.gemm_update(c16, a16, b16),
+        "library": lambda: torch.addmm(c16, a16, b16, alpha=-1.0)},
+        STREAM_ROUNDS, iters=10)
+    bms16, by16 = update_bound(m, m, 2, BF16_TENSOR_FLOPS)
+    emit({"phase": "kernels.bf16", "kernel": "gemm_update",
+          "shape": f"C({m},{m}) A({m},{b}) B({b},{m}) bf16",
+          "max_abs_err": err16, "tol": {"atol": atol16, "rtol": 1e-2},
+          "ms": med16["kernel"], "library_ms": med16["library"],
+          "bound_ms": bms16, "bound_by": by16})
+    del c16, a16, b16, a, bb
+    torch.cuda.empty_cache()
+
+    # every output bit as the first port's kernel gave it
+    checked = []
+    for label, fn in gemm_golden_calls(torch, kgemm).items():
+        got = bits_sha(fn())
+        check(got == GEMM_BITS[label], f"gemm_update {label}: output bits "
+                                       f"{got}, not {GEMM_BITS[label]}")
+        checked.append(f"gemm_update {label}: bits {got}, as recorded")
+    torch.cuda.empty_cache()
+    return checked
 
 
 def lu_golden_calls(torch, klu):
@@ -456,9 +539,45 @@ def lu_golden_calls(torch, klu):
             "upper64": lambda: klu.trsm_upper_right(pk64, left)}
 
 
+def gemm_golden_calls(torch, kgemm):
+    """``gemm_update``'s calls whose output bits :data:`GEMM_BITS` records:
+    inputs from numpy's generator (seed 19), the same on every machine.
+    HPL's update (C 16384^2, K 64), the lookahead's row strip (64 x 16384)
+    and column strip (16384 x 64, B a 64 x 64 view with row stride 16384),
+    a trailing 8192^2 view with row stride 16384, the ragged strided view
+    of ``phase_kernels`` with K = 37, and HPL's update in bf16. Each call
+    updates a fresh copy of C and returns the updated view."""
+    import numpy as np
+
+    rng = np.random.default_rng(19)
+
+    def cuda(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).cuda()
+
+    m, b = N_MAIN, B_MAIN
+    c, l, u = cuda(m, m), cuda(m, b), cuda(b, m)
+    big, a_view, b_small = cuda(300, 512), cuda(300, 80)[:, 3:40], \
+        cuda(37, 333)
+    c16, l16, u16 = c.bfloat16(), l.bfloat16(), u.bfloat16()
+    s, h = slice(b, 2 * b), m // 2
+    return {
+        "hpl16384": lambda: kgemm.gemm_update(c.clone(), l, u),
+        "row_strip": lambda: kgemm.gemm_update(c[s, :].clone(), l[s, :], u),
+        "col_strip": lambda: kgemm.gemm_update(c[:, s].clone(), l, u[:, s]),
+        "trailing8192": lambda: kgemm.gemm_update(c.clone()[h:, h:], l[h:],
+                                                  u[:, h:]),
+        "ragged37": lambda: kgemm.gemm_update(big.clone()[:, 64:397], a_view,
+                                              b_small, alpha=0.5),
+        "bf16_16384": lambda: kgemm.gemm_update(c16.clone(), l16, u16)}
+
+
 def bits_sha(t) -> str:
-    return hashlib.sha256(t.cpu().contiguous().numpy().tobytes()
-                          ).hexdigest()[:16]
+    import torch
+
+    t = t.cpu().contiguous()
+    if t.dtype == torch.bfloat16:  # no numpy type: hash its bits
+        t = t.view(torch.int16)
+    return hashlib.sha256(t.numpy().tobytes()).hexdigest()[:16]
 
 
 def kernels_lu(torch, randn, dominant, rows):

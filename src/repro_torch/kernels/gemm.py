@@ -5,7 +5,10 @@ Port of ``repro/kernels/gemm.py`` (``fit_block`` ``:24``, ``matmul``
 ``:45``, ``gemm_update`` ``:82-111``). ``gemm_update`` is
 ``csrc/gemm_update.cu``: it replaces the TPU kernel
 ``repro/kernels/gemm.py:gemm_update`` and is bounded on an H100 by device
-memory at HPL's shapes (K = 64: C in and out once). ``matmul`` is
+memory at HPL's shapes (K = 64: C in and out once), with the fp32 FMA
+bound close behind. Its design streams C into shared memory while the
+FMAs run, one CTA per tile and two to an SM; the tile shape and the grid
+are chosen here, per shape, by :func:`gemm_geometry`. ``matmul`` is
 ``csrc/matmul.cu``: it replaces ``repro/kernels/gemm.py:matmul`` and is
 bounded by fp32 operations (2 * 8192^3 FLOP at the GEMM phase's shape, 16.4
 ms at 67 TFLOP/s; TF32 tensor cores would round the operands). Its design
@@ -29,13 +32,42 @@ from repro_torch.kernels import _build
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
              ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+             ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int64,
+             ctypes.c_void_p]
 _ENTRY = {torch.float32: "repro_gemm_update_f32",
           torch.bfloat16: "repro_gemm_update_bf16"}
 _MATMUL_ARGTYPES = _ARGTYPES[:9] + [ctypes.c_void_p]
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _MATMUL_ENTRY = {(ti, to): f"repro_matmul_{si}_{so}"
                  for ti, si in _SUFFIX.items() for to, so in _SUFFIX.items()}
+# gemm_update's tile shapes, rows x columns of C per CTA of four warps, in
+# the order of the C entry points' ``tile`` (csrc/gemm_update.cu: launch):
+# 8 x 16 sums a thread, then two of 8 x 8 for strips and small matrices
+TILES = ((128, 128), (64, 128), (128, 64))
+
+
+def gemm_geometry(M: int, N: int, sms: int) -> tuple:
+    """``(tile, ctas)`` for an update of an (M, N) C on a card of ``sms``
+    SMs: the index in :data:`TILES` of the tile shape, and the grid, one
+    CTA per tile.
+
+    A row strip of at most 64 rows takes 64 x 128 tiles and a column strip
+    of at most 64 columns 128 x 64 (HPL's lookahead launches both, 64 x m
+    and m x 64), so that no tile leaves half its lanes idle; so does a C
+    with fewer 128 x 128 tiles than the card has SMs, which then spreads
+    over twice as many CTAs, each with half the chain of multiply-adds a
+    thread. Every other C takes 128 x 128. The order of sums per output
+    does not depend on the tile, so every choice keeps the bits."""
+    if M <= 0 or N <= 0 or sms <= 0:
+        raise ValueError(f"no geometry for C ({M}, {N}) on {sms} SMs")
+    if M <= 64:
+        tile = 1
+    elif N <= 64 or -(-M // 128) * -(-N // 128) < sms:
+        tile = 2
+    else:
+        tile = 0
+    bm, bn = TILES[tile]
+    return tile, -(-M // bm) * -(-N // bn)
 
 
 def fit_block(size: int, pref: int) -> int:
@@ -87,10 +119,14 @@ def gemm_update(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *,
         raise TypeError(f"gemm_update takes one dtype of {list(_ENTRY)}, got "
                         f"{c.dtype}, {a.dtype}, {b.dtype}")
     lda, ldb, ldc = row_stride(a, "a"), row_stride(b, "b"), row_stride(c, "c")
+    if M == 0 or N == 0:  # nothing to update: no launch
+        return c
+    tile, ctas = gemm_geometry(
+        M, N, torch.cuda.get_device_properties(c.device).multi_processor_count)
     fn = getattr(_build.load("gemm_update"), _ENTRY[c.dtype])
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     _build.check(fn(a.data_ptr(), lda, b.data_ptr(), ldb, c.data_ptr(), ldc,
-                    M, N, K, float(alpha),
+                    M, N, K, float(alpha), tile, ctas,
                     torch.cuda.current_stream(c.device).cuda_stream),
                  "gemm_update")
     gemm_update.launches += 1

@@ -9,8 +9,9 @@ is no fallback: a kernel that fails to build or launch raises.
 ``gemm_update`` updates ``c`` in place on both routes and returns it (the
 reference donates ``c`` and aliases the output to it). The block-size
 keywords (``bm``/``bn``/``bk``, ``block``) are accepted for the reference's
-signatures; the CUDA tiles are fixed at compile time, and no result depends
-on the tiling. The STREAM ops raise for a size that is not a multiple of
+signatures and ignored on the card: the CUDA tiles are compiled in, and
+``gemm_update``'s wrapper picks one of them by C's shape
+(``kernels/gemm.py:gemm_geometry``). No result depends on the tiling. The STREAM ops raise for a size that is not a multiple of
 128 on both routes, as the reference asserts.
 
 ``flash_attention`` keeps the reference's ``bq``/``bk`` contract on both
