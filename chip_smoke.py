@@ -98,6 +98,28 @@ Phases, one JSON line each:
                ``pack_buckets``. Its times are the host's loopback,
                not a link rate.
 
+12. gups    — RandomAccess at table_log = 28 (a 1 GiB int32 table, 20x
+               the L2) with 2^18 generators x 4096 updates (2^30 updates,
+               HPCC's 4 per table word) on one rank: ``run_randomaccess``
+               and ``run_randomaccess_dist`` restore exactly (error 0), the
+               two forward tables are bit-identical, and the card's streams
+               of the first 64 generators equal the CPU's; GUPS, a step's
+               seconds by phase (generate / bucket / exchange / scatter)
+               and peak memory. No hand kernel runs: the scatter is
+               ``index_add_``, as the reference leaves it to XLA;
+13. fft      — ``run_fft`` and ``run_fft_dist`` on 2^15 signals of 4096
+               complex64 (1 GiB) on one rank: error < 1e-5 against the
+               complex128 transform, the pencil step bit-identical to the
+               local one, GFLOP/s (5 n log2 n per signal) and cuFFT's
+               device time against its byte bound;
+14. a2a      — four processes sharing the card over gloo, as allreduce:
+               routed GUPS (table_log = 22, 2^10 generators x 4096 a rank)
+               and the pencil FFT (1024 signals of 4096 a rank) for every
+               ``all_to_all_tiles`` schedule with nchunks 1 and 4: restore
+               exact, received buckets and tables identical across
+               schedules, FFT bit-identical to ``torch.fft.fft`` at the
+               per-rank block shape (B/4, n), bytes staged per rank.
+
 Each main-path phase zeroes the launch counts just before it runs and reads
 them just after (the allreduce phase in each rank's process, around each
 ``allreduce_tree``). Then the card's ``nvidia-smi`` name and power limit, the
@@ -138,6 +160,13 @@ SERVE_ARCH, SERVE_B, SERVE_S, SERVE_NEW = "llama3.2-3b", 8, 1024, 32
 # the allreduce path: one layer of SERVE_ARCH's gradient on a ring of four
 # processes sharing the card
 ALLREDUCE_RANKS, ALLREDUCE_TIMEOUT = 4, 600.0
+# RandomAccess and FFT on one rank at full size (the reference's
+# rngs_per_device x updates_per_rng default scaled to 2^30 updates)
+GUPS_TABLE_LOG, GUPS_RNGS, GUPS_UPDATES = 28, 1 << 18, 4096
+FFT_LOG, FFT_BATCH = 12, 1 << 15
+# the exchange path on four processes sharing the card, cut in depth
+A2A_RANKS, A2A_TIMEOUT, A2A_CHUNKS = 4, 600.0, (1, 4)
+A2A_TABLE_LOG, A2A_RNGS, A2A_FFT_BATCH = 22, 1 << 10, 1024
 # fp32 prefill, flash vs plain attention: both are fp32 throughout and
 # differ only in the order of the attention's sums (a few ulps per layer),
 # on logits of rms about 1; one bf16 rounding anywhere moves them by ~1e-2
@@ -310,7 +339,8 @@ def bitwise(torch, got, want) -> bool:
     """Same shape, dtype and bits (integer views compared)."""
     if got.shape != want.shape or got.dtype != want.dtype:
         return False
-    view = {2: torch.int16, 4: torch.int32}[got.element_size()]
+    view = {2: torch.int16, 4: torch.int32,
+            8: torch.int64}[got.element_size()]
     return bool(torch.equal(got.contiguous().view(view),
                             want.contiguous().view(view)))
 
@@ -1633,6 +1663,257 @@ def phase_allreduce(torch):
                          for rec in main)
 
 
+def phase_gups(torch):
+    """RandomAccess at full size on one rank through both entry points;
+    their forward tables bit for bit; the card's streams against the
+    CPU's."""
+    from repro_torch.comm.engine import CollectiveEngine
+    from repro_torch.core import randomaccess as ra
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import single_rank_mesh
+
+    kw = dict(table_log=GUPS_TABLE_LOG, rngs_per_device=GUPS_RNGS,
+              updates_per_rng=GUPS_UPDATES)
+    results, peaks = {}, {}
+    ops.reset_launch_counts()
+    for name, run in (("drop_local", ra.run_randomaccess),
+                      ("routed", ra.run_randomaccess_dist)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        res = run(**kw, reps=2, device="cuda")
+        peaks[name] = torch.cuda.max_memory_allocated()
+        check(res.error == 0.0, f"GUPS {name}: restore error {res.error}")
+        check(res.details["updates"] == GUPS_RNGS * GUPS_UPDATES,
+              f"GUPS {name}: {res.details['updates']} updates")
+        results[name] = res
+    check(all(v == 0 for v in ops.launch_counts().values()),
+          f"GUPS launched hand kernels: {ops.launch_counts()}")
+
+    mesh = single_rank_mesh(("x",))
+    table, seeds = ra.from_reference(
+        *ra.reference_state(1, table_log=GUPS_TABLE_LOG,
+                            rngs_per_device=GUPS_RNGS), mesh, "cuda")
+    step_kw = dict(updates_per_rng=GUPS_UPDATES, table_log=GUPS_TABLE_LOG)
+    fwd_local = ra.make_step(mesh, **step_kw)(table, seeds)
+    fwd_routed = ra.make_routed_step(mesh, CollectiveEngine.for_mesh(mesh),
+                                     **step_kw)(table, seeds)
+    check(bitwise(torch, fwd_local, fwd_routed),
+          "GUPS drop-local and routed forward tables differ on one rank")
+    changed = int((fwd_local != table).sum())
+    check(changed > 0, "GUPS forward step left the table unchanged")
+    sha = bits_sha(fwd_local)
+    card = ra.gen_updates(seeds[:64], GUPS_UPDATES).cpu()
+    host = ra.gen_updates(seeds[:64].cpu(), GUPS_UPDATES)
+    check(torch.equal(card, host), "GUPS streams differ between card and CPU")
+    del table, seeds, fwd_local, fwd_routed
+    torch.cuda.empty_cache()
+    emit({"phase": "gups", "table_log": GUPS_TABLE_LOG,
+          "table_bytes": 4 << GUPS_TABLE_LOG,
+          "rngs_per_device": GUPS_RNGS, "updates_per_rng": GUPS_UPDATES,
+          "updates": results["routed"].details["updates"],
+          "gups": {k: r.metric for k, r in results.items()},
+          "seconds_best": {k: r.times["best"] for k, r in results.items()},
+          "seconds_by_phase": {k: r.details["phase_seconds"]
+                               for k, r in results.items()},
+          "peak_memory_bytes": peaks, "error": 0.0,
+          "forward_tables_bitwise_equal": True, "forward_sha": sha,
+          "words_changed": changed, "streams_card_equal_cpu": 64,
+          "schedule": results["routed"].details["schedule"],
+          "reduced": "HPCC's table of half the memory cannot be had: like "
+                     "the reference, a step materializes every update and "
+                     "its bucket buffer, and the routed step's peak is "
+                     f"{peaks['routed'] / (1 << GUPS_TABLE_LOG):.0f} bytes "
+                     "per table word; table_log 28 is a 1 GiB table",
+          "device": results["routed"].details["device"]})
+
+
+def phase_fft(torch):
+    """Both FFT entry points at full size on one rank; the pencil step
+    against the local one, bit for bit; cuFFT's device time."""
+    from repro_torch.comm.engine import CollectiveEngine
+    from repro_torch.core import fft
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import single_rank_mesh
+
+    kw = dict(log_size=FFT_LOG, batch_per_device=FFT_BATCH, reps=3,
+              device="cuda")
+    ops.reset_launch_counts()
+    res = {"local": fft.run_fft(**kw),
+           "pencil": fft.run_fft_dist(**kw, nchunks=1)}
+    check(all(v == 0 for v in ops.launch_counts().values()),
+          f"FFT launched hand kernels: {ops.launch_counts()}")
+    for name, r in res.items():
+        check(r.error < 1e-5, f"FFT {name}: error {r.error} >= 1e-5")
+    n = 1 << FFT_LOG
+    x = fft.make_signals(FFT_BATCH, n, device="cuda")
+    eng = CollectiveEngine.for_mesh(single_rank_mesh(("x",)))
+    local = fft.fft_local(x)
+    check(bitwise(torch, fft.make_dist_step(eng)(x), local),
+          "FFT pencil step differs from the local transform on one rank")
+    check(bitwise(torch, fft.make_dist_step(eng, nchunks=4)(x), local),
+          "FFT pencil step (nchunks=4) differs from the local transform")
+    ms = cuda_ms(torch, lambda: fft.fft_local(x), iters=10)
+    nbytes = 2 * x.numel() * x.element_size()
+    flops = 5.0 * n * math.log2(n) * FFT_BATCH
+    bound_ms, bound_by = bound(nbytes, flops)
+    del x, local
+    torch.cuda.empty_cache()
+    emit({"phase": "fft", "log_size": FFT_LOG, "batch": FFT_BATCH,
+          "bytes": nbytes // 2,
+          "gflops": {k: r.metric for k, r in res.items()},
+          "seconds_best": {k: r.times["best"] for k, r in res.items()},
+          "error": {k: r.error for k, r in res.items()},
+          "pencil_bitwise_equal_local": True, "cufft_ms": ms,
+          "cufft_gflops": flops / ms / 1e6, "bound_ms": bound_ms,
+          "bound_by": bound_by,
+          "schedule": res["pencil"].details["schedule"],
+          "device": res["local"].details["device"]})
+
+
+def a2a_rank(mesh):
+    """Runs on every rank of the a2a phase: routed GUPS and the pencil FFT
+    through each ``all_to_all_tiles`` schedule and chunking on the card.
+    Returns per (op, schedule, nchunks) the entry point's result, the
+    bytes staged through the host by one GUPS exchange and one FFT step,
+    and digests of what they moved."""
+    import torch
+
+    from repro_torch.comm.engine import (CollectiveEngine,
+                                         reset_staged_bytes, schedules_for,
+                                         staged_bytes)
+    from repro_torch.core import fft
+    from repro_torch.core import randomaccess as ra
+
+    torch.cuda.set_device(0)
+    ax = mesh.axis("x")
+    table, seeds = ra.from_reference(
+        *ra.reference_state(ax.size, table_log=A2A_TABLE_LOG,
+                            rngs_per_device=A2A_RNGS), mesh, "cuda")
+    ra_kw = dict(table_log=A2A_TABLE_LOG, updates_per_rng=GUPS_UPDATES)
+    n = 1 << FFT_LOG
+    ns = n // ax.size
+    cols = slice(ax.index * ns, (ax.index + 1) * ns)
+    x = fft.make_signals(A2A_FFT_BATCH * ax.size, n, device="cuda")
+    x_loc = x[:, cols].contiguous()
+    want = torch.cat([fft.fft_local(b.clone())
+                      for b in x.chunk(ax.size)])[:, cols]
+    buf = ra.bucket_updates(ra.gen_updates(seeds, GUPS_UPDATES).reshape(-1),
+                            table_log=A2A_TABLE_LOG,
+                            local_size=table.shape[0], n_dev=ax.size,
+                            sign=1)
+    out = {"buf": bits_sha(buf)}
+    for s in schedules_for("all_to_all_tiles"):
+        eng = CollectiveEngine.for_mesh(mesh, schedule=s)
+        for k in A2A_CHUNKS:
+            res = ra.run_randomaccess_dist(
+                mesh, **ra_kw, rngs_per_device=A2A_RNGS, reps=1, schedule=s,
+                nchunks=k, device="cuda")
+            # the digests come from one exchange of the buckets built above
+            # and the routed step's scatter, not from another whole step
+            reset_staged_bytes()
+            recv = ra.exchange_updates(eng, buf, k)
+            fwd = ra.scatter_add(table, recv[..., 0].reshape(-1),
+                                 recv[..., 1].reshape(-1))
+            out["gups", s, k] = dict(
+                error=res.error, gups=res.metric, seconds=res.times["best"],
+                seconds_by_phase=res.details["phase_seconds"],
+                schedule=res.details["schedule"],
+                staged_bytes=staged_bytes(), recv=bits_sha(recv),
+                table=bits_sha(fwd), changed=int((fwd != table).sum()))
+            res = fft.run_fft_dist(mesh, log_size=FFT_LOG,
+                                   batch_per_device=A2A_FFT_BATCH, reps=1,
+                                   schedule=s, nchunks=k, device="cuda")
+            reset_staged_bytes()
+            got = fft.make_dist_step(eng, nchunks=k)(x_loc)
+            out["fft", s, k] = dict(
+                error=res.error, gflops=res.metric,
+                seconds=res.times["best"], schedule=res.details["schedule"],
+                staged_bytes=staged_bytes(),
+                bitwise_block=bitwise(torch, got, want), out=bits_sha(got))
+    return out
+
+
+def phase_a2a(torch):
+    """Routed GUPS and the pencil FFT on four processes sharing the card:
+    every schedule and chunking exact, and each rank's results identical
+    across them."""
+    from repro_torch.comm.engine import schedules_for
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import spawn_mesh
+
+    n = A2A_RANKS
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = spawn_mesh(n, a2a_rank, axes=("x",), timeout=A2A_TIMEOUT)
+    wall = time.perf_counter() - t0
+    combos = [(s, k) for s in schedules_for("all_to_all_tiles")
+              for k in A2A_CHUNKS]
+    # bytes each schedule stages through the host for a payload of P per
+    # rank: native copies P out and P back; chain's rounds carry
+    # n(n-1)/2 tiles of P/n out and back; staged copies P out and the n
+    # gathered payloads back. GUPS stages one exchange, the FFT two.
+    times_payload = {"native": 2, "chain": n - 1, "staged": n + 1}
+    payload = {"gups": n * A2A_RNGS * GUPS_UPDATES * 2 * 4,
+               "fft": 2 * A2A_FFT_BATCH * (1 << FFT_LOG) * 8}
+    table = {}
+    for op in ("gups", "fft"):
+        for s, k in combos:
+            recs = [r[op, s, k] for r in results]
+            what = f"a2a {op} {s} nchunks={k}"
+            check(all(r["schedule"] == s for r in recs),
+                  f"{what}: resolved {[r['schedule'] for r in recs]}")
+            want = times_payload[s] * payload[op]
+            check(all(r["staged_bytes"] == want for r in recs),
+                  f"{what}: staged {[r['staged_bytes'] for r in recs]} "
+                  f"bytes per rank, not {want}")
+            if op == "gups":
+                check(all(r["error"] == 0.0 for r in recs),
+                      f"{what}: restore error {[r['error'] for r in recs]}")
+                check(all(r["changed"] > 0 for r in recs),
+                      f"{what}: a rank's table did not change")
+            else:
+                check(all(r["error"] < 1e-5 for r in recs),
+                      f"{what}: error {[r['error'] for r in recs]}")
+                check(all(r["bitwise_block"] for r in recs),
+                      f"{what}: differs from torch.fft.fft at (B/4, n)")
+            table[f"{op}/{s}/nchunks={k}"] = dict(
+                seconds=max(r["seconds"] for r in recs),
+                staged_bytes_per_rank=[r["staged_bytes"] for r in recs],
+                **({"gups": recs[0]["gups"],
+                    "seconds_by_phase_rank0": recs[0]["seconds_by_phase"]}
+                   if op == "gups" else {"gflops": recs[0]["gflops"],
+                                         "error": max(r["error"]
+                                                      for r in recs)}))
+    for rank, r in enumerate(results):
+        for key in ("recv", "table"):
+            check(len({r["gups", s, k][key] for s, k in combos}) == 1,
+                  f"a2a rank {rank}: GUPS {key} differs across schedules")
+        check(len({r["fft", s, k]["out"] for s, k in combos}) == 1,
+              f"a2a rank {rank}: FFT output differs across schedules")
+    check(all(v == 0 for v in ops.launch_counts().values()),
+          "the parent launched kernels during the a2a phase")
+    emit({"phase": "a2a", "ranks": n,
+          "transport": "gloo, staged through host memory; compute on the "
+                       "card",
+          "gups": {"table_log": A2A_TABLE_LOG, "rngs_per_rank": A2A_RNGS,
+                   "updates_per_rng": GUPS_UPDATES,
+                   "exchange_bytes_per_rank": payload["gups"]},
+          "fft": {"log_size": FFT_LOG, "batch_per_rank": A2A_FFT_BATCH,
+                  "exchange_bytes_per_rank": payload["fft"] // 2},
+          "staged_bytes_times_payload": times_payload,
+          "cut": "depth only: the gups and fft phases run full size on one "
+                 "rank; here four ranks share one card and the host",
+          "runs": table, "restore_exact": True,
+          "fft_bitwise_block_shape": True,
+          "identical_across_schedules": ["received buckets", "tables",
+                                         "fft output"],
+          "wall_s": wall,
+          "what_the_time_measures": "the host's loopback (gloo on one "
+                                    "machine), not a link rate"})
+
+
 def main() -> int:
     import torch
 
@@ -1664,6 +1945,9 @@ def main() -> int:
     phase_cpu(torch)
     launches["flash_attention"] = phase_serve(torch)["flash_attention"]
     launches["ring_add_step"], ring_all_ranks = phase_allreduce(torch)
+    phase_gups(torch)
+    phase_fft(torch)
+    phase_a2a(torch)
 
     check(set(launches) == set(rows) == set(SOURCES),
           f"kernels {sorted(rows)} vs launches {sorted(launches)}")

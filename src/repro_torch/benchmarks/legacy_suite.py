@@ -3,8 +3,8 @@
 
     python -m repro_torch.benchmarks.legacy_suite [--quick]
 
-The STREAM and GEMM rows are ported. The RandomAccess and FFT rows arrive
-with their modules (ROADMAP A10). Prints a table and writes
+STREAM, RandomAccess (drop-local GUPS), FFT and GEMM; RandomAccess and FFT
+at the reference's sizes. Prints a table and writes
 ``results/bench/torch_legacy_suite.json`` at the root of the checkout.
 """
 from __future__ import annotations
@@ -12,8 +12,10 @@ from __future__ import annotations
 import argparse
 
 from repro_torch.benchmarks.common import fmt_bw, save_result, table
+from repro_torch.core.fft import run_fft
 from repro_torch.core.gemm import run_gemm
 from repro_torch.core.hpcc import device_name, resolve_device
+from repro_torch.core.randomaccess import run_randomaccess
 from repro_torch.core.stream import run_stream
 
 
@@ -31,6 +33,20 @@ def main(quick: bool = False, device=None) -> dict:
                         "bandwidth": res.details["bandwidth"],
                         "elems": res.details["elems_per_device"],
                         "err": res.error}
+
+    res = run_randomaccess(table_log=16 if quick else 20,
+                           updates_per_rng=1024 if quick else 4096,
+                           device=device)
+    rows.append(["RandomAccess", "GUPS", f"{res.metric:.4f}",
+                 f"{res.error:.2e}"])
+    record["randomaccess"] = {"gups": res.metric, "err": res.error,
+                              "table_log": res.details["table_log"]}
+
+    res = run_fft(log_size=10 if quick else 14,
+                  batch_per_device=16 if quick else 64, device=device)
+    rows.append(["FFT", "GFLOP/s", f"{res.metric:.2f}", f"{res.error:.2e}"])
+    record["fft"] = {"gflops": res.metric, "err": res.error,
+                     "log_size": res.details["log_size"]}
 
     res = run_gemm(m=1024 if quick else 8192, device=device)
     rows.append(["GEMM", "GFLOP/s", f"{res.metric:.2f}", f"{res.error:.2e}"])

@@ -50,8 +50,8 @@ def ring_bcast(val: torch.Tensor, axis: str, src: int,
 def all_to_all_tiles(x: torch.Tensor, axis: str, *, split_axis: int,
                      concat_axis: int, comm=CommunicationType.ICI_DIRECT,
                      schedule: str = "native", mesh) -> torch.Tensor:
-    """Exchange tiles so rank i's j-th split lands on rank j (raises until
-    ROADMAP A10 ports the op)."""
+    """Exchange tiles so rank i's j-th split lands on rank j, concatenated
+    along ``concat_axis`` in source-rank order."""
     return _engine(mesh, comm, schedule).all_to_all_tiles(
         x, axis, split_axis=split_axis, concat_axis=concat_axis)
 

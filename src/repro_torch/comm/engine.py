@@ -1,10 +1,10 @@
 """Collective engine: named communication schedules behind one API.
 
 Port of ``repro/comm/engine.py`` (registry ``:95-145``, bcast schedules
-``:191-289``, allreduce schedules ``:344-505``, ring_exchange ``:510-528``,
-grid_transpose ``:536-588``, ``CollectiveEngine`` ``:597-1000``). Every
-collective op has
-named implementations ("schedules") registered against it, and a
+``:191-289``, all_to_all_tiles schedules ``:293-340``, allreduce schedules
+``:344-505``, ring_exchange ``:510-528``, grid_transpose ``:536-588``,
+``CollectiveEngine`` ``:597-1000``). Every collective op has named
+implementations ("schedules") registered against it, and a
 :class:`CollectiveEngine` selects one per op from ``(CommunicationType,
 schedule name)``. Callers hold an engine and never branch on comm or
 schedule themselves.
@@ -20,25 +20,26 @@ library's order). On a size-1 axis every schedule is the identity and
 touches no process group.
 
 Every payload move goes through one transport helper (:func:`_post` for
-point-to-point hops, :func:`_all_gather`, :func:`_broadcast` and
-:func:`_all_reduce` for the library collectives). On a gloo group with a
-CUDA payload it stages the bytes through host memory: it copies the payload
-to the host, sends and receives there, and copies what arrived back to the
-card, counting the bytes it copies (:func:`staged_bytes`). Only the bytes
+point-to-point hops, :func:`_all_gather`, :func:`_all_to_all`,
+:func:`_broadcast` and :func:`_all_reduce` for the library collectives).
+On a gloo group with a CUDA payload it stages the bytes through host
+memory: it copies the payload to the host, sends and receives there, and
+copies what arrived back to the card, counting the bytes it copies
+(:func:`staged_bytes`). Only the bytes
 move: every schedule's arithmetic stays on the payload's device. On any
 other group (NCCL, one rank per card) device tensors move as they are.
 
-Ported so far: ``bcast`` with ``chain``, ``native``, ``staged``, ``ring2d``
-and ``chain_rooted``; ``allreduce`` with ``native``, ``chain``,
-``chain_rooted``, ``staged``, ``rs_ag``, ``ring2d`` and ``int8_ef``, and
-``allreduce_tree``; ``ring_exchange`` with ``direct``/``chain`` and
-``staged``; ``grid_transpose`` with ``direct``/``chain``, ``staged`` and
-``ring2d``, over the flattened torus (``ProcessMesh.grid``); and
-``pipelined`` for ``bcast``, ``allreduce`` and ``grid_transpose``.
-``all_to_all_tiles`` raises :class:`NotImplementedError` naming the ROADMAP
-item that ports it. Until the cost model is ported (ROADMAP A8), ``auto``
-resolves to the static per-op default, ``nchunks="auto"`` to 1 and
-``bucket_bytes_for`` to ``DEFAULT_BUCKET_BYTES``.
+Every op of the reference is ported: ``bcast`` with ``chain``,
+``native``, ``staged``, ``ring2d`` and ``chain_rooted``;
+``all_to_all_tiles`` with ``native``, ``chain`` and ``staged``;
+``allreduce`` with ``native``, ``chain``, ``chain_rooted``, ``staged``,
+``rs_ag``, ``ring2d`` and ``int8_ef``, and ``allreduce_tree``;
+``ring_exchange`` with ``direct``/``chain`` and ``staged``;
+``grid_transpose`` with ``direct``/``chain``, ``staged`` and ``ring2d``,
+over the flattened torus (``ProcessMesh.grid``); and ``pipelined`` for
+every single-payload op. Until the cost model is ported (ROADMAP A8),
+``auto`` resolves to the static per-op default, ``nchunks="auto"`` to 1
+and ``bucket_bytes_for`` to ``DEFAULT_BUCKET_BYTES``.
 """
 from __future__ import annotations
 
@@ -69,17 +70,6 @@ _AUTO = {
     "ring_exchange": "direct",
     "grid_transpose": "direct",
 }
-
-# the ROADMAP item that ports each op still missing
-_PORTED_BY = {
-    "all_to_all_tiles": "A10 (routed RandomAccess) and A11 (MoE)",
-}
-
-
-def _not_ported(op: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"collective {op!r} is not ported yet: ROADMAP {_PORTED_BY[op]}")
-
 
 class UnknownScheduleError(ValueError):
     """Raised for a schedule name no op has registered."""
@@ -134,9 +124,10 @@ def _staged(ax, x: torch.Tensor) -> bool:
 
 
 def _to_host(x: torch.Tensor) -> torch.Tensor:
-    # .cpu() waits for the stream that produced x
+    # .cpu() waits for the stream that produced x; it keeps a dense view's
+    # strides, and gloo sends only contiguous tensors
     _STAGED[0] += x.numel() * x.element_size()
-    return x.cpu()
+    return x.cpu().contiguous()
 
 
 def _to_device(h: torch.Tensor, device) -> torch.Tensor:
@@ -191,6 +182,21 @@ def _all_gather(x: torch.Tensor, ax) -> list:
     out = [torch.empty_like(buf) for _ in range(ax.size)]
     dist.all_gather(out, buf, group=ax.group)
     return [_to_device(o, x.device) for o in out] if stage else out
+
+
+def _all_to_all(tiles, ax) -> list:
+    """Tile ``j`` of ``tiles`` to axis index ``j``; the tiles every index
+    sent this rank, in axis-index order. Every rank passes tiles of one
+    shape and dtype. One ``all_to_all_single`` over the stacked tiles:
+    gloo has no list ``all_to_all`` before torch 2.13."""
+    stacked = torch.stack(tiles)
+    stage = _staged(ax, stacked)
+    buf = _to_host(stacked) if stage else stacked
+    out = torch.empty_like(buf)
+    dist.all_to_all_single(out, buf, group=ax.group)
+    if stage:
+        out = _to_device(out, stacked.device)
+    return list(out.unbind(0))
 
 
 def _broadcast(x: torch.Tensor, ax, src: int) -> torch.Tensor:
@@ -313,6 +319,48 @@ def _bcast_ring2d(engine, val, ax, src):
         cur = _ring_shift(cur, ax, +1)
         out[(dist_ - 1 - s) % n] = cur
     return out.reshape(-1)[: val.numel()].reshape(val.shape)
+
+
+# ---------------------------------------------------------------------------
+# all_to_all_tiles schedules
+# ---------------------------------------------------------------------------
+#
+# Each takes ``x`` cut into ``ax.size`` equal tiles along ``split_axis``
+# (checked by the engine) and returns the tiles addressed to this rank,
+# concatenated along ``concat_axis`` in source-rank order.
+
+
+@register_schedule("all_to_all_tiles", "native")
+def _a2a_native(engine, x, ax, *, split_axis, concat_axis):
+    # the library collective over the axis group
+    tiles = x.chunk(ax.size, dim=split_axis)
+    return torch.cat(_all_to_all(tiles, ax), dim=concat_axis)
+
+
+@register_schedule("all_to_all_tiles", "chain")
+def _a2a_chain(engine, x, ax, *, split_axis, concat_axis):
+    # n-1 ring rounds (the paper's CSN schedule): the tile this rank owes
+    # the rank d hops to its right, split index (idx + d) mod n, travels d
+    # hops; round r moves every tile that still has hops to go, in one batch
+    n, idx = ax.size, ax.index
+    tiles = x.chunk(n, dim=split_axis)
+    carry = {d: tiles[(idx + d) % n] for d in range(1, n)}
+    for r in range(1, n):
+        live = range(r, n)
+        carry.update(zip(live, _ring_shift_all([carry[d] for d in live],
+                                               ax, +1)))
+    # carry[d] now holds the tile from source (idx - d) mod n
+    by_src = [tiles[idx] if s == idx else carry[(idx - s) % n]
+              for s in range(n)]
+    return torch.cat(by_src, dim=concat_axis)
+
+
+@register_schedule("all_to_all_tiles", "staged")
+def _a2a_staged(engine, x, ax, *, split_axis, concat_axis):
+    # every byte transits the staging domain (all_gather + local slice)
+    chunk = x.shape[split_axis] // ax.size
+    return torch.cat([g.narrow(split_axis, ax.index * chunk, chunk)
+                      for g in _all_gather(x, ax)], dim=concat_axis)
 
 
 # ---------------------------------------------------------------------------
@@ -598,8 +646,6 @@ class CollectiveEngine:
         accepted now so callers already pass them."""
         if op not in OPS:
             raise ValueError(f"unknown collective op {op!r}; ops are {OPS}")
-        if not _REGISTRY[op]:
-            raise _not_ported(op)
         if override is not None and override != "auto" \
                 and override not in _REGISTRY[op]:
             raise UnknownScheduleError(
@@ -633,8 +679,8 @@ class CollectiveEngine:
         """The chunk count ``pipelined`` resolves ``nchunks="auto"`` to: 1
         (monolithic), as the reference resolves it when its cost model has
         nothing to price, until ``best_nchunks`` is ported (ROADMAP A8).
-        The schedule is resolved all the same, so an unported op or an
-        unknown schedule raises here as it will in the exchange."""
+        The schedule is resolved all the same, so an unknown op or schedule
+        raises here as it will in the exchange."""
         self.schedule_for(op, schedule, nbytes=nbytes, axis=axis,
                           callsite=callsite)
         return 1
@@ -653,8 +699,31 @@ class CollectiveEngine:
                                  axis=axis, callsite=callsite)
         return _REGISTRY["bcast"][name](self, val, ax, int(src))
 
-    def all_to_all_tiles(self, *args, **kw):
-        raise _not_ported("all_to_all_tiles")
+    def all_to_all_tiles(self, x: torch.Tensor, axis, *, split_axis: int,
+                         concat_axis: int, schedule: Optional[str] = None,
+                         callsite: Optional[str] = None) -> torch.Tensor:
+        """Exchange tiles so rank i's j-th split lands on rank j, ordered by
+        source rank on ``concat_axis`` (the tiled ``lax.all_to_all``).
+
+        ``x`` is cut into ``axis``-size equal tiles along ``split_axis``
+        (:class:`ValueError` if it does not divide); the output
+        concatenates the tiles received from indices 0..n-1 along
+        ``concat_axis``, so the exchange with the two axes swapped is its
+        exact inverse. Every rank passes a tensor of one shape and dtype.
+        On a size-1 axis every schedule returns ``x``."""
+        ax = self._axis(axis)
+        name = self.schedule_for("all_to_all_tiles", schedule,
+                                 nbytes=x.numel() * x.element_size(),
+                                 axis=axis, callsite=callsite)
+        split_axis, concat_axis = split_axis % x.ndim, concat_axis % x.ndim
+        if x.shape[split_axis] % ax.size:
+            raise ValueError(
+                f"all_to_all_tiles: axis {split_axis} of size "
+                f"{x.shape[split_axis]} does not split into {ax.size} tiles")
+        if ax.size == 1:
+            return x
+        return _REGISTRY["all_to_all_tiles"][name](
+            self, x, ax, split_axis=split_axis, concat_axis=concat_axis)
 
     def allreduce(self, x: torch.Tensor, axis, *,
                   schedule: Optional[str] = None,
@@ -754,24 +823,35 @@ class CollectiveEngine:
         an allreduce strip sums each element over the same ranks, so on
         integer-valued payloads every chunking is exact too (with floats a
         ring schedule's chunk layout, and so its order of additions, moves
-        with the strips). The schedule is resolved once, at the full
-        payload.
+        with the strips). For ``all_to_all_tiles`` the strip axis rides
+        through the exchange unchanged, so every chunking equals the
+        monolithic exchange bit for bit. The schedule is resolved once, at
+        the full payload.
 
         Extra operands ride ``opkw``: ``src=`` for bcast, ``pg=`` for
-        grid_transpose. ``all_to_all_tiles`` arrives with its op (ROADMAP
-        A10)."""
-        if op == "all_to_all_tiles":
-            raise NotImplementedError(
-                "pipelined('all_to_all_tiles') is not ported yet: ROADMAP "
-                "A10 (all_to_all_tiles)")
-        supported = ("bcast", "allreduce", "grid_transpose")
+        grid_transpose, ``tile_split_axis=`` and ``tile_concat_axis=`` for
+        all_to_all_tiles (the exchange's tile axes; the strip axis must be
+        a third axis, else :class:`ValueError`)."""
+        supported = ("bcast", "allreduce", "grid_transpose",
+                     "all_to_all_tiles")
         if op not in supported:
             raise ValueError(f"pipelined supports single-payload ops "
                              f"{supported}, got {op!r}")
-        required = {"bcast": "src", "grid_transpose": "pg"}.get(op)
-        if required is not None and required not in opkw:
-            raise ValueError(f"pipelined({op!r}) requires the {required}= "
-                             "operand")
+        required = {"bcast": ("src",), "grid_transpose": ("pg",),
+                    "all_to_all_tiles": ("tile_split_axis",
+                                         "tile_concat_axis")}.get(op, ())
+        for name in required:
+            if name not in opkw:
+                raise ValueError(f"pipelined({op!r}) requires the {name}= "
+                                 "operand")
+        if op == "all_to_all_tiles":
+            tiles = {int(opkw["tile_split_axis"]) % x.ndim,
+                     int(opkw["tile_concat_axis"]) % x.ndim}
+            if int(split_axis) % x.ndim in tiles:
+                raise ValueError(
+                    "pipelined('all_to_all_tiles') strip split_axis "
+                    f"{split_axis} collides with a tile axis {sorted(tiles)}; "
+                    "strips must partition an axis the exchange leaves alone")
         size = x.shape[split_axis]
         nbytes = x.numel() * x.element_size()
         if nchunks == "auto":
@@ -792,6 +872,11 @@ class CollectiveEngine:
             elif op == "allreduce":
                 out = self.allreduce(strip, axis, schedule=resolved,
                                      callsite=callsite)
+            elif op == "all_to_all_tiles":
+                out = self.all_to_all_tiles(
+                    strip, axis, split_axis=opkw["tile_split_axis"],
+                    concat_axis=opkw["tile_concat_axis"], schedule=resolved,
+                    callsite=callsite)
             else:
                 out = self.grid_transpose(strip, axis, opkw["pg"],
                                           schedule=resolved,

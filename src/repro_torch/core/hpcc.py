@@ -12,6 +12,7 @@ from dataclasses import dataclass, field
 from typing import Callable, Dict
 
 import torch
+import torch.distributed as dist
 
 
 @dataclass
@@ -62,6 +63,18 @@ def device_name(device: torch.device) -> str:
     if device.type == "cuda":
         return torch.cuda.get_device_name(device)
     return device.type
+
+
+def axis_values(value, ax) -> list:
+    """``value`` (a picklable host value) of every rank along the mesh axis
+    ``ax``, in axis-index order: a collective, every rank of the axis calls
+    it. How a multi-rank result takes the slowest rank's time and the whole
+    output's error."""
+    if ax.size == 1:
+        return [value]
+    out = [None] * ax.size
+    dist.all_gather_object(out, value, group=ax.group)
+    return out
 
 
 def _sync():

@@ -227,9 +227,8 @@ def test_single_rank_compat_and_shims():
     x = torch.arange(6.0)
     assert torch.equal(collectives.psum_schedule(x, "x", mesh=mesh), x)
     assert torch.equal(collectives.ring_shift(x, "x", mesh=mesh), x)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        collectives.all_to_all_tiles(x, "x", split_axis=0, concat_axis=0,
-                                     mesh=mesh)
+    assert torch.equal(collectives.all_to_all_tiles(
+        x, "x", split_axis=0, concat_axis=0, mesh=mesh), x)
     with pytest.warns(DeprecationWarning, match="allreduce_tree"):
         out = overlap.bucketed_psum_tree({"a": x}, "x", 8, mesh=mesh)
     assert torch.equal(out["a"], x)
@@ -251,8 +250,14 @@ def test_engine_refuses_unknown_axes():
                  lambda: eng.bucket_bytes_for("bogus")):
         with pytest.raises(KeyError):
             call()
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        eng.pipelined("all_to_all_tiles", torch.zeros(4, 4), "x")
+    with pytest.raises(KeyError):
+        eng.all_to_all_tiles(torch.zeros(4), "bogus", split_axis=0,
+                             concat_axis=0)
+    x = torch.arange(16.0).reshape(4, 4)
+    assert torch.equal(eng.pipelined("all_to_all_tiles", x, "x", nchunks=2,
+                                     split_axis=1, tile_split_axis=0,
+                                     tile_concat_axis=0), x)
+    assert eng.schedule_for("all_to_all_tiles") == "native"
 
 
 # ---------------------------------------------------------------------------

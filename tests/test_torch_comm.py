@@ -127,11 +127,15 @@ def test_schedule_for_rules():
 
 @pytest.mark.parametrize("op", ["all_to_all_tiles"])
 def test_unported_ops_name_their_roadmap_item(op):
+    """The last op that was unported (ROADMAP A10) is ported: on the 1x1
+    mesh every schedule is the identity, and auto resolves to the
+    reference's static default."""
     eng = CollectiveEngine.for_mesh(single_rank_mesh())
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        getattr(eng, op)(torch.zeros(4), "rows")
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        eng.schedule_for(op)
+    x = torch.arange(8.0).reshape(2, 4)
+    for schedule in engine.schedules_for(op):
+        assert getattr(eng, op)(x, "rows", split_axis=0, concat_axis=1,
+                                schedule=schedule) is x
+    assert eng.schedule_for(op) == "native"
 
 
 @pytest.mark.parametrize("op", ["ring_exchange", "grid_transpose",
