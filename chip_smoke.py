@@ -27,8 +27,8 @@ Phases, one JSON line each:
                (device time; back-to-back events time the host's wrapper
                at a few microseconds a call); ring_add_step at the largest
                per-hop chunk of
-               the allreduce phase, 6,291,456 fp32, and at a 32 MiB
-               bucket's chunk, 2^28 fp32 and bf16, aliased, misaligned, and
+               the allreduce phase, 6,291,456 fp32, and at 2^21 (a 32 MiB
+               bucket's chunk), 2^28 fp32 and bf16, aliased, misaligned, and
                ragged in fp32 and fp16; its device time alone, queued
                behind a sleep kernel, at every hop chunk of the allreduce
                phase and at 2^21) and at ragged and strided shapes and in
@@ -86,8 +86,10 @@ Phases, one JSON line each:
                every payload through host memory, each holding the gradient
                of one llama3.2-3b decoder layer at full width (9 fp32
                leaves, 100.7 M elements, 403 MB) on the card: every
-               allreduce schedule's ``allreduce_tree`` (32 MiB buckets,
-               ``bucket_bytes_for``) bit for bit against the sum of the four
+               allreduce schedule's ``allreduce_tree`` (the cost model's
+               buckets, ``bucket_bytes_for``: 16 MiB on a ring of four from
+               the H100 model's loopback constants, checked against
+               ``derive_bucket_bytes``) bit for bit against the sum of the four
                ranks' integer-valued trees on every rank (int8_ef on
                block-representable ones), rs_ag also in one bucket, a
                quarter-tree bucket and one leaf per bucket; then normal
@@ -119,6 +121,19 @@ Phases, one JSON line each:
                exact, received buckets and tables identical across
                schedules, FFT bit-identical to ``torch.fft.fft`` at the
                per-rank block shape (B/4, n), bytes staged per rank.
+15. autotune — the cost model and autotuner (``comm/autotune.py``):
+               ``run_hpl`` at n = 16384, b = 64 with ``lookahead="auto"``
+               (the depth ``choose_hpl_depth`` gives on the H100 model),
+               residual < 1, the launches its depth implies, and the LU
+               bit for bit that of its integer depth and of eager; the
+               one-card section of ``hpl_scaling`` (quick); the loopback's
+               link constants on four gloo processes
+               (``hw_model.link_constants``) beside the model's; and the
+               quick measured ``autotune_mesh`` on a ring (and a 2x2 torus)
+               of four processes with the ``--autotune`` gate, which saves
+               ``results/tuning_torch.json`` and refreshes the default
+               model, so the phase runs last. Prints the H100 model, the
+               table's bands, the depth, the bucket and its seconds.
 
 Each main-path phase zeroes the launch counts just before it runs and reads
 them just after (the allreduce phase in each rank's process, around each
@@ -167,6 +182,9 @@ FFT_LOG, FFT_BATCH = 12, 1 << 15
 # the exchange path on four processes sharing the card, cut in depth
 A2A_RANKS, A2A_TIMEOUT, A2A_CHUNKS = 4, 600.0, (1, 4)
 A2A_TABLE_LOG, A2A_RNGS, A2A_FFT_BATCH = 22, 1 << 10, 1024
+# the cost model's path: the link probe and the quick autotune on gloo
+# worlds of four processes sharing the card, each world bounded
+AUTOTUNE_TIMEOUT = 300.0
 # fp32 prefill, flash vs plain attention: both are fp32 throughout and
 # differ only in the order of the attention's sums (a few ulps per layer),
 # on logits of rms about 1; one bf16 rounding anywhere moves them by ~1e-2
@@ -1134,21 +1152,30 @@ def kernels_flash(torch, randn, rows):
     return checked
 
 
+def model_bucket_bytes(n: int) -> int:
+    """The bucket ``allreduce_tree`` takes by default on a ring of ``n``:
+    the cost model's, derived from the H100 model's loopback constants."""
+    from repro_torch.comm.autotune import derive_bucket_bytes
+    from repro_torch.comm.topology import AxisTopology
+
+    return derive_bucket_bytes((AxisTopology("x", n, "ring"),))
+
+
 def layer_hop_chunks(n: int, bucket_bytes=None):
     """Elements per ring hop of each bucket of one SERVE_ARCH layer's
-    gradient on a ring of ``n`` (32 MiB buckets unless given)."""
+    gradient on a ring of ``n`` (the model's buckets unless given)."""
     from repro_torch.benchmarks.overlap_bench import hop_chunks, layer_shapes
-    from repro_torch.comm.overlap import DEFAULT_BUCKET_BYTES
     from repro_torch.configs import get_config
 
     return hop_chunks(layer_shapes(get_config(SERVE_ARCH)),
-                      bucket_bytes or DEFAULT_BUCKET_BYTES, n)
+                      bucket_bytes or model_bucket_bytes(n), n)
 
 
 def kernels_ring(torch, randn, rows):
     """ring_add_step at the allreduce phase's largest hop chunk, bit for bit
-    with its plain version; then at a 32 MiB bucket's chunk (which the L2
-    holds), at 2^28 fp32 and bf16, into ``out = acc``, on a misaligned
+    with its plain version; then at 2^21 fp32 (a 32 MiB bucket's chunk,
+    which the L2 holds), at 2^28 fp32 and bf16, into ``out = acc``, on a
+    misaligned
     view (the scalar path) and, through ``fused_chunk_add``, ragged fp32
     and fp16 chunks, which launch the kernel once each. Then the kernel's
     and ``torch.add``'s device time alone at every hop chunk of the
@@ -1160,7 +1187,7 @@ def kernels_ring(torch, randn, rows):
     hop = max(chunks)
     bf16 = torch.bfloat16
     cases = {"largest hop chunk": (hop, torch.float32, 200),
-             "32 MiB bucket chunk (L2)": (1 << 21, torch.float32, 500),
+             "2^21 fp32 (L2)": (1 << 21, torch.float32, 500),
              "2^28 fp32 (HBM)": (1 << 28, torch.float32, 20),
              "2^28 bf16 (HBM)": (1 << 28, bf16, 20)}
     shapes = {}
@@ -1286,9 +1313,7 @@ def phase_lookahead(torch):
         check(torch.equal(lu, eager) and bits == 0,
               f"lookahead d={d} differs from eager in {bits} entries")
         want = dict.fromkeys(ops.KERNELS, 0)
-        want.update({"gemm_update": d * (d - 1) + nb * (2 * d + 1),
-                     "lu_factor_block": nb + d, "trsm_lower_left": nb + d,
-                     "trsm_upper_right": nb + d})
+        want.update(lookahead_launches(nb, d))
         check(counts == want, f"lookahead d={d} launches {counts}, "
                               f"expected {want}")
         routes = ops.launches_by_route()
@@ -1618,6 +1643,12 @@ def phase_allreduce(torch):
     table = {}
     for i, (schedule, mode, kind) in enumerate(runs):
         recs = [r[i] for r in results]
+        if mode == "model":
+            check(all(rec["bucket_bytes"] == model_bucket_bytes(n)
+                      for rec in recs),
+                  f"{schedule}/model: buckets of "
+                  f"{[rec['bucket_bytes'] for rec in recs]} bytes, the cost "
+                  f"model derives {model_bucket_bytes(n)}")
         chunks = layer_hop_chunks(n, recs[0]["bucket_bytes"])
         launching = sum(1 for c in chunks if c)
         want = (n - 1) * launching if schedule in (
@@ -1652,7 +1683,8 @@ def phase_allreduce(torch):
           "cut": f"depth only: one of {cfg.num_layers} layers (every layer's "
                  "leaves pack into the same buckets; the whole gradient is "
                  f"{cfg.param_count() * 4 / 1e9:.1f} GB per rank)",
-          "hop_chunks_32MiB": layer_hop_chunks(n),
+          "bucket_bytes_model": model_bucket_bytes(n),
+          "hop_chunks_model": layer_hop_chunks(n),
           "runs": table, "ring_add_step_expected": expected,
           "main_path": "rs_ag/model/normal: bitwise across ranks and with "
                        "the plain replay",
@@ -1914,6 +1946,122 @@ def phase_a2a(torch):
                                     "machine), not a link rate"})
 
 
+def lookahead_launches(nb: int, d: int) -> dict:
+    """Kernel launches of one depth-``d`` factorization of ``nb`` blocks:
+    the prologue's d panel sets, then per iteration the bulk update, one
+    panel set and 2d strip updates (none at d = 0)."""
+    if d == 0:
+        return {"gemm_update": nb, "lu_factor_block": nb,
+                "trsm_lower_left": nb, "trsm_upper_right": nb}
+    return {"gemm_update": d * (d - 1) + nb * (2 * d + 1),
+            "lu_factor_block": nb + d, "trsm_lower_left": nb + d,
+            "trsm_upper_right": nb + d}
+
+
+def phase_autotune(torch, rows):
+    """The cost model and autotuner on the card: HPL with lookahead="auto"
+    at the main size, bit for bit the integer depth the model chose (and
+    eager); the one-card section of hpl_scaling; the loopback's link
+    constants on four gloo processes; the quick measured autotune and the
+    --autotune gate on a ring of four, which saves results/tuning_torch.json
+    and refreshes the process's default model (so this phase runs last)."""
+    import dataclasses
+
+    from repro_torch.benchmarks import hpl_scaling, hw_model
+    from repro_torch.benchmarks import run as bench_run
+    from repro_torch.comm import autotune
+    from repro_torch.comm.topology import AxisTopology
+    from repro_torch.comm.types import H100_80GB
+    from repro_torch.core.hpl import generate_system, make_factorize, run_hpl
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import single_rank_mesh
+
+    t0 = time.perf_counter()
+    nb = N_MAIN // B_MAIN
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    res = run_hpl(n=N_MAIN, b=B_MAIN, reps=1, lookahead="auto",
+                  device="cuda")
+    counts = ops.launch_counts()
+    depth = res.details["lookahead_depth"]
+    check(1 <= depth <= autotune.MAX_LOOKAHEAD_DEPTH,
+          f"lookahead='auto' ran at depth {depth}")
+    check(res.error < 1.0, f"HPL residual {res.error} >= 1 at lookahead "
+                           f"'auto' (depth {depth})")
+    per_fact = {k: v for k, v in res.details["launches"].items() if v}
+    check(per_fact == lookahead_launches(nb, depth),
+          f"lookahead 'auto' (depth {depth}) launched {per_fact} per "
+          f"factorization, expected {lookahead_launches(nb, depth)}")
+    check(counts == {k: 2 * v for k, v in res.details["launches"].items()},
+          f"lookahead 'auto' launched {counts} in two factorizations")
+    hpl_s = time.perf_counter() - t0
+
+    a = torch.from_numpy(generate_system(N_MAIN)[0]).cuda()
+    mesh = single_rank_mesh()
+    lu = {la: make_factorize(mesh, pg=1, nb=nb, b=B_MAIN, lookahead=la)(a)
+          for la in ("auto", depth, False)}
+    check(bitwise(torch, lu["auto"], lu[depth]),
+          f"lookahead 'auto' differs from depth {depth}")
+    check(bitwise(torch, lu["auto"], lu[False]),
+          "lookahead 'auto' differs from eager")
+    del a, lu
+    torch.cuda.empty_cache()
+
+    t1 = time.perf_counter()
+    scaling = hpl_scaling.main(quick=True, device="cuda")
+    for key, rec in scaling.items():
+        if isinstance(rec, dict) and "lookahead_depth" in rec:
+            check(rec["err"] is None or rec["err"] < 1.0,
+                  f"hpl_scaling {key}: residual {rec['err']}")
+            check(rec["gflops"] > 0, f"hpl_scaling {key}: no rate")
+    check(len(scaling["extrapolation"]) == len(hpl_scaling.DEVICES),
+          "hpl_scaling: no extrapolation")
+    scaling_s = time.perf_counter() - t1
+
+    t1 = time.perf_counter()
+    links = hw_model.link_constants(timeout=AUTOTUNE_TIMEOUT)
+    links_s = time.perf_counter() - t1
+
+    t1 = time.perf_counter()
+    gate = bench_run.autotune_gate(True, device="cuda",
+                                   timeout=AUTOTUNE_TIMEOUT)
+    table = gate["table"]
+    check(table["meta"]["device"] == "cuda"
+          and table["meta"]["backend"] == "gloo",
+          f"tuning table measured on {table['meta']}")
+    check(set(table["entries"]) == set(autotune.MEASURED_OPS),
+          f"tuning table holds {sorted(table['entries'])}")
+    check(autotune.default_cost_model().table is not None,
+          "the refreshed default model did not take the card's table")
+    gate_s = time.perf_counter() - t1
+
+    ring = (AxisTopology("x", ALLREDUCE_RANKS, "ring"),)
+    measured = {"peak_flops": 2.0 * N_MAIN * N_MAIN * B_MAIN
+                / (rows["gemm_update"]["ms"] * 1e-3),
+                "hbm_bw": 2.0 * STREAM_ELEMS * 4
+                / (rows["stream_copy"]["ms"] * 1e-3)}
+    emit({"phase": "autotune", "hw_model": dataclasses.asdict(H100_80GB),
+          "measured_in_this_run": {
+              "from_phase_kernels": measured,
+              "links_loopback": links},
+          "hpl": {"n": N_MAIN, "b": B_MAIN, "lookahead": "auto",
+                  "depth": depth, "residual": res.error,
+                  "gflops": res.metric, "seconds": res.times["best"],
+                  "launches_per_factorization": per_fact,
+                  "bitwise_equal": [f"depth {depth}", "eager"]},
+          "hpl_scaling_quick": scaling,
+          "bucket_bytes_ring4": autotune.derive_bucket_bytes(ring),
+          "tuning_table": table, "gate": "ok",
+          "seconds": {"hpl": hpl_s, "hpl_scaling": scaling_s,
+                      "links": links_s, "autotune_gate": gate_s,
+                      "phase": time.perf_counter() - t0},
+          "what_the_link_times_measure": "the host's loopback (gloo "
+                                         "between processes on one "
+                                         "machine), not a link rate"})
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1948,6 +2096,7 @@ def main() -> int:
     phase_gups(torch)
     phase_fft(torch)
     phase_a2a(torch)
+    phase_autotune(torch, rows)
 
     check(set(launches) == set(rows) == set(SOURCES),
           f"kernels {sorted(rows)} vs launches {sorted(launches)}")

@@ -2,7 +2,7 @@
 sizes. Port of ``benchmarks/hpl_matrix_sweep.py:18-37``; it runs on the card.
 
 The reference's second section, HPL on a 2x2 torus under each backend,
-needs four cards and waits for a multi-GPU run (ROADMAP A4).
+needs four cards (ROADMAP, "Needs several cards").
 
     python -m repro_torch.benchmarks.hpl_matrix_sweep [--quick]
 

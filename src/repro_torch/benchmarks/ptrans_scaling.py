@@ -1,6 +1,6 @@
 """Paper Fig. 12 + Eqs. 5/6 — PTRANS strong and weak scaling over the grid,
-both backends, with the block-time model of the paper's 520N beside it.
-Port of ``benchmarks/ptrans_scaling.py``; it runs on the card.
+both backends, with the block-time model (Eq. 5) on the port's H100
+model beside it, whose link figures are the host's loopback. Port of ``benchmarks/ptrans_scaling.py``; it runs on the card.
 
     python -m repro_torch.benchmarks.ptrans_scaling [--quick] [--schedule NAME] [--nchunks S]
 
@@ -14,7 +14,7 @@ from __future__ import annotations
 import argparse
 
 from repro_torch.benchmarks.common import save_result, table
-from repro_torch.comm.types import BITTWARE_520N
+from repro_torch.comm.types import H100_80GB
 from repro_torch.comm.types import CommunicationType as CT
 from repro_torch.core import models
 from repro_torch.core.hpcc import device_name, resolve_device
@@ -56,13 +56,13 @@ def main(quick: bool = False, schedule=None, nchunks="auto",
                 if g == grids[0]:
                     base_perf[ct.value] = res.metric
                 model_t = models.ptrans_block_time(
-                    b, 4, BITTWARE_520N, staged=(ct is CT.HOST_STAGED))
+                    b, 4, H100_80GB, staged=(ct is CT.HOST_STAGED))
                 rows.append([label, ct.value, f"{g}x{g}", n,
                              f"{res.metric:.3f}",
                              f"{res.metric / base_perf[ct.value]:.2f}x",
                              f"{res.error:.2e}", f"{model_t * 1e6:.1f}us"])
         print(table(rows, ["scaling", "backend", "grid", "n", "GFLOP/s",
-                           "speedup", "max_err", "model_t/blk(520N)"]))
+                           "speedup", "max_err", "model_t/blk(h100)"]))
         print()
     save_result("ptrans_scaling", record)
     return record

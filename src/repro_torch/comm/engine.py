@@ -37,9 +37,11 @@ Every op of the reference is ported: ``bcast`` with ``chain``,
 ``ring_exchange`` with ``direct``/``chain`` and ``staged``;
 ``grid_transpose`` with ``direct``/``chain``, ``staged`` and ``ring2d``,
 over the flattened torus (``ProcessMesh.grid``); and ``pipelined`` for
-every single-payload op. Until the cost model is ported (ROADMAP A8),
-``auto`` resolves to the static per-op default, ``nchunks="auto"`` to 1
-and ``bucket_bytes_for`` to ``DEFAULT_BUCKET_BYTES``.
+every single-payload op. ``schedule="auto"`` resolves per callsite through
+the cost model (:mod:`repro_torch.comm.autotune`) from the payload size and
+the axis topology (measured tuning table first, analytic alpha-beta
+ranking otherwise), ``nchunks="auto"`` through its pipeline fill cost, and
+``allreduce_tree``'s bucket through ``derive_bucket_bytes``.
 """
 from __future__ import annotations
 
@@ -49,6 +51,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch.comm import autotune
 from repro_torch.comm.compression import dequantize_ef, quantize_ef
 from repro_torch.comm.overlap import (DEFAULT_BUCKET_BYTES, pack_buckets,
                                       tree_flatten, tree_unflatten)
@@ -61,8 +64,9 @@ OPS: Tuple[str, ...] = ("bcast", "all_to_all_tiles", "allreduce",
 
 _REGISTRY: Dict[str, Dict[str, Callable]] = {op: {} for op in OPS}
 
-# static per-op defaults for schedule="auto" (the reference's fallbacks when
-# its cost model has nothing to price; the port's only resolution until A8)
+# static per-op fallbacks for schedule="auto" — used only when the cost
+# model has nothing to go on (no topology, no payload size, unknown axis);
+# with both available, auto resolves through repro_torch.comm.autotune
 _AUTO = {
     "bcast": "chain",
     "all_to_all_tiles": "native",
@@ -260,10 +264,15 @@ def _bcast_staged(engine, val, ax, src):
 
 
 def _cut_hop(engine, ax) -> int:
-    """The hop the rooted chain must not cross. Until the cost model's
-    health mask is ported (ROADMAP A8) no link is known to be down, so it is
-    the wraparound hop ``n-1``, as in the reference on a clean ring."""
-    return ax.size - 1
+    """The hop the rooted chain must not cross: the smallest hard-down hop
+    of ``ax`` in the engine's cost-model health mask
+    (:class:`repro_torch.comm.autotune.CostModel`), else the wraparound hop
+    ``n-1``. With several down hops on one axis the chain can only avoid
+    the first; the others stay in its priced route, so resolution never
+    picks it there (:func:`repro_torch.comm.autotune.route_links`)."""
+    health = getattr(engine._model(), "health", None) or frozenset()
+    down = sorted(h for (a, h) in health if a == ax.name)
+    return down[0] if down else ax.size - 1
 
 
 @register_schedule("bcast", "chain_rooted")
@@ -601,20 +610,27 @@ class CollectiveEngine:
 
     ``comm``      the paper's Fig. 1 backend selector. ``HOST_STAGED`` forces
                   the ``staged`` schedule for every op.
-    ``schedule``  a registered schedule name, or ``"auto"``. Until the cost
-                  model is ported (ROADMAP A8) ``auto`` resolves to the
-                  static per-op default (``chain`` for bcast). A name
+    ``schedule``  a registered schedule name, or ``"auto"`` to resolve per
+                  callsite through the cost model
+                  (:mod:`repro_torch.comm.autotune`) from the payload size
+                  and the axis topology. Without topology or payload auto
+                  falls back to the static per-op defaults. A name
                   registered for some ops only resolves like auto for the
                   others.
-    ``topology``  the :class:`MeshTopology` of ``mesh``, for provenance
-                  (``describe()``) and, with A8, the cost model.
+    ``topology``  the :class:`MeshTopology` of ``mesh``, for cost-model
+                  resolution and provenance (``describe()``).
     ``mesh``      the :class:`repro_torch.launch.mesh.ProcessMesh` whose
                   axis groups the schedules communicate over.
+    ``cost_model`` an explicit :class:`repro_torch.comm.autotune.CostModel`;
+                  None uses the process-wide default (analytic on the H100
+                  model, plus ``results/tuning_torch.json`` when one was
+                  measured for this backend).
     """
     comm: CommunicationType = CommunicationType.ICI_DIRECT
     schedule: str = "auto"
     topology: Optional[MeshTopology] = None
     mesh: Optional[object] = None
+    cost_model: Optional[object] = None
 
     def __post_init__(self):
         object.__setattr__(self, "comm", comm_type(self.comm))
@@ -625,9 +641,9 @@ class CollectiveEngine:
 
     @classmethod
     def for_mesh(cls, mesh, comm=CommunicationType.ICI_DIRECT,
-                 schedule: str = "auto") -> "CollectiveEngine":
+                 schedule: str = "auto", **kw) -> "CollectiveEngine":
         return cls(comm=comm_type(comm), schedule=schedule,
-                   topology=MeshTopology.from_mesh(mesh), mesh=mesh)
+                   topology=MeshTopology.from_mesh(mesh), mesh=mesh, **kw)
 
     # -- schedule resolution ------------------------------------------------
 
@@ -637,13 +653,20 @@ class CollectiveEngine:
         """The schedule name this engine runs ``op`` with — always a
         registered name, never the literal ``"auto"``.
 
+        With ``nbytes`` (message payload) and ``axis`` (an axis name or
+        tuple), ``auto`` resolves through the cost model; without them it
+        falls back to the static per-op default. ``callsite`` (a tag of
+        :mod:`repro_torch.comm.callsites`, e.g. ``"hpl.panel"``) lets
+        measured tuning-table entries for that call pattern win over the
+        untagged op's.
+
         An explicit ``override`` must be registered for ``op``
         (:class:`UnknownScheduleError` otherwise — checked before the
         HOST_STAGED short-circuit so typos fail under every comm type);
         HOST_STAGED always resolves to ``"staged"``; an engine-wide name that
-        does not cover ``op`` falls back to auto. ``nbytes``, ``axis`` and
-        ``callsite`` are what the cost model will price on; they are
-        accepted now so callers already pass them."""
+        does not cover ``op`` falls back to auto-resolution rather than
+        erroring, so one engine can drive ops with disjoint schedule
+        sets."""
         if op not in OPS:
             raise ValueError(f"unknown collective op {op!r}; ops are {OPS}")
         if override is not None and override != "auto" \
@@ -656,6 +679,58 @@ class CollectiveEngine:
         name = override or self.schedule
         if name != "auto" and name in _REGISTRY[op]:
             return name
+        # "auto", or an engine-wide name that doesn't cover this op
+        return self._auto_choice(op, nbytes, axis, callsite)
+
+    def _axes_for(self, axis) -> Optional[Tuple]:
+        """The :class:`AxisTopology` of each name of ``axis``; None without
+        an axis or a topology, or for a name the topology lacks."""
+        if axis is None or self.topology is None:
+            return None
+        try:
+            return tuple(self.topology.axis(a) for a in _axis_names(axis))
+        except KeyError:
+            return None
+
+    def _model(self):
+        if self.cost_model is not None:
+            return self.cost_model
+        return autotune.default_cost_model()
+
+    def invalidate_resolutions(self, *, table=None, hw=None,
+                               health=None) -> None:
+        """Drop every memoized ``(op, nbytes, axis, callsite)`` resolution
+        so the next ``schedule="auto"`` lookup re-prices.
+
+        ``table`` optionally swaps a refreshed
+        :class:`~repro_torch.comm.autotune.TuningTable` into the cost model
+        first; ``hw`` swaps the :class:`~repro_torch.comm.types
+        .HardwareModel` the analytic ranking prices on; ``health`` swaps the
+        link-health mask (``(axis, hop)`` pairs that are hard down; pass
+        ``frozenset()`` to declare every link healthy again), so resolution
+        excludes any route crossing a down link. Mutates the engine's cost
+        model — the process default when no explicit ``cost_model`` was
+        given — never the frozen engine."""
+        model = self._model()
+        if table is not None:
+            model.table = table
+        if hw is not None:
+            model.hw = hw
+        if health is not None:
+            model.health = frozenset(health)
+        model._cache.clear()
+
+    def _auto_choice(self, op: str, nbytes: Optional[int], axis,
+                     callsite: Optional[str] = None) -> str:
+        """Cost-model resolution; static default when the model has nothing
+        to price (no topology / payload / unknown axis)."""
+        axes = self._axes_for(axis)
+        if nbytes is None or axes is None:
+            return _AUTO[op]
+        choice = self._model().choose(op, int(nbytes), axes,
+                                      callsite=callsite)
+        if choice is not None and choice in _REGISTRY[op]:
+            return choice
         return _AUTO[op]
 
     def _axis(self, axis):
@@ -676,14 +751,18 @@ class CollectiveEngine:
     def pipeline_chunks(self, op: str, *, nbytes: Optional[int] = None,
                         axis=None, schedule: Optional[str] = None,
                         callsite: Optional[str] = None) -> int:
-        """The chunk count ``pipelined`` resolves ``nchunks="auto"`` to: 1
-        (monolithic), as the reference resolves it when its cost model has
-        nothing to price, until ``best_nchunks`` is ported (ROADMAP A8).
-        The schedule is resolved all the same, so an unknown op or schedule
-        raises here as it will in the exchange."""
-        self.schedule_for(op, schedule, nbytes=nbytes, axis=axis,
-                          callsite=callsite)
-        return 1
+        """The chunk count ``pipelined`` resolves ``nchunks="auto"`` to:
+        :func:`repro_torch.comm.autotune.best_nchunks` on the resolved
+        schedule's hop/wire decomposition — pipeline fill cost against
+        per-chunk latency. 1 (monolithic) when the model has nothing to
+        price. The schedule is resolved all the same, so an unknown op or
+        schedule raises here as it will in the exchange."""
+        name = self.schedule_for(op, schedule, nbytes=nbytes, axis=axis,
+                                 callsite=callsite)
+        axes = self._axes_for(axis)
+        if nbytes is None or axes is None:
+            return 1
+        return self._model().best_nchunks(op, name, int(nbytes), axes)[0]
 
     # -- ops -----------------------------------------------------------------
 
@@ -737,12 +816,17 @@ class CollectiveEngine:
         return _REGISTRY["allreduce"][name](self, x, axis)
 
     def bucket_bytes_for(self, axis) -> int:
-        """Bucket size for :meth:`allreduce_tree` over ``axis``:
-        ``DEFAULT_BUCKET_BYTES`` (32 MiB), as the reference falls back to
-        it, until ``derive_bucket_bytes`` is ported with the cost model
-        (ROADMAP A8)."""
-        self._check_axis(axis)
-        return DEFAULT_BUCKET_BYTES
+        """Model-derived bucket size for :meth:`allreduce_tree` over
+        ``axis``: pipeline depth x ring hops x per-hop latency-bandwidth
+        product (:func:`repro_torch.comm.autotune.derive_bucket_bytes`) on
+        the cost model's hardware; ``DEFAULT_BUCKET_BYTES`` (the former
+        fixed 32 MiB) without a topology. Raises KeyError for an axis the
+        mesh lacks."""
+        if self.topology is None:
+            self._check_axis(axis)
+            return DEFAULT_BUCKET_BYTES
+        axes = tuple(self.topology.axis(a) for a in _axis_names(axis))
+        return autotune.derive_bucket_bytes(axes, self._model().hw)
 
     def allreduce_tree(self, tree, axis, *, bucket_bytes: Optional[int] = None,
                        schedule: Optional[str] = None,
@@ -889,3 +973,23 @@ class CollectiveEngine:
             return outs[0]
         cat = split_axis if concat_axis is None else concat_axis
         return torch.cat(outs, dim=cat)
+
+    # -- provenance ---------------------------------------------------------
+
+    def describe(self) -> Dict[str, object]:
+        """Static record of what this engine runs, for benchmark results."""
+        d = {
+            "comm": self.comm.value,
+            "schedule": self.schedule,
+            # static (payload-free) resolution; callsites with a payload may
+            # refine these through the cost model — benchmarks record the
+            # per-callsite resolved name in their own results
+            "resolved": {op: self.schedule_for(op) for op in OPS},
+        }
+        if self.schedule == "auto" \
+                and self.comm is not CommunicationType.HOST_STAGED:
+            d["auto_resolver"] = ("cost_model" if self.topology is not None
+                                  else "static")
+        if self.topology is not None:
+            d["topology"] = self.topology.describe()
+        return d

@@ -15,8 +15,8 @@ from __future__ import annotations
 import warnings
 from typing import List, Tuple
 
-# the bucket size an engine uses for allreduce_tree until the cost model
-# derives one per axis (ROADMAP A8), as the reference falls back to it
+# the former fixed bucket size: the ceiling of the cost model's derived one
+# (autotune.MAX_BUCKET_BYTES), and what an engine without a topology uses
 DEFAULT_BUCKET_BYTES = 32 * 2**20
 
 

@@ -3,9 +3,9 @@
 Port of ``repro/comm/types.py``. ``CommunicationType`` is the paper's Fig. 1
 selector between the direct device-to-device path and the host-staged path.
 ``HardwareModel`` carries the constants of the analytical models (paper
-Eqs. 2-6). Only the paper's own BittWare 520N is defined here; the port's
-card gets a model filled from its own measurements when the cost model is
-ported.
+Eqs. 2-6) and of the cost model (:mod:`repro_torch.comm.autotune`): the
+paper's own BittWare 520N, and :data:`H100_80GB`, the port's card, filled
+from its own measurements.
 """
 from __future__ import annotations
 
@@ -53,6 +53,27 @@ BITTWARE_520N = HardwareModel(
     pcie_bw=7.88e9,            # PCIe 3.0 x8
     dcn_bw=12.5e9,             # Omni-Path 100 Gbit/s
     mpi_latency=1.5e-6,
+)
+
+# The port's card: an NVIDIA H100 80GB HBM3 at a 700 W power limit. Every
+# figure is one run of ``python -m repro_torch.benchmarks.hw_model`` on it
+# (PERF.md cites the run), none from a datasheet. On one card every path
+# between two ranks is this host's gloo loopback between processes sharing
+# the card, so the link figures (ici_*, mpi_latency, dcn_bw) are loopback
+# figures, not NVLink or network figures: the direct and the staged routes
+# ride the same transport.
+H100_80GB = HardwareModel(
+    name="h100_80gb",
+    peak_flops=34.46e12,       # fp32, HPL's trailing update (gemm_update)
+    hbm_bw=3.033e12,           # STREAM copy, 2^28 fp32
+    ici_link_bw=2.557e9,       # loopback: 8 B / 64 MiB ping-pong, beta
+    ici_links=1,               # one loopback path per process
+    ici_latency=180.2e-6,      # loopback: one-way time of 8 B
+    pcie_bw=52.9e9,            # pinned 256 MiB, slower of H2D and D2H
+    dcn_bw=2.557e9,            # the same loopback
+    mpi_latency=180.2e-6,      # the same loopback
+    vmem_bytes=233472,         # shared memory of one SM
+    hbm_bytes=85017493504,     # torch.cuda.get_device_properties
 )
 
 # External-channel IP parameters of the 520N (paper Table 2) for Eq. 3/4.

@@ -42,6 +42,7 @@ import numpy as np
 import scipy.linalg
 import torch
 
+from repro_torch.comm.autotune import choose_hpl_depth
 from repro_torch.comm.callsites import HPL_BLOCK, HPL_PANEL
 from repro_torch.comm.engine import CollectiveEngine
 from repro_torch.comm.types import CommunicationType
@@ -211,6 +212,22 @@ def lookahead_depth(lookahead) -> int:
     return depth
 
 
+def resolve_lookahead(lookahead, engine: CollectiveEngine, *, b: int,
+                      m: int):
+    """``lookahead`` as given, or for ``"auto"`` the depth the cost model
+    chooses (:func:`repro_torch.comm.autotune.choose_hpl_depth`), with the
+    broadcasts priced on what ``engine`` runs (engine-wide overrides,
+    HOST_STAGED forcing staged), as the reference's ``run_hpl`` does."""
+    if lookahead != "auto":
+        return lookahead
+    topo = engine.topology
+    return choose_hpl_depth(
+        b=b, m=m, axes=(topo.axis("rows"), topo.axis("cols")),
+        model=engine._model(),
+        resolve=lambda op, nbytes, ax, callsite: engine.schedule_for(
+            op, nbytes=nbytes, axis=ax.name, callsite=callsite))
+
+
 def make_factorize(mesh, *, pg: int, nb: int, b: int,
                    comm=CommunicationType.ICI_DIRECT, schedule: str = "auto",
                    lookahead=False, engine: CollectiveEngine = None):
@@ -221,10 +238,12 @@ def make_factorize(mesh, *, pg: int, nb: int, b: int,
     can be timed and rerun on the same input. The tensor's device picks the
     kernels: hand-written ones on ``cuda``, plain versions on the CPU.
     ``lookahead`` is a pipeline depth: False/0 eager, True/1 one panel set
-    in flight, d >= 2 the depth-d pipeline."""
+    in flight, d >= 2 the depth-d pipeline, ``"auto"`` the cost model's
+    depth (:func:`resolve_lookahead`)."""
     engine = engine or CollectiveEngine.for_mesh(mesh, comm, schedule)
-    depth = min(lookahead_depth(lookahead), nb)
     lb = nb // pg
+    depth = min(lookahead_depth(resolve_lookahead(lookahead, engine, b=b,
+                                                  m=lb * b)), nb)
     r, c = mesh.index("rows"), mesh.index("cols")
 
     def fact(a_local: torch.Tensor) -> torch.Tensor:
@@ -256,10 +275,11 @@ def run_hpl(mesh=None, comm=CommunicationType.ICI_DIRECT, *, n: int = 512,
     """HPL on the ``pg x pg`` torus ``mesh`` (axes 'rows', 'cols'; None is
     the single-rank 1x1 grid), on ``device`` (default: the card).
 
-    ``lookahead`` is a depth (False/True/int). ``"auto"`` needs the cost
-    model and raises until it is ported (ROADMAP A8). ``details`` carries the
-    reference's keys plus ``device`` and ``launches``: the kernel launches
-    of one factorization (0 for a kernel that ran as its plain version)."""
+    ``lookahead`` is a depth (False/True/int), or ``"auto"`` for the depth
+    the cost model chooses (:func:`resolve_lookahead`); ``details`` reports
+    the depth that ran. ``details`` carries the reference's keys plus
+    ``device`` and ``launches``: the kernel launches of one factorization
+    (0 for a kernel that ran as its plain version)."""
     device = resolve_device(device)
     mesh = mesh or single_rank_mesh()
     pg = mesh.shape["rows"]
@@ -268,13 +288,10 @@ def run_hpl(mesh=None, comm=CommunicationType.ICI_DIRECT, *, n: int = 512,
     nb = n // b
     if n % b or nb % pg:
         raise ValueError(f"n={n}, b={b} do not tile a {pg}x{pg} grid")
-    if lookahead == "auto":
-        raise ValueError("lookahead='auto' resolves the depth from the cost "
-                         "model, which is not ported yet (ROADMAP A8); pass "
-                         "an integer depth")
     engine = CollectiveEngine.for_mesh(mesh, comm, schedule)
     m = (nb // pg) * b
-    depth = min(lookahead_depth(lookahead), nb)
+    depth = min(lookahead_depth(resolve_lookahead(lookahead, engine, b=b,
+                                                  m=m)), nb)
 
     a, x_true, b_vec = generate_system(n)
     a_loc = from_reference(distribute_cyclic(a, pg, b), device)

@@ -4,8 +4,8 @@ Port of ``repro/core/models.py``: b_eff (Eqs. 1-4), PTRANS (Eqs. 5-6), the
 HPL work count and the paper's Fig. 15 strong-scaling extrapolation. The
 models that take a :class:`HardwareModel` take it with no default: the
 reference defaults to its TPU constants, which the port does not carry.
-Callers pass ``BITTWARE_520N`` (the paper's own card) until the port has an
-H100 model filled from its own measurements (ROADMAP A8).
+Callers pass ``H100_80GB`` (the port's card, from its own measurements) or
+``BITTWARE_520N`` (the paper's own card).
 """
 from __future__ import annotations
 

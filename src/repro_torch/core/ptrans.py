@@ -15,8 +15,8 @@ compute is one full-matrix ``transpose_add``: tile (lj, li)^T lands at
 strip of B in place (a strided view, no copy). The result equals the
 monolithic exchange bit for bit for every S: chunk boundaries only
 partition the payload and the transpose-add is elementwise.
-``nchunks="auto"`` resolves to 1 until the cost model is ported (ROADMAP
-A8).
+``nchunks="auto"`` resolves through the cost model's pipeline fill cost
+(:meth:`~repro_torch.comm.engine.CollectiveEngine.pipeline_chunks`).
 
 The layout helpers here (:func:`distribute_cyclic`,
 :func:`from_reference`, :func:`to_reference`) are shared with HPL.
@@ -157,7 +157,7 @@ def run_ptrans(mesh=None, comm=CommunicationType.ICI_DIRECT, *, n: int = 1024,
     is the single-rank 1x1 grid), on ``device`` (default: the card).
 
     ``nchunks`` pipelines the exchange into that many row strips (1 =
-    monolithic); ``"auto"`` resolves to 1 until the cost model is ported.
+    monolithic); ``"auto"`` takes the cost model's chunk count.
     Bit-identical output for every value. ``details`` carries the
     reference's keys plus ``device`` and ``launches``: the kernel launches
     of one step (0 for a kernel that ran as its plain version)."""

@@ -29,9 +29,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro.comm import autotune as jautotune
 from repro.comm import compression as jcompression
 from repro.comm import engine as jengine
 from repro.comm import overlap as joverlap
+from repro.comm import topology as jtopology
 from repro.kernels import ring as jring
 from repro_torch.benchmarks import overlap_bench
 from repro_torch.comm import collectives, compression, engine, overlap
@@ -242,9 +244,11 @@ def test_single_rank_compat_and_shims():
 
 
 def test_engine_refuses_unknown_axes():
+    """On a 1-rank ring the bucket is the reference's derived one (its
+    floor, 256 KiB); unknown axes still raise KeyError."""
     eng = CollectiveEngine.for_mesh(single_rank_mesh(("x",)))
-    assert eng.bucket_bytes_for("x") == overlap.DEFAULT_BUCKET_BYTES \
-        == joverlap.DEFAULT_BUCKET_BYTES
+    assert eng.bucket_bytes_for("x") == jautotune.derive_bucket_bytes(
+        (jtopology.AxisTopology("x", 1, "ring"),)) == 262144
     for call in (lambda: eng.allreduce(torch.zeros(3), "bogus"),
                  lambda: eng.allreduce_tree({"a": torch.zeros(3)}, "bogus"),
                  lambda: eng.bucket_bytes_for("bogus")):

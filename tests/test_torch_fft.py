@@ -10,12 +10,18 @@ own claim with torch in place of XLA.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.comm import autotune as jautotune
+from repro.comm import topology as jtopology
+from repro.comm import types as jtypes
 from repro_torch.comm.engine import CollectiveEngine
+from repro_torch.comm.types import H100_80GB
 from repro_torch.core import fft as FFT
 from repro_torch.launch.mesh import single_rank_mesh, spawn_mesh
 
@@ -49,6 +55,16 @@ def _block_reference(x: np.ndarray, index: int) -> np.ndarray:
     return np.concatenate(blocks)[:, index * ns:(index + 1) * ns]
 
 
+def _reference_choice(nbytes: int, callsite: str) -> str:
+    """What the reference's cost model resolves ``all_to_all_tiles`` to on
+    a 1-rank ring, priced on the port's hardware constants."""
+    model = jautotune.CostModel(
+        hw=jtypes.HardwareModel(**dataclasses.asdict(H100_80GB)))
+    return model.choose("all_to_all_tiles", nbytes,
+                        (jtopology.AxisTopology("x", 1, "ring"),),
+                        callsite=callsite)
+
+
 # ---------------------------------------------------------------------------
 # one rank, in process
 # ---------------------------------------------------------------------------
@@ -73,7 +89,10 @@ def test_run_single_rank_cpu(entry):
     assert res.details["batch"] == 4 and res.details["device"] == "cpu"
     assert res.metric > 0
     if entry == "fft_dist":
-        assert res.details["schedule"] == "native"
+        # the cost model's pick on a 1-rank ring, as the reference's model
+        # makes it on the same constants
+        assert res.details["schedule"] == _reference_choice(
+            4 * 256 * 8, "fft.transpose") == "chain"
         assert res.details["exchange_bytes"] == 4 * 256 * 8
 
 

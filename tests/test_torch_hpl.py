@@ -14,6 +14,7 @@ imports ``jax`` or ``repro``.
 from __future__ import annotations
 
 import ast
+import dataclasses
 import json
 from pathlib import Path
 
@@ -22,11 +23,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro.comm import autotune as jautotune
+from repro.comm import topology as jtopology
+from repro.comm import types as jtypes
 from repro.compat import make_mesh
 from repro.core import hpl as jhpl
 from repro.core import models as jmodels
 from repro.core import ptrans as jptrans
 from repro.core.hpl_blocked import lu_blocked as jax_lu_blocked
+from repro_torch.comm.types import H100_80GB
 from repro_torch.core import hpl, models, ptrans
 from repro_torch.core.hpl_blocked import lu_blocked, run_hpl_single
 from repro_torch.kernels import ops
@@ -223,8 +228,23 @@ def test_entry_points_without_card_raise(monkeypatch):
 
 
 def test_run_hpl_rejects_auto_lookahead_and_bad_tiling():
-    with pytest.raises(ValueError, match="ROADMAP A8"):
-        hpl.run_hpl(n=64, b=32, device="cpu", lookahead="auto")
+    """``lookahead="auto"`` runs at the depth the reference's
+    ``choose_hpl_depth`` gives on the port's hardware constants, equal bit
+    for bit to that integer depth; a bad tiling still raises."""
+    n, b = 128, 32
+    res = hpl.run_hpl(n=n, b=b, reps=1, device="cpu", lookahead="auto")
+    jaxes = (jtopology.AxisTopology("rows", 1, "torus_row"),
+             jtopology.AxisTopology("cols", 1, "torus_col"))
+    want = jautotune.choose_hpl_depth(
+        b=b, m=n, axes=jaxes, model=jautotune.CostModel(
+            hw=jtypes.HardwareModel(**dataclasses.asdict(H100_80GB))))
+    assert res.details["lookahead_depth"] == want == 1
+    assert res.details["lookahead"] and res.error < 1.0
+    a = torch.from_numpy(hpl.generate_system(n)[0])
+    mesh = single_rank_mesh()
+    auto = hpl.make_factorize(mesh, pg=1, nb=n // b, b=b, lookahead="auto")
+    fixed = hpl.make_factorize(mesh, pg=1, nb=n // b, b=b, lookahead=want)
+    assert auto(a).numpy().tobytes() == fixed(a).numpy().tobytes()
     with pytest.raises(ValueError):
         hpl.run_hpl(n=100, b=32, device="cpu")
 

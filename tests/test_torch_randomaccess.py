@@ -15,16 +15,22 @@ import os
 import subprocess
 import sys
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.comm import autotune as jautotune
+from repro.comm import topology as jtopology
+from repro.comm import types as jtypes
 from repro.comm.engine import CollectiveEngine as JEngine
 from repro.compat import make_mesh
 from repro.core import randomaccess as JRA
-from repro_torch.benchmarks import gups_fft_bench, legacy_suite
+from repro_torch.benchmarks import common, gups_fft_bench, legacy_suite
 from repro_torch.comm.engine import CollectiveEngine
+from repro_torch.comm.types import H100_80GB
 from repro_torch.core import randomaccess as RA
 from repro_torch.launch.mesh import single_rank_mesh, spawn_mesh
 
@@ -55,6 +61,16 @@ def _i32(a) -> torch.Tensor:
 def _bits(a) -> bytes:
     a = np.ascontiguousarray(np.asarray(a))
     return a.dtype.str.encode() + repr(a.shape).encode() + a.tobytes()
+
+
+def _reference_choice(nbytes: int, callsite: str) -> str:
+    """What the reference's cost model resolves ``all_to_all_tiles`` to on
+    a 1-rank ring, priced on the port's hardware constants."""
+    model = jautotune.CostModel(
+        hw=jtypes.HardwareModel(**dataclasses.asdict(H100_80GB)))
+    return model.choose("all_to_all_tiles", nbytes,
+                        (jtopology.AxisTopology("x", 1, "ring"),),
+                        callsite=callsite)
 
 
 # ---------------------------------------------------------------------------
@@ -151,7 +167,10 @@ def test_run_single_rank_cpu(entry):
               {"generate", "bucket", "exchange", "scatter"})
     assert set(res.details["phase_seconds"]) == phases
     if entry == "randomaccess_dist":
-        assert res.details["schedule"] == "native"
+        # the cost model's pick on a 1-rank ring, as the reference's model
+        # makes it on the same constants
+        assert res.details["schedule"] == _reference_choice(
+            1 * 256 * 2 * 4, "ra.updates") == "chain"
         assert res.details["exchange_bytes"] == 1 * 256 * 2 * 4
 
 
@@ -172,12 +191,15 @@ def test_entry_points_without_card_raise(monkeypatch):
 # ---------------------------------------------------------------------------
 
 
-def test_gups_fft_bench_quick_cpu():
+def test_gups_fft_bench_quick_cpu(monkeypatch, tmp_path):
+    monkeypatch.setattr(common, "RESULTS", tmp_path)
     rec = gups_fft_bench.main(quick=True, device="cpu")
     assert rec["randomaccess_routed"]["err"] == 0.0
     assert rec["randomaccess_local"]["err"] == 0.0
     assert rec["fft_dist"]["err"] < 1e-5
-    assert rec["randomaccess_routed"]["schedule"] == "native"
+    routed = rec["randomaccess_routed"]
+    assert routed["schedule"] == _reference_choice(
+        routed["exchange_bytes"], "ra.updates") == "chain"
     assert gups_fft_bench.gate(rec) == []
 
 
