@@ -130,9 +130,11 @@ Phases, one JSON line each:
                link constants on four gloo processes
                (``hw_model.link_constants``) beside the model's; and the
                quick measured ``autotune_mesh`` on a ring (and a 2x2 torus)
-               of four processes with the ``--autotune`` gate, which saves
-               ``results/tuning_torch.json`` and refreshes the default
-               model, so the phase runs last. Prints the H100 model, the
+               of four processes with the ``--autotune`` gate, which fails
+               unless every registered exact schedule was timed at both
+               sizes; its table goes to a temporary directory, so the
+               checkout's ``results/tuning_torch.json`` and the default
+               model stay as they were. Prints the H100 model, the
                table's bands, the depth, the bucket and its seconds.
 
 Each main-path phase zeroes the launch counts just before it runs and reads
@@ -1963,9 +1965,11 @@ def phase_autotune(torch, rows):
     at the main size, bit for bit the integer depth the model chose (and
     eager); the one-card section of hpl_scaling; the loopback's link
     constants on four gloo processes; the quick measured autotune and the
-    --autotune gate on a ring of four, which saves results/tuning_torch.json
-    and refreshes the process's default model (so this phase runs last)."""
+    --autotune gate on a ring of four. Its two-size table goes to a
+    temporary directory, so the checkout's results/tuning_torch.json and
+    the process's default model stay as they were."""
     import dataclasses
+    import tempfile
 
     from repro_torch.benchmarks import hpl_scaling, hw_model
     from repro_torch.benchmarks import run as bench_run
@@ -2024,16 +2028,22 @@ def phase_autotune(torch, rows):
     links_s = time.perf_counter() - t1
 
     t1 = time.perf_counter()
-    gate = bench_run.autotune_gate(True, device="cuda",
-                                   timeout=AUTOTUNE_TIMEOUT)
+    default = autotune.default_cost_model()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "tuning_torch.json"
+        gate = bench_run.autotune_gate(True, device="cuda", path=path,
+                                       timeout=AUTOTUNE_TIMEOUT)
+        check(gate["path"] == str(path)
+              and autotune.TuningTable.load(path).to_json() == gate["table"],
+              f"the gate's table was not saved to {path}")
     table = gate["table"]
     check(table["meta"]["device"] == "cuda"
           and table["meta"]["backend"] == "gloo",
           f"tuning table measured on {table['meta']}")
     check(set(table["entries"]) == set(autotune.MEASURED_OPS),
           f"tuning table holds {sorted(table['entries'])}")
-    check(autotune.default_cost_model().table is not None,
-          "the refreshed default model did not take the card's table")
+    check(autotune.default_cost_model() is default,
+          "the smoke's table replaced the process's default model")
     gate_s = time.perf_counter() - t1
 
     ring = (AxisTopology("x", ALLREDUCE_RANKS, "ring"),)

@@ -84,9 +84,10 @@ def autotune_gate(quick: bool, *, device=None, path=None,
     ``timeout`` seconds), save the tuning table (``path``, default
     ``results/tuning_torch.json``), load it back into a cost model (the
     refreshed process default when ``path`` is the default), and raise
-    SystemExit(1) unless every ``auto`` resolution on the measured ring and
-    every table band names a registered schedule. Returns the table's JSON,
-    the resolutions and the path."""
+    SystemExit(1) unless every exact registered schedule of every measured
+    op was timed at every size, and every ``auto`` resolution on the
+    measured ring and every table band names a registered schedule.
+    Returns the table's JSON, the resolutions and the path."""
     from repro_torch.benchmarks.common import save_result
     from repro_torch.comm import autotune
     from repro_torch.comm.engine import OPS, schedules_for
@@ -129,10 +130,15 @@ def autotune_gate(quick: bool, *, device=None, path=None,
             for _, name in rows:
                 if name not in schedules_for(base_op):
                     bad.append((op, sig, "table", name))
+    missing = autotune.untimed(record, table.meta["sizes"])
+    for line in missing:
+        print(f"  UNTIMED {line}")
     if bad:
         print("UNREGISTERED auto resolutions:", bad)
+    if bad or missing:
         raise SystemExit(1)
-    print("[autotune ok: every auto resolution is a registered schedule]")
+    print("[autotune ok: every registered schedule timed, every auto "
+          "resolution a registered schedule]")
     return {"table": table.to_json(), "resolved": resolved,
             "path": str(path)}
 

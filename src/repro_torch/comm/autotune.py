@@ -465,19 +465,6 @@ class TuningTable:
         return cls(hw=data.get("hw", H100_80GB.name), entries=entries,
                    meta=data.get("meta", {}))
 
-    def merge(self, other: "TuningTable") -> "TuningTable":
-        """A new table with ``other``'s bands overlaid on this one's —
-        ``other`` wins wherever both cover an ``(op, signature)`` pair."""
-        out = TuningTable(
-            hw=other.hw or self.hw,
-            entries={op: {sig: list(rows) for sig, rows in sigs.items()}
-                     for op, sigs in self.entries.items()},
-            meta={**self.meta, **other.meta})
-        for op, sigs in other.entries.items():
-            for sig, rows in sigs.items():
-                out.set(op, sig, rows)
-        return out
-
     def save(self, path=None) -> Path:
         path = Path(path or DEFAULT_TABLE_PATH)
         path.parent.mkdir(parents=True, exist_ok=True)
@@ -801,18 +788,6 @@ def measure_world(mesh, jobs, reps: int, device) -> Dict:
     return out
 
 
-# callsite patterns that time *both* directions of a paired exchange: the
-# measured winner applies to every tag of the pair. The patterns are the
-# reference's; the port measures none of them until the modules that issue
-# them are ported (ROADMAP A11-A13), so their winners land nowhere yet.
-PAIRED_ALIASES: Dict[str, Tuple[str, ...]] = {
-    "all_to_all_tiles@moe.dispatch": ("all_to_all_tiles@moe.combine",),
-    "all_to_all_tiles@tp.qkv": ("all_to_all_tiles@tp.out",),
-    "all_to_all_tiles@sp.qkv": ("all_to_all_tiles@sp.out",),
-    "all_to_all_tiles@decode.qkv": ("all_to_all_tiles@decode.out",
-                                    "all_to_all_tiles@decode.moe"),
-}
-
 # callsite patterns measured on the square torus (HPL's row/column
 # broadcasts); everything else runs on the all-rank ring
 _TORUS_OPS = ("grid_transpose", "bcast@hpl.panel")
@@ -822,6 +797,35 @@ MEASURED_OPS = ("bcast", "allreduce", "all_to_all_tiles", "ring_exchange",
                 "grid_transpose", "bcast@hpl.panel",
                 "all_to_all_tiles@ra.updates",
                 "all_to_all_tiles@fft.transpose")
+
+
+def exact_schedules(op: str) -> List[str]:
+    """The registered schedules of ``op`` (or of the op an ``op@callsite``
+    pattern issues) that the measured mode times: all but the lossy ones."""
+    from repro_torch.comm.engine import schedules_for
+
+    return [s for s in schedules_for(op.split("@", 1)[0])
+            if s not in LOSSY_SCHEDULES]
+
+
+def untimed(record: Dict, sizes: Sequence[int],
+            ops: Sequence[str] = MEASURED_OPS) -> List[str]:
+    """Each ``op/schedule@size`` of ``ops`` x ``sizes`` x
+    :func:`exact_schedules` that :func:`autotune_mesh`'s ``record`` holds
+    no time for, with the error it raised where it raised one."""
+    by_job = {}
+    for key, rec in record.items():
+        op, _, size = key.split("/")
+        by_job[op, int(size)] = rec
+    out = []
+    for op in ops:
+        for size in sizes:
+            rec = by_job.get((op, int(size)), {})
+            for name in exact_schedules(op):
+                if name not in rec.get("times_s", {}):
+                    why = rec.get("failed", {}).get(name, "not measured")
+                    out.append(f"{op}/{name}@{size}B: {why}")
+    return out
 
 
 def autotune_mesh(*, ops: Sequence[str] = MEASURED_OPS,
@@ -845,11 +849,11 @@ def autotune_mesh(*, ops: Sequence[str] = MEASURED_OPS,
     transform / inverse-scatter sandwich. Payloads live on ``device`` (the
     card unless ``"cpu"`` is given); gloo stages a card's payloads through
     host memory. A time is the slowest rank's, best of ``reps``. Returns
-    ``(table, record)``, ``record`` holding the per-(op, schedule, size)
-    times."""
+    ``(table, record)``: ``record`` holds, per (op, size), the winner, each
+    schedule's time and the error of each schedule that raised, which
+    :func:`untimed` lists."""
     import torch
 
-    from repro_torch.comm.engine import schedules_for
     from repro_torch.comm.topology import AxisTopology as Ax
     from repro_torch.core.hpcc import resolve_device
     from repro_torch.launch.mesh import spawn_mesh
@@ -865,15 +869,12 @@ def autotune_mesh(*, ops: Sequence[str] = MEASURED_OPS,
                         (Ax("rows", pg, "torus_row"),
                          Ax("cols", pg, "torus_col")))}
 
-    def names_for(op):
-        return [s for s in schedules_for(op.split("@", 1)[0])
-                if s not in LOSSY_SCHEDULES]
-
     times: Dict = {}
+    failed: Dict = {}
     for world, (nprocs, axes, _) in worlds.items():
         jobs = [(op, S, name) for op in ops
                 if (op in _TORUS_OPS) == (world == "torus")
-                for S in sizes for name in names_for(op)]
+                for S in sizes for name in exact_schedules(op)]
         if not jobs:
             continue
         per_rank = spawn_mesh(nprocs, measure_world, jobs, reps, device,
@@ -884,6 +885,7 @@ def autotune_mesh(*, ops: Sequence[str] = MEASURED_OPS,
                 if verbose:
                     print(f"  [autotune] {job[0]}/{job[2]}@{job[1]}B "
                           f"failed: {got[0]}")
+                failed[job] = got[0]
                 continue
             times[job] = min(max(rep) for rep in zip(*got))
 
@@ -902,14 +904,17 @@ def autotune_mesh(*, ops: Sequence[str] = MEASURED_OPS,
             sigs = [axis_signature(topo_axes)]
         winners, measured_sizes = [], []
         for S in sizes:
-            got = {n: times[op, S, n] for n in names_for(op)
-                   if (op, S, n) in times}
-            if not got:
+            names = exact_schedules(op)
+            got = {n: times[op, S, n] for n in names if (op, S, n) in times}
+            best = min(sorted(got), key=got.get) if got else None
+            record[f"{op}/{sigs[0]}/{S}"] = {
+                "winner": best, "times_s": got,
+                "failed": {n: failed[op, S, n] for n in names
+                           if (op, S, n) in failed}}
+            if best is None:
                 continue  # winners stay aligned with measured_sizes
-            best = min(sorted(got), key=got.get)
             winners.append(best)
             measured_sizes.append(S)
-            record[f"{op}/{sigs[0]}/{S}"] = {"winner": best, "times_s": got}
             if verbose:
                 ladder = " ".join(f"{n}={got[n] * 1e3:.2f}ms"
                                   for n in sorted(got))
@@ -917,7 +922,6 @@ def autotune_mesh(*, ops: Sequence[str] = MEASURED_OPS,
                       f"({ladder})")
         if winners:
             bounds = _winner_bounds(measured_sizes, winners)
-            for key in (op,) + PAIRED_ALIASES.get(op, ()):
-                for s in sigs:
-                    table.set(key, s, bounds)
+            for s in sigs:
+                table.set(op, s, bounds)
     return table, record

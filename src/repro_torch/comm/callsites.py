@@ -39,9 +39,9 @@ class Callsite:
     ``module``  the dotted module that owns the call (imports the constant).
     ``const``   the constant's symbol name in this module.
     ``tuned``   the ``op@callsite`` autotune pattern key whose measured
-                winner covers this tag (directly or via
-                ``autotune.PAIRED_ALIASES``); ``None`` means lookups fall
-                back to the untagged op entry.
+                winner covers this tag (a paired tag names its pair's
+                key); ``None`` means lookups fall back to the untagged op
+                entry.
     """
     op: str
     module: str

@@ -64,14 +64,14 @@ BITTWARE_520N = HardwareModel(
 # ride the same transport.
 H100_80GB = HardwareModel(
     name="h100_80gb",
-    peak_flops=34.46e12,       # fp32, HPL's trailing update (gemm_update)
+    peak_flops=34.49e12,       # fp32, HPL's trailing update (gemm_update)
     hbm_bw=3.033e12,           # STREAM copy, 2^28 fp32
-    ici_link_bw=2.557e9,       # loopback: 8 B / 64 MiB ping-pong, beta
+    ici_link_bw=1.722e9,       # loopback: 8 B / 64 MiB ping-pong, beta
     ici_links=1,               # one loopback path per process
-    ici_latency=180.2e-6,      # loopback: one-way time of 8 B
-    pcie_bw=52.9e9,            # pinned 256 MiB, slower of H2D and D2H
-    dcn_bw=2.557e9,            # the same loopback
-    mpi_latency=180.2e-6,      # the same loopback
+    ici_latency=259.1e-6,      # loopback: one-way time of 8 B
+    pcie_bw=49.31e9,           # pinned 256 MiB, slower of H2D and D2H
+    dcn_bw=1.722e9,            # the same loopback
+    mpi_latency=259.1e-6,      # the same loopback
     vmem_bytes=233472,         # shared memory of one SM
     hbm_bytes=85017493504,     # torch.cuda.get_device_properties
 )

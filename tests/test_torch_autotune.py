@@ -129,7 +129,6 @@ def test_pipelined_alpha_beta_time_equals_reference(hw, staged):
 
 def test_model_tables_equal_reference():
     assert autotune._SEGS.keys() == jautotune._SEGS.keys()
-    assert autotune.PAIRED_ALIASES == jautotune.PAIRED_ALIASES
     for name in ("NATIVE_SYNC_HOPS", "INT8_WIRE_RATIO", "LOSSY_SCHEDULES",
                  "MAX_PIPELINE_CHUNKS", "MAX_LOOKAHEAD_DEPTH",
                  "PIPELINE_DEPTH", "MIN_BUCKET_BYTES", "MAX_BUCKET_BYTES"):
@@ -304,8 +303,6 @@ def test_tuning_table_json_round_trip(direction, tmp_path):
                        ("ring[4]", 1 << 20, "fft.transpose")):
         for op in ("bcast", "all_to_all_tiles"):
             assert back.lookup(op, sig, S, cs) == t.lookup(op, sig, S, cs)
-    merged = t.merge(_table(src))
-    assert merged.entries == t.entries
     assert dst.TuningTable.load(tmp_path / "missing.json") is None
 
 
@@ -539,21 +536,91 @@ def test_autotune_mesh_and_gate_on_gloo_ring(monkeypatch, tmp_path):
     for rec in raw.values():
         assert rec["winner"] == min(rec["times_s"], key=rec["times_s"].get)
         assert all(t > 0 for t in rec["times_s"].values())
+        assert rec["failed"] == {}
+    assert autotune.untimed(raw, table.meta["sizes"]) == []
     for key, name in out["resolved"].items():
         assert name in engine.schedules_for(key.split("/")[0])
 
 
+def _full_record(sizes):
+    """A record of the measured mode in which every exact registered
+    schedule of every measured op was timed at every size."""
+    record = {}
+    for op in autotune.MEASURED_OPS:
+        names = autotune.exact_schedules(op)
+        for S in sizes:
+            record[f"{op}/sig/{S}"] = {
+                "winner": names[0], "failed": {},
+                "times_s": {n: 1e-3 * (i + 1) for i, n in enumerate(names)}}
+    return record
+
+
+def _gate_with(monkeypatch, tmp_path, table, record):
+    monkeypatch.setattr(common, "RESULTS", tmp_path / "bench")
+    monkeypatch.setattr(autotune, "autotune_mesh",
+                        lambda **kw: (table, record))
+    return bench_run.autotune_gate(True, device="cpu",
+                                   path=tmp_path / "t.json")
+
+
+def _good_table(sizes):
+    t = autotune.TuningTable(meta={"backend": "gloo", "device": "cpu",
+                                   "sizes": list(sizes)})
+    t.set("bcast", "ring[4]", [(None, "native")])
+    return t
+
+
 def test_autotune_gate_refuses_an_unregistered_band(monkeypatch, tmp_path):
     """The gate fails when a measured band names a schedule the registry
-    does not hold."""
-    monkeypatch.setattr(common, "RESULTS", tmp_path / "bench")
-    bad = autotune.TuningTable(meta={"backend": "gloo", "device": "cpu"})
+    does not hold, though every schedule was timed."""
+    sizes = [1 << 10, 1 << 16]
+    _gate_with(monkeypatch, tmp_path, _good_table(sizes),
+               _full_record(sizes))
+    bad = _good_table(sizes)
     bad.set("bcast", "ring[4]", [(None, "gone")])
-    monkeypatch.setattr(autotune, "autotune_mesh",
-                        lambda **kw: (bad, {}))
     with pytest.raises(SystemExit):
-        bench_run.autotune_gate(True, device="cpu",
-                                path=tmp_path / "t.json")
+        _gate_with(monkeypatch, tmp_path, bad, _full_record(sizes))
+
+
+@pytest.mark.parametrize("fault", ["raised", "size_missing"])
+def test_autotune_gate_refuses_an_untimed_schedule(fault, monkeypatch,
+                                                   tmp_path, capsys):
+    """The gate fails when a registered schedule raised, or a size went
+    unmeasured, though every band it did get names a registered one."""
+    sizes = [1 << 10, 1 << 16]
+    record = _full_record(sizes)
+    key = f"allreduce/sig/{1 << 16}"
+    if fault == "raised":
+        del record[key]["times_s"]["rs_ag"]
+        record[key]["failed"]["rs_ag"] = "RuntimeError: boom"
+    else:
+        del record[key]
+    with pytest.raises(SystemExit):
+        _gate_with(monkeypatch, tmp_path, _good_table(sizes), record)
+    want = ("RuntimeError: boom" if fault == "raised" else "not measured")
+    assert f"UNTIMED allreduce/rs_ag@65536B: {want}" in capsys.readouterr().out
+
+
+def test_autotune_mesh_records_a_failed_schedule(monkeypatch):
+    """A schedule that raises on every rank lands in the record with its
+    error, and out of the table's bands; the others still win."""
+    from repro_torch.launch import mesh as launch_mesh
+
+    def fake_spawn(nprocs, fn, jobs, reps, device, axes, timeout):
+        return [{job: ("RuntimeError: boom" if job == ("bcast", 1024, "chain")
+                       else [1e-3 * (1 + job[2].startswith("n"))] * reps)
+                 for job in jobs} for _ in range(nprocs)]
+
+    monkeypatch.setattr(launch_mesh, "spawn_mesh", fake_spawn)
+    table, record = autotune.autotune_mesh(ops=("bcast",), quick=True,
+                                           device="cpu", verbose=False)
+    small = record["bcast/ring[4]/1024"]
+    assert small["failed"] == {"chain": "RuntimeError: boom"}
+    assert "chain" not in small["times_s"] and small["winner"] != "native"
+    assert record["bcast/ring[4]/65536"]["failed"] == {}
+    assert autotune.untimed(record, [1024, 1 << 16], ops=("bcast",)) == \
+        ["bcast/chain@1024B: RuntimeError: boom"]
+    assert table.entries["bcast"]["ring[4]"][-1][0] is None
 
 
 def test_run_rejects_unknown_module_and_schedule():
