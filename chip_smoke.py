@@ -136,6 +136,24 @@ Phases, one JSON line each:
                checkout's ``results/tuning_torch.json`` and the default
                model stay as they were. Prints the H100 model, the
                table's bands, the depth, the bucket and its seconds.
+16. faults  — the fault layer (``comm/faults.py``, ``comm/retune.py``)
+               on four processes sharing the card over gloo, payloads on
+               the card, 1 MiB per rank: the link-down section of
+               ``failover_bench`` (hop 3 of the ring hard-down; bcast and
+               allreduce resolve ring2d -> staged -> ring2d on the H100
+               model, routes that avoid the cut, outputs bit-identical
+               across the phases and equal to x[0] and x.sum(0), every
+               rank alike; the float allreduce launches ``ring_add_step``
+               3 times per rank on ring2d and never on staged) and the
+               train-retune section of ``resilience_bench`` (hpl.panel
+               flips ring2d -> staged at step 8 and back at step 20, detect
+               delays in [0, 6], identical traces on every rank, the bcast
+               bit-identical), both gates asserted; then the measured
+               retune's quick ladder (``bcast@hpl.panel`` at 1 MiB, clean
+               and under an injector) from this process, which launches no
+               kernel in the phase. Prints the resolutions, routes, reroute
+               latency, retune events and the phase's seconds, all the
+               host's loopback, not a link rate.
 
 Each main-path phase zeroes the launch counts just before it runs and reads
 them just after (the allreduce phase in each rank's process, around each
@@ -187,6 +205,10 @@ A2A_TABLE_LOG, A2A_RNGS, A2A_FFT_BATCH = 22, 1 << 10, 1024
 # the cost model's path: the link probe and the quick autotune on gloo
 # worlds of four processes sharing the card, each world bounded
 AUTOTUNE_TIMEOUT = 300.0
+# the fault layer's path: one gloo world of four processes sharing the card
+# for the link-down and train-retune sections (the measured retune's two
+# torus worlds are bounded by resilience_bench.TIMEOUT)
+FAULTS_TIMEOUT = 300.0
 # fp32 prefill, flash vs plain attention: both are fp32 throughout and
 # differ only in the order of the attention's sums (a few ulps per layer),
 # on logits of rms about 1; one bf16 rounding anywhere moves them by ~1e-2
@@ -2072,6 +2094,87 @@ def phase_autotune(torch, rows):
     return counts
 
 
+def faults_rank(mesh):
+    """Runs on every rank of the faults phase: the link-down section at
+    ``failover_bench.DOWN_HOP`` and the train-retune loop, payloads on the
+    card."""
+    from repro_torch.benchmarks import failover_bench, resilience_bench
+
+    return (failover_bench.link_down_rank(
+                mesh, (failover_bench.DOWN_HOP,), "cuda"),
+            resilience_bench.train_retune_rank(mesh, "cuda"))
+
+
+def phase_faults(torch):
+    """The fault layer on four processes sharing the card: a severed ring
+    hop rerouted and repaired, and the in-run retune under a degraded
+    link, both gated, with ``ring_add_step`` launched only on the ring
+    route; then the measured retune's quick ladder from this process."""
+    from repro_torch.benchmarks import failover_bench as fb
+    from repro_torch.benchmarks import resilience_bench as rb
+    from repro_torch.comm.engine import schedules_for
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import spawn_mesh
+
+    n = fb.RANKS
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = spawn_mesh(n, faults_rank, axes=("x",), timeout=FAULTS_TIMEOUT)
+    ranks_s = time.perf_counter() - t0
+    ld = fb.link_down_record([r[0] for r in results], fb.DOWN_HOP)
+    tr = rb.train_retune_record([r[1] for r in results])
+    check(ld["device"].startswith("cuda") and tr["device"].startswith("cuda"),
+          f"faults ran on {ld['device']} and {tr['device']}")
+    bad = fb.gate_link_down(ld)
+    check(not bad, f"link-down gate: {bad}")
+    bad = rb.gate_train_retune(tr)
+    check(not bad, f"train-retune gate: {bad}")
+    # the float allreduce's ring_add_step launches per rank: n - 1 per call
+    # on the ring route, none on staged
+    want = {ph: n - 1 if ld[f"resolved_{ph}"]["allreduce"] in ("ring2d",
+                                                                "rs_ag")
+            else 0 for ph in fb.PHASES}
+    check(want == {"before": n - 1, "during": 0, "after": n - 1},
+          f"allreduce resolved {[ld[f'resolved_{ph}'] for ph in fb.PHASES]}"
+          ": not the ring route, then staged, then the ring route")
+    check(all(ld["ring_add_step_per_rank"][ph] == [want[ph]] * n
+              for ph in fb.PHASES),
+          f"ring_add_step per rank {ld['ring_add_step_per_rank']}, "
+          f"expected {want}")
+
+    t1 = time.perf_counter()
+    mr = rb.measured_retune_section(True, "cuda")
+    measured_s = time.perf_counter() - t1
+    for key in ("clean_winners", "degraded_winners"):
+        names = [name for rows in mr[key].values() for _, name in rows]
+        check(names and all(nm in schedules_for("bcast") for nm in names),
+              f"measured retune {key}: {mr[key]}")
+    check(all(v == 0 for v in ops.launch_counts().values()),
+          "the parent launched kernels during the faults phase")
+    emit({"phase": "faults", "ranks": n, "nbytes_per_rank": fb.NBYTES,
+          "transport": "gloo, staged through host memory; payloads on the "
+                       "card",
+          "link_down": {k: ld[k] for k in (
+              "down_hop", "resolved_before", "resolved_during",
+              "resolved_after", "route_during", "route_excludes_cut",
+              "ranks_agree", "bit_identical", "bcast_correct",
+              "allreduce_correct", "ring_add_step_per_rank",
+              "recovery_s")},
+          "train_retune": {k: tr[k] for k in (
+              "beta_scale", "fault_at", "heal_at", "steps", "by_phase",
+              "events", "flip_events", "detect_degrade_steps",
+              "detect_heal_steps", "ranks_agree", "bit_identical",
+              "retune_s")},
+          "measured_retune": mr,
+          "gates": "ok",
+          "seconds": {"ranks": ranks_s, "measured_retune": measured_s,
+                      "phase": time.perf_counter() - t0},
+          "what_the_time_measures": "the host's loopback (gloo on one "
+                                    "machine), not a link rate"})
+
+
 def main() -> int:
     import torch
 
@@ -2107,6 +2210,7 @@ def main() -> int:
     phase_fft(torch)
     phase_a2a(torch)
     phase_autotune(torch, rows)
+    phase_faults(torch)
 
     check(set(launches) == set(rows) == set(SOURCES),
           f"kernels {sorted(rows)} vs launches {sorted(launches)}")

@@ -18,7 +18,8 @@ in the same invocation; alone it only tunes.
 
 Module arguments accept short aliases: ``hpl`` -> hpl_scaling, ``ptrans``
 -> ptrans_scaling, ``beff`` -> beff_bandwidth, ``gups`` / ``fftd`` ->
-gups_fft_bench, ``overlap`` -> overlap_bench.
+gups_fft_bench, ``overlap`` -> overlap_bench, ``failover`` ->
+failover_bench, ``resilience`` -> resilience_bench.
 
   beff_bandwidth   Fig. 10/11 + Eqs. 1/2/4
   ptrans_scaling   Fig. 12 + Eqs. 5/6
@@ -28,6 +29,10 @@ gups_fft_bench, ``overlap`` -> overlap_bench.
   gups_fft_bench   distributed GUPS + pencil FFT (gated)
   overlap_bench    Figs. 5/7 analogue: bucketed gradient reduction on a
                    ring of processes
+  failover_bench   a severed ring hop rerouted and repaired on a ring of
+                   processes (gated)
+  resilience_bench drift detection and in-run retune under a degraded
+                   link on a ring of processes (gated)
 """
 from __future__ import annotations
 
@@ -38,15 +43,17 @@ import traceback
 from typing import Optional
 
 MODULES = ["beff_bandwidth", "ptrans_scaling", "hpl_matrix_sweep",
-           "hpl_scaling", "legacy_suite", "gups_fft_bench", "overlap_bench"]
+           "hpl_scaling", "legacy_suite", "gups_fft_bench", "overlap_bench",
+           "failover_bench", "resilience_bench"]
 
 ALIASES = {"hpl": "hpl_scaling", "ptrans": "ptrans_scaling",
            "beff": "beff_bandwidth", "gups": "gups_fft_bench",
-           "fftd": "gups_fft_bench", "overlap": "overlap_bench"}
+           "fftd": "gups_fft_bench", "overlap": "overlap_bench",
+           "failover": "failover_bench", "resilience": "resilience_bench"}
 
 # the drivers whose main() takes quick= and schedule=
 _SCHEDULED = ("beff_bandwidth", "ptrans_scaling", "hpl_scaling",
-              "gups_fft_bench")
+              "gups_fft_bench", "failover_bench", "resilience_bench")
 
 
 def _print_resolved(name: str, record) -> None:

@@ -56,10 +56,13 @@ transpose/ring2d      2(pg-1)                        (pg-1)(1+pg) S
 Lossy schedules (``int8_ef``) are priced but never *chosen* by ``auto``:
 compression changes numerics and must stay an explicit opt-in.
 
-The reference's measured mode also adds a fault injector's modeled delay
-to each timing (its ``_measure_op``); that hook comes with the fault layer
-(ROADMAP A9). Its MoE, tensor-, sequence-parallel and decode patterns
-come with the modules that issue them (ROADMAP A11-A13).
+While a fault injector is active (:mod:`repro_torch.comm.faults`), the
+measured mode adds its modeled delay to each job's time, as the
+reference's ``_measure_op`` does. The port adds it in the calling process
+once the ranks' times are gathered: the spawned ranks never see the
+caller's injector. The reference's MoE, tensor-, sequence-parallel and
+decode patterns come with the modules that make those calls (ROADMAP
+A11-A13).
 """
 from __future__ import annotations
 
@@ -465,6 +468,22 @@ class TuningTable:
         return cls(hw=data.get("hw", H100_80GB.name), entries=entries,
                    meta=data.get("meta", {}))
 
+    def merge(self, other: "TuningTable") -> "TuningTable":
+        """A new table with ``other``'s bands overlaid on this one's:
+        ``other`` wins wherever both cover an ``(op, signature)`` pair. The
+        in-run retune (:mod:`repro_torch.comm.retune`) merges its narrow
+        re-measurement over the engine's table this way, so cold callsites
+        keep their winners."""
+        out = TuningTable(
+            hw=other.hw or self.hw,
+            entries={op: {sig: list(rows) for sig, rows in sigs.items()}
+                     for op, sigs in self.entries.items()},
+            meta={**self.meta, **other.meta})
+        for op, sigs in other.entries.items():
+            for sig, rows in sigs.items():
+                out.set(op, sig, rows)
+        return out
+
     def save(self, path=None) -> Path:
         path = Path(path or DEFAULT_TABLE_PATH)
         path.parent.mkdir(parents=True, exist_ok=True)
@@ -828,6 +847,30 @@ def untimed(record: Dict, sizes: Sequence[int],
     return out
 
 
+def _add_fault_delays(times: Dict, ops: Sequence[str],
+                      sizes: Sequence[int], worlds: Dict) -> None:
+    """Add the active fault injector's modeled delay
+    (:func:`repro_torch.comm.faults.measured_extra_time`) to each timed job
+    in place: over the first axis of its world for an ``op@callsite``
+    pattern, over every axis otherwise. Runs in the process that called
+    :func:`autotune_mesh`, since the spawned ranks never see its injector.
+    The jobs are visited in the reference's order (op, then size, then
+    schedule), so a jittered injector draws for the same jobs as the
+    reference's ``_measure_op`` does."""
+    from repro_torch.comm import faults
+
+    if faults.active_injector() is None:
+        return
+    for op in ops:
+        topo_axes = worlds["torus" if op in _TORUS_OPS else "ring"][2]
+        axes = topo_axes[:1] if "@" in op else topo_axes
+        for S in sizes:
+            for name in exact_schedules(op):
+                if (op, S, name) in times:
+                    times[op, S, name] += faults.measured_extra_time(
+                        op.split("@", 1)[0], name, S, axes)
+
+
 def autotune_mesh(*, ops: Sequence[str] = MEASURED_OPS,
                   sizes: Optional[Sequence[int]] = None, reps: int = 3,
                   quick: bool = False, verbose: bool = True, device=None,
@@ -848,7 +891,8 @@ def autotune_mesh(*, ops: Sequence[str] = MEASURED_OPS,
     ``"all_to_all_tiles@fft.transpose"`` the pencil-FFT gather / local
     transform / inverse-scatter sandwich. Payloads live on ``device`` (the
     card unless ``"cpu"`` is given); gloo stages a card's payloads through
-    host memory. A time is the slowest rank's, best of ``reps``. Returns
+    host memory. A time is the slowest rank's, best of ``reps``, plus the
+    active fault injector's modeled delay (:func:`_add_fault_delays`). Returns
     ``(table, record)``: ``record`` holds, per (op, size), the winner, each
     schedule's time and the error of each schedule that raised, which
     :func:`untimed` lists."""
@@ -888,6 +932,7 @@ def autotune_mesh(*, ops: Sequence[str] = MEASURED_OPS,
                 failed[job] = got[0]
                 continue
             times[job] = min(max(rep) for rep in zip(*got))
+    _add_fault_delays(times, ops, sizes, worlds)
 
     table = TuningTable(meta={"ranks": RANKS, "sizes": list(sizes),
                               "backend": "gloo", "device": device.type,
