@@ -49,7 +49,9 @@ Phases, one JSON line each:
                to pass the reference limit), or shifts the mask by one key
                in the late rows; the run shows that they do. Every bf16
                flash call must launch on the ``wgmma_bf16`` route, every
-               fp32 one on ``simt_f32``; flash's TFLOP/s and its share of
+               fp32 one on ``simt_f32``; the bf16 cases include the
+               prefill shapes of phases moe (q 64 heads on 4 kv heads) and
+               ssm (4 heads of 128); flash's TFLOP/s and its share of
                the bf16 tensor-core bound are printed;
 3. hpl       — ``run_hpl`` on the 1x1 grid at n = 16384, b = 64: residual
                < 1 (and whether it equals HPL_RESIDUAL), GFLOP/s, and each
@@ -154,6 +156,35 @@ Phases, one JSON line each:
                kernel in the phase. Prints the resolutions, routes, reroute
                latency, retune events and the phase's seconds, all the
                host's loopback, not a link rate.
+17. moe     — qwen3-moe-235b-a22b at full width, depth cut to 4 layers
+               (random weights from seed 0, drawn in fp32 and cast to bf16,
+               the fp32 draw freed): ``generate`` on the one-rank mesh as
+               in serve, 8 x 1024 prompts, 32 new greedy tokens; 4 flash
+               launches per prefill, all on ``wgmma_bf16`` (q 64 heads, k/v
+               4: a GQA group of 16), none in decode, output (8, 1056)
+               keeping the prompts, two runs bit-identical; prefill s,
+               prompt tokens/s, decode ms per step p50, generated tokens/s,
+               peak memory, and each layer's prefill ``moe_dropped``
+               (equal to a recount from the routing's per-row histogram)
+               beside its input's common share (rms of the token mean over
+               the rms); the
+               MoE layer alone at full width (D 4096, E 128, k 8, F 1536),
+               B = 1, S = 256, fp32, capacity C = S (nothing dropped),
+               against ``reference_moe`` within rtol 1e-4, atol 1e-5; then
+               four processes sharing the card on a gloo ring, one
+               full-width fp32 layer with 32 experts and one 256-token row
+               per rank: the expert-parallel layer for every
+               ``all_to_all_tiles`` schedule x nchunks 1, 2 equal to the
+               single-process ``apply_moe`` within the same limits, bit-
+               identical across schedules and chunk counts, staging exactly
+               2x/3x/5x the two exchanges' payload per rank (printed).
+18. ssm     — mamba2-130m at full size (24 layers, no attention: no
+               flash launch) and jamba cut to 4 layers at d_model 512 in
+               bf16 (SSM, attention, SSM, attention; MoE every 2nd layer;
+               head_dim 128; labelled reduced: one full-width jamba MoE
+               layer is 19.3 GB of bf16 experts), each served as in serve:
+               flash launches per prefill equal to the attention layers,
+               two runs bit-identical, and the same times.
 
 Each main-path phase zeroes the launch counts just before it runs and reads
 them just after (the allreduce phase in each rank's process, around each
@@ -209,6 +240,20 @@ AUTOTUNE_TIMEOUT = 300.0
 # for the link-down and train-retune sections (the measured retune's two
 # torus worlds are bounded by resilience_bench.TIMEOUT)
 FAULTS_TIMEOUT = 300.0
+# the MoE path: qwen3-moe at full width, depth cut to MOE_LAYERS (94 layers
+# are 470 GB of bf16 weights), served as SERVE_ARCH is; its layer alone at
+# B = 1, S = MOE_LAYER_S in fp32 with a capacity factor that drops nothing
+# (C = S), against the dense oracle; and the expert-parallel layer on
+# MOE_EP_RANKS processes sharing the card, one MOE_LAYER_S-token row each
+MOE_ARCH, MOE_LAYERS, MOE_LAYER_S = "qwen3-moe-235b-a22b", 4, 256
+MOE_EP_RANKS, MOE_EP_TIMEOUT, MOE_EP_CHUNKS = 4, 600.0, (1, 2)
+MOE_TOL = (1e-4, 1e-5)  # rtol, atol: tests/dist/test_moe.py
+# the SSM path: mamba2-130m at full size, and jamba cut to 4 layers at
+# d_model 512 (head_dim 128, which the flash kernel takes) in bf16: one of
+# jamba's MoE layers alone is 19.3 GB of bf16 experts
+SSM_ARCH, HYBRID_ARCH, HYBRID_LAYERS, HYBRID_D = ("mamba2-130m",
+                                                  "jamba-1.5-large-398b", 4,
+                                                  512)
 # fp32 prefill, flash vs plain attention: both are fp32 throughout and
 # differ only in the order of the attention's sums (a few ulps per layer),
 # on logits of rms about 1; one bf16 rounding anywhere moves them by ~1e-2
@@ -1034,8 +1079,10 @@ def kernels_flash(torch, randn, rows):
     with the wrong kv head; the tight one must also refuse the three
     faults of ``flash_faults``, which move only late rows. The same shape
     in fp32 on its own route, timed. Then fp32 and bf16 cases: MQA, head
-    dims 64 and 32, non-causal GQA, q_offsets and ragged lengths (Sq = Skv
-    = 1000 is no multiple of the bf16 kernel's 128-row tile). Every bf16
+    dims 64 and 32, non-causal GQA, q_offsets, ragged lengths (Sq = Skv
+    = 1000 is no multiple of the bf16 kernel's 128-row tile), and the
+    prefill shapes of phases moe (a GQA group of 16) and ssm (the reduced
+    jamba's 4 heads of 128). Every bf16
     call must run on the ``wgmma_bf16`` route and every fp32 call on
     ``simt_f32``."""
     import torch.nn.functional as F
@@ -1149,7 +1196,14 @@ def kernels_flash(torch, randn, rows):
         "1000x1000 hd128 bf16 causal": (2, 1000, 1000, 24, 8, 128, bf16, True,
                                         0),
         "GQA 4:1 hd64 bf16 non-causal": (1, 256, 256, 8, 2, 64, bf16, False,
-                                         0)}
+                                         0),
+        # the MoE and hybrid prefills: qwen3-moe's GQA group of 16 and the
+        # reduced jamba's 4 heads of 128 (phases moe and ssm)
+        "GQA 16:1 hd128 bf16 causal": (SERVE_B, SERVE_S, SERVE_S, 64, 4, 128,
+                                       bf16, True, 0),
+        "jamba reduced MHA 4 heads hd128 bf16 causal": (SERVE_B, SERVE_S,
+                                                        SERVE_S, 4, 4, 128,
+                                                        bf16, True, 0)}
     # the plain version keeps the reference's rule that its blocks divide
     # the lengths: 1000 is no multiple of its default 512, so one block
     plain_blocks = {"1000x1000 hd128 bf16 causal": dict(bq=1000, bk=1000)}
@@ -1485,6 +1539,112 @@ def phase_cpu(torch):
           "tol": {"rtol": 1e-4, "atol": 1e-3}})
 
 
+def serve_run(torch, model, params, prompts, new: int, mesh) -> dict:
+    """``generate`` twice (bit-identical, the second timed), then the same
+    work step by step: the prefill and each decode step timed apart.
+    ``generate`` takes ``params`` as given (it casts them to the compute
+    dtype); the timed steps take that cast, made before them. Checks the
+    output's shape, the prompts, the vocabulary, and that the flash kernel
+    ran once per attention layer in every prefill, all on the route of the
+    dtype, and never in decode, with no other kernel launched."""
+    from repro_torch.kernels import attention as kfa
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import cast_params, dtype_of
+    from repro_torch.train.serve import (generate, make_decode_step,
+                                         make_prefill_step)
+
+    cfg = model.cfg
+    B, S = prompts.shape
+    n_attn = sum(k == "attn" for k in cfg.layer_kinds())
+    route = "wgmma_bf16" if cfg.dtype == "bfloat16" else "simt_f32"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = generate(model, params, prompts, max_new_tokens=new, mesh=mesh)
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    routes = dict(kfa.flash_attention.launches_by_route)
+    peak = torch.cuda.max_memory_allocated()
+    want = dict.fromkeys(ops.KERNELS, 0)
+    want["flash_attention"] = n_attn
+    check(counts == want, f"{cfg.name}: generate launched {counts}, "
+                          f"expected one flash launch per attention layer "
+                          f"({n_attn}) and nothing else")
+    want_routes = dict.fromkeys(routes, 0)
+    want_routes[route] = n_attn
+    check(routes == want_routes, f"{cfg.name}: flash launches by route "
+                                 f"{routes}, expected {want_routes}")
+    check(tuple(out.shape) == (B, S + new),
+          f"{cfg.name}: output shape {tuple(out.shape)}")
+    check(torch.equal(out[:, :S], prompts),
+          f"{cfg.name}: generate changed the prompts")
+    # greedy tokens are the argmax over the padded vocabulary's logits, as
+    # in the reference (the LM head is the padded embedding)
+    check(bool(((out >= 0) & (out < cfg.padded_vocab())).all()),
+          f"{cfg.name}: generated tokens outside the padded vocabulary")
+    t0 = time.perf_counter()
+    again = generate(model, params, prompts, max_new_tokens=new, mesh=mesh)
+    torch.cuda.synchronize()
+    generate2_s = time.perf_counter() - t0
+    check(torch.equal(again, out), f"{cfg.name}: two greedy runs differ")
+    del again
+
+    dtype = dtype_of(cfg.dtype)
+    sp = cast_params(params, dtype)  # bf16 weights stay as they are
+    cache = model.init_cache(B, S + new, dtype, device=prompts.device)
+    prefill, decode = make_prefill_step(model, mesh), make_decode_step(model,
+                                                                       mesh)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(sp, {"tokens": prompts}, cache)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_flash = ops.launch_counts()["flash_attention"]
+    check(bool(torch.isfinite(logits).all()),
+          f"{cfg.name}: prefill logits not finite")
+    check(tuple(logits.shape) == (B, S, cfg.padded_vocab()),
+          f"{cfg.name}: prefill logits {tuple(logits.shape)}")
+    tok = torch.argmax(logits[:, -1], dim=-1).to(prompts.dtype)[:, None]
+    del logits
+    toks, steps = [tok], []
+    for _ in range(new - 1):
+        t0 = time.perf_counter()
+        logits, cache = decode(sp, tok, cache, {})
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+        check(bool(torch.isfinite(logits).all()),
+              f"{cfg.name}: decode logits not finite")
+        tok = torch.argmax(logits[:, -1], dim=-1).to(prompts.dtype)[:, None]
+        toks.append(tok)
+    decode_flash = ops.launch_counts()["flash_attention"] - prefill_flash
+    check(prefill_flash == n_attn and decode_flash == 0,
+          f"{cfg.name}: flash launches: prefill {prefill_flash}, decode "
+          f"{decode_flash}")
+    check(torch.equal(torch.cat(toks, 1), out[:, S:]),
+          f"{cfg.name}: the timed steps differ from generate")
+    del cache, sp, logits
+    torch.cuda.empty_cache()
+    steps.sort()
+    p50 = steps[len(steps) // 2]
+    return {"arch": cfg.name, "layers": cfg.num_layers,
+            "d_model": cfg.d_model, "params": cfg.param_count(),
+            "batch": B, "prompt_tokens": S, "new_tokens": new,
+            "dtype": cfg.dtype, "generate_s": generate_s,
+            "generate_s_second_run": generate2_s,
+            "generated_tokens_per_s": B * new / generate2_s,
+            "prefill_s": prefill_s, "prompt_tokens_per_s": B * S / prefill_s,
+            "decode_ms_p50": p50 * 1e3, "decode_ms_min": steps[0] * 1e3,
+            "decode_ms_max": steps[-1] * 1e3,
+            "decode_tokens_per_s": B / p50, "peak_memory_gb": peak / 1e9,
+            "launches": counts,
+            "flash_launches": {"prefill": prefill_flash,
+                               "decode": decode_flash},
+            "flash_launches_by_route": routes, "bitwise_repeat": True}
+
+
 def phase_serve(torch):
     """llama3.2-3b at full width and depth on the card through the port's
     ``generate`` with the one-rank mesh (the flash path); then the prefill
@@ -1498,8 +1658,7 @@ def phase_serve(torch):
     from repro_torch.launch.mesh import single_rank_mesh
     from repro_torch.models.model import build_model
     from repro_torch.models.transformer import cast_params
-    from repro_torch.train.serve import (generate, make_decode_step,
-                                         make_prefill_step)
+    from repro_torch.train.serve import make_prefill_step
 
     cfg = get_config(SERVE_ARCH)
     B, S, new = SERVE_B, SERVE_S, SERVE_NEW
@@ -1514,69 +1673,10 @@ def phase_serve(torch):
                             device=dev, dtype=torch.int32)
     mesh = single_rank_mesh(("x",))
 
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    out = generate(model, params, prompts, max_new_tokens=new, mesh=mesh)
-    torch.cuda.synchronize()
-    generate_s = time.perf_counter() - t0
-    counts = ops.launch_counts()
-    routes = dict(kfa.flash_attention.launches_by_route)
-    peak = torch.cuda.max_memory_allocated()
-    want = dict.fromkeys(ops.KERNELS, 0)
-    want["flash_attention"] = cfg.num_layers
-    check(counts == want, f"generate launched {counts}, expected one flash "
-                          f"launch per layer ({cfg.num_layers}) and nothing "
-                          "else")
-    check(routes == {"wgmma_bf16": cfg.num_layers, "simt_f32": 0},
-          f"generate's flash launches by route {routes}, expected all "
-          f"{cfg.num_layers} on wgmma_bf16")
-    check(tuple(out.shape) == (B, S + new), f"output shape {tuple(out.shape)}")
-    check(torch.equal(out[:, :S], prompts), "generate changed the prompts")
-    check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
-          "generated tokens outside the vocabulary")
-    t0 = time.perf_counter()
-    again = generate(model, params, prompts, max_new_tokens=new, mesh=mesh)
-    torch.cuda.synchronize()
-    generate2_s = time.perf_counter() - t0
-    check(torch.equal(again, out), "two greedy runs differ")
-    del again
-
-    # the same work, step by step: prefill and each decode step timed
-    sp = cast_params(params, torch.bfloat16)
-    cache = model.init_cache(B, S + new, torch.bfloat16, device=dev)
-    prefill, decode = make_prefill_step(model, mesh), make_decode_step(model,
-                                                                       mesh)
-    ops.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    logits, cache = prefill(sp, {"tokens": prompts}, cache)
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
-    prefill_flash = ops.launch_counts()["flash_attention"]
-    check(bool(torch.isfinite(logits).all()), "prefill logits not finite")
-    check(tuple(logits.shape) == (B, S, cfg.padded_vocab()),
-          f"prefill logits {tuple(logits.shape)}")
-    tok = torch.argmax(logits[:, -1], dim=-1).to(prompts.dtype)[:, None]
-    del logits
-    toks, steps = [tok], []
-    for _ in range(new - 1):
-        t0 = time.perf_counter()
-        logits, cache = decode(sp, tok, cache, {})
-        torch.cuda.synchronize()
-        steps.append(time.perf_counter() - t0)
-        check(bool(torch.isfinite(logits).all()), "decode logits not finite")
-        tok = torch.argmax(logits[:, -1], dim=-1).to(prompts.dtype)[:, None]
-        toks.append(tok)
-    decode_flash = ops.launch_counts()["flash_attention"] - prefill_flash
-    check(prefill_flash == cfg.num_layers and decode_flash == 0,
-          f"flash launches: prefill {prefill_flash}, decode {decode_flash}")
-    check(torch.equal(torch.cat(toks, 1), out[:, S:]),
-          "the timed steps differ from generate")
-    del cache, sp, logits
+    # generate casts the fp32 draw itself, inside its timings; the draw
+    # stays for the fp32 prefill below
+    served = serve_run(torch, model, params, prompts, new, mesh)
     torch.cuda.empty_cache()
-    steps.sort()
-    p50 = steps[len(steps) // 2]
 
     # fp32 prefill: flash (one-rank mesh) against plain attention (no mesh)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
@@ -1610,26 +1710,13 @@ def phase_serve(torch):
     logit_rms = rms(lg["plain"])
     del lg
     torch.cuda.empty_cache()
-    emit({"phase": "serve", "arch": SERVE_ARCH, "layers": cfg.num_layers,
-          "d_model": cfg.d_model, "params": cfg.param_count(),
-          "batch": B, "prompt_tokens": S, "new_tokens": new,
-          "dtype": cfg.dtype, "init_s": init_s,
-          "generate_s": generate_s, "generate_s_second_run": generate2_s,
-          "generated_tokens_per_s": B * new / generate2_s,
-          "prefill_s": prefill_s, "prompt_tokens_per_s": B * S / prefill_s,
-          "decode_ms_p50": p50 * 1e3, "decode_ms_min": steps[0] * 1e3,
-          "decode_ms_max": steps[-1] * 1e3,
-          "decode_tokens_per_s": B / p50,
-          "peak_memory_gb": peak / 1e9, "launches": counts,
-          "flash_launches": {"prefill": prefill_flash, "decode": decode_flash},
-          "flash_launches_by_route": routes,
-          "bitwise_repeat": True,
+    emit({"phase": "serve", **served, "init_s": init_s,
           "fp32_prefill": {"batch": 1, "flash_routes": prefill_routes,
                            "max_abs_flash_vs_plain": err32,
                            "atol": FP32_PREFILL_ATOL,
                            "bf16_vs_fp32_max_abs": err_bf16,
                            "logit_rms": logit_rms}})
-    return counts
+    return served["launches"]
 
 
 def phase_allreduce(torch):
@@ -2062,7 +2149,7 @@ def phase_autotune(torch, rows):
     check(table["meta"]["device"] == "cuda"
           and table["meta"]["backend"] == "gloo",
           f"tuning table measured on {table['meta']}")
-    check(set(table["entries"]) == set(autotune.MEASURED_OPS),
+    check(set(table["entries"]) == set(autotune.table_keys()),
           f"tuning table holds {sorted(table['entries'])}")
     check(autotune.default_cost_model() is default,
           "the smoke's table replaced the process's default model")
@@ -2175,6 +2262,277 @@ def phase_faults(torch):
                                     "machine), not a link rate"})
 
 
+def prefill_moe_dropped(torch, model, params, prompts, mesh) -> dict:
+    """The fraction of routed slots each MoE layer dropped in one prefill
+    of ``prompts`` (the model's own aux collects no MoE metrics, as the
+    reference's; ``apply_moe`` is wrapped to pass one). A second count of
+    each layer's drops from its routing alone (a per-row histogram of the
+    expert ids, less the capacity; no cumsum, no scatter) must equal it.
+    Also each layer input's common share: the rms of its per-row token
+    mean over its rms (0 for independent tokens, 1 for identical ones)."""
+    from repro_torch.models import moe
+    from repro_torch.train.serve import make_prefill_step
+
+    rec, orig = {"dropped": [], "recount": [], "common_share": []}, \
+        moe.apply_moe
+
+    def spy(p, cfg, x, aux=None, shard=None):
+        got = {}
+        out = orig(p, cfg, x, aux=got, shard=shard)
+        B, S, _ = x.shape
+        slots = B * S * cfg.num_experts_per_tok
+        _, ids = moe.route(p, cfg, x)
+        hist = torch.zeros((B, cfg.num_experts), dtype=torch.int64,
+                           device=x.device)
+        hist.scatter_add_(1, ids.reshape(B, -1), torch.ones_like(
+            ids.reshape(B, -1)))
+        over = int((hist - moe._capacity(cfg, S)).clamp(min=0).sum())
+        dropped = float(got["moe_dropped"])
+        check(round(dropped * slots) == over,
+              f"moe_dropped {dropped} of {slots} slots, but the routing's "
+              f"histogram overflows the capacity by {over}")
+        xf = x.float()
+        rec["dropped"].append(dropped)
+        rec["recount"].append(over / slots)
+        rec["common_share"].append(float(
+            (xf.mean(1).square().mean() / xf.square().mean()).sqrt()))
+        return out
+
+    moe.apply_moe = spy
+    try:
+        cache = model.init_cache(prompts.shape[0], prompts.shape[1],
+                                 params.embed.dtype, device=prompts.device)
+        make_prefill_step(model, mesh)(params, {"tokens": prompts}, cache)
+    finally:
+        moe.apply_moe = orig
+    del cache
+    return rec
+
+
+def moe_ep_rank(mesh):
+    """Runs on every rank of the moe phase's expert-parallel section: one
+    full-width MoE layer in fp32, each rank holding E / n experts and one
+    row. In turn, each rank draws the whole layer (the same seed on every
+    rank), runs the single-process ``apply_moe`` on all n rows, and keeps
+    its experts; then every rank runs the explicit layer for each
+    ``all_to_all_tiles`` schedule and chunk count."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.comm.engine import (reset_staged_bytes, schedules_for,
+                                         staged_bytes)
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda")
+    ax = mesh.axis("x")
+    cfg = dataclasses.replace(get_config(MOE_ARCH), dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn((ax.size, MOE_LAYER_S, cfg.d_model), generator=gen,
+                    device=dev)
+    for turn in range(ax.size):
+        if turn == ax.index:
+            p = moe.init_moe(torch.Generator(device=dev).manual_seed(3), cfg,
+                             dev)
+            aux = {}
+            want = moe.apply_moe(p, cfg, x, aux=aux)[ax.index:ax.index + 1]
+            local = {k: (v.clone() if isinstance(v, torch.Tensor) else v)
+                     for k, v in moe.expert_shard(p, mesh).items()}
+            del p
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    x_loc = x[ax.index:ax.index + 1]
+    out = {"dropped": float(aux["moe_dropped"]),
+           "capacity": moe._capacity(cfg, MOE_LAYER_S),
+           "experts_local": int(local["w_gate"].shape[0])}
+    for s in schedules_for("all_to_all_tiles"):
+        for k in MOE_EP_CHUNKS:
+            fn = moe.make_apply_moe_explicit(cfg, mesh, schedule=s,
+                                             nchunks=k)
+            reset_staged_bytes()
+            dist.barrier()
+            t0 = time.perf_counter()
+            got = fn(local, x_loc)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            out[s, k] = dict(
+                seconds=secs, staged_bytes=staged_bytes(),
+                max_abs=max_abs(got, want),
+                close=allclose(torch, got, want, *MOE_TOL),
+                finite=bool(torch.isfinite(got).all()), bits=bits_sha(got))
+    return out
+
+
+def phase_moe(torch):
+    """qwen3-moe at full width (MOE_LAYERS layers) served on the one-rank
+    mesh; its MoE layer against the dense oracle at full width in fp32;
+    and the expert-parallel layer on four processes sharing the card,
+    equal to the single-process layer for every schedule and chunking."""
+    import dataclasses
+
+    from repro_torch.comm.engine import schedules_for
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import single_rank_mesh, spawn_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import cast_params
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_LAYERS)
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params32 = model.init(0, device=dev)  # fp32, from a seeded generator
+    params = cast_params(params32, torch.bfloat16)
+    del params32  # the serving copy stays: about 21 GB of bf16 weights
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_S),
+                            generator=gen, device=dev, dtype=torch.int32)
+    mesh = single_rank_mesh(("x",))
+    served = serve_run(torch, model, params, prompts, SERVE_NEW, mesh)
+    routing = prefill_moe_dropped(torch, model, params, prompts, mesh)
+    dropped = routing["dropped"]
+    check(len(dropped) == MOE_LAYERS and all(0 <= d < 1 for d in dropped),
+          f"prefill moe_dropped {dropped}")
+    del params
+    torch.cuda.empty_cache()
+
+    # the layer alone at full width in fp32, nothing dropped, against the
+    # dense oracle
+    lcfg = dataclasses.replace(cfg, dtype="float32",
+                               capacity_factor=float(cfg.num_experts
+                                                     / cfg.num_experts_per_tok))
+    check(moe._capacity(lcfg, MOE_LAYER_S) == MOE_LAYER_S,
+          "the oracle's capacity does not cover every token")
+    p = moe.init_moe(torch.Generator(device=dev).manual_seed(3), lcfg, dev)
+    x = torch.randn((1, MOE_LAYER_S, cfg.d_model),
+                    generator=torch.Generator(device=dev).manual_seed(4),
+                    device=dev)
+    aux = {}
+    got = moe.apply_moe(p, lcfg, x, aux=aux)
+    want = moe.reference_moe(p, lcfg, x)
+    err = max_abs(got, want)
+    check(float(aux["moe_dropped"]) == 0.0,
+          f"the oracle's layer dropped {float(aux['moe_dropped'])}")
+    check(allclose(torch, got, want, *MOE_TOL),
+          f"apply_moe against reference_moe at full width: max |diff| "
+          f"{err}, rtol/atol {MOE_TOL}")
+    layer = {"batch": 1, "seq": MOE_LAYER_S, "dtype": "float32",
+             "capacity_factor": lcfg.capacity_factor,
+             "capacity": MOE_LAYER_S, "dropped": 0.0,
+             "max_abs_vs_reference_moe": err, "rtol_atol": MOE_TOL,
+             "out_rms": rms(want)}
+    del p, x, got, want
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # the expert-parallel layer on four processes sharing the card
+    n = MOE_EP_RANKS
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = spawn_mesh(n, moe_ep_rank, axes=("x",), timeout=MOE_EP_TIMEOUT)
+    ep_s = time.perf_counter() - t0
+    combos = [(s, k) for s in schedules_for("all_to_all_tiles")
+              for k in MOE_EP_CHUNKS]
+    # the dispatch and the combine each move (B_loc, E, C, D) fp32 per rank
+    C = results[0]["capacity"]
+    payload = 1 * cfg.num_experts * C * cfg.d_model * 4
+    times_payload = {"native": 2, "chain": n - 1, "staged": n + 1}
+    runs = {}
+    for s, k in combos:
+        recs = [r[s, k] for r in results]
+        what = f"moe expert-parallel {s} nchunks={k}"
+        check(all(r["finite"] and r["close"] for r in recs),
+              f"{what}: max |diff| from the single-process layer "
+              f"{[r['max_abs'] for r in recs]}, rtol/atol {MOE_TOL}")
+        staged = 2 * times_payload[s] * payload
+        check(all(r["staged_bytes"] == staged for r in recs),
+              f"{what}: staged {[r['staged_bytes'] for r in recs]} bytes "
+              f"per rank, not {staged}")
+        runs[f"{s}/nchunks={k}"] = dict(
+            seconds=max(r["seconds"] for r in recs),
+            max_abs=max(r["max_abs"] for r in recs),
+            staged_bytes_per_rank=[r["staged_bytes"] for r in recs])
+    for rank, r in enumerate(results):
+        check(len({r[s, k]["bits"] for s, k in combos}) == 1,
+              f"moe expert-parallel rank {rank}: the output differs across "
+              "schedules and chunk counts")
+        check(r["experts_local"] == cfg.num_experts // n,
+              f"rank {rank} holds {r['experts_local']} experts")
+    check(all(v == 0 for v in ops.launch_counts().values()),
+          "the parent launched kernels during the expert-parallel section")
+    emit({"phase": "moe", **served, "full_depth_layers": 94,
+          "cut": f"depth only: {MOE_LAYERS} of 94 layers at full width "
+                 "(random weights, seed 0)",
+          "init_s": init_s, "init_peak_memory_gb": init_peak / 1e9,
+          "prefill_moe_dropped": dropped,
+          "prefill_moe_dropped_recount": routing["recount"],
+          "prefill_moe_input_common_share": routing["common_share"],
+          "capacity": {"prefill": moe._capacity(cfg, SERVE_S),
+                       "decode": moe._capacity(cfg, 1)},
+          "layer_vs_reference_moe": layer,
+          "expert_parallel": {
+              "ranks": n, "experts_per_rank": cfg.num_experts // n,
+              "tokens_per_rank": MOE_LAYER_S, "dtype": "float32",
+              "capacity": C, "dropped": results[0]["dropped"],
+              "exchange_bytes_per_rank": payload,
+              "staged_bytes_times_payload": times_payload,
+              "runs": runs, "identical_across_schedules": True,
+              "rtol_atol": MOE_TOL, "wall_s": ep_s,
+              "transport": "gloo, staged through host memory; compute on "
+                           "the card",
+              "what_the_time_measures": "the host's loopback (gloo on one "
+                                        "machine), not a link rate"}})
+
+
+def phase_ssm(torch):
+    """mamba2-130m at full size and jamba cut to HYBRID_LAYERS layers at
+    d_model HYBRID_D in bf16, each served on the one-rank mesh."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.mesh import single_rank_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import cast_params
+
+    dev = torch.device("cuda")
+    mesh = single_rank_mesh(("x",))
+    hybrid = dataclasses.replace(
+        reduced(get_config(HYBRID_ARCH), layers=HYBRID_LAYERS,
+                d_model=HYBRID_D), dtype="bfloat16")
+    records = []
+    for label, cfg in (("ssm", get_config(SSM_ARCH)), ("hybrid", hybrid)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        model = build_model(cfg)
+        params = cast_params(model.init(0, device=dev), torch.bfloat16)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        prompts = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_S),
+                                generator=gen, device=dev, dtype=torch.int32)
+        rec = serve_run(torch, model, params, prompts, SERVE_NEW, mesh)
+        rec["kinds"] = "".join(k[0] for k in cfg.layer_kinds())
+        rec["moe_layers"] = sum(cfg.moe_layer_mask())
+        rec["cut"] = ("none: full size (random weights, seed 0)"
+                      if label == "ssm" else
+                      f"reduced(layers={HYBRID_LAYERS}, d_model={HYBRID_D}) "
+                      "in bf16: head_dim 128, 4 experts top-2, vocab 512; "
+                      "full width does not fit one card")
+        records.append((label, rec))
+        del params, model
+    emit({"phase": "ssm", **{label: rec for label, rec in records}})
+
+
 def main() -> int:
     import torch
 
@@ -2211,6 +2569,8 @@ def main() -> int:
     phase_a2a(torch)
     phase_autotune(torch, rows)
     phase_faults(torch)
+    phase_moe(torch)
+    phase_ssm(torch)
 
     check(set(launches) == set(rows) == set(SOURCES),
           f"kernels {sorted(rows)} vs launches {sorted(launches)}")

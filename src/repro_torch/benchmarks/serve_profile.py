@@ -1,9 +1,11 @@
 """Where the serving path's time goes on the card: one prefill and one
 decode step under torch.profiler.
 
-    PYTHONPATH=src python -m repro_torch.benchmarks.serve_profile [--arch llama3.2-3b] [--batch 8] [--prompt 1024]
+    PYTHONPATH=src python -m repro_torch.benchmarks.serve_profile [--arch llama3.2-3b] [--layers N] [--batch 8] [--prompt 1024]
 
-Builds the model at full width and depth with random weights (seed 0),
+Builds the model at full width with random weights (seed 0), at its full
+depth or, with ``--layers``, at N layers (e.g. ``--arch
+qwen3-moe-235b-a22b --layers 4``, whose 94 layers do not fit one card),
 casts them once to the compute dtype, warms both steps, then profiles one
 prefill of ``batch`` x ``prompt`` tokens on the one-rank mesh (the flash
 path) and one decode step after it. Prints one JSON line per step: wall
@@ -16,6 +18,7 @@ these wall times are longer than ``chip_smoke.py``'s.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -52,10 +55,12 @@ def _profiled(fn):
                                for k, (ms, cnt) in top[:15]]}
 
 
-def main(arch: str = "llama3.2-3b", batch: int = 8,
-         prompt: int = 1024) -> list:
+def main(arch: str = "llama3.2-3b", batch: int = 8, prompt: int = 1024,
+         layers: int = 0) -> list:
     device = resolve_device(None)
     cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     model = build_model(cfg)
     dtype = dtype_of(cfg.dtype)
     params = cast_params(model.init(0, device=device), dtype)
@@ -82,7 +87,8 @@ def main(arch: str = "llama3.2-3b", batch: int = 8,
     _, dec = _profiled(lambda: run_decode(tok, cache))
     records = []
     for step, rec in (("prefill", pre), ("decode", dec)):
-        record = {"step": step, "arch": arch, "batch": batch,
+        record = {"step": step, "arch": arch, "layers": cfg.num_layers,
+                  "batch": batch,
                   "prompt": prompt, "device": device_name(device), **rec}
         print(json.dumps(record), flush=True)
         records.append(record)
@@ -92,7 +98,9 @@ def main(arch: str = "llama3.2-3b", batch: int = 8,
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="llama3.2-3b")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (0: full)")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt", type=int, default=1024)
     args = ap.parse_args()
-    main(args.arch, args.batch, args.prompt)
+    main(args.arch, args.batch, args.prompt, args.layers)

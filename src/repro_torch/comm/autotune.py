@@ -60,9 +60,11 @@ While a fault injector is active (:mod:`repro_torch.comm.faults`), the
 measured mode adds its modeled delay to each job's time, as the
 reference's ``_measure_op`` does. The port adds it in the calling process
 once the ranks' times are gathered: the spawned ranks never see the
-caller's injector. The reference's MoE, tensor-, sequence-parallel and
-decode patterns come with the modules that make those calls (ROADMAP
-A11-A13).
+caller's injector. The MoE pattern ``all_to_all_tiles@moe.dispatch`` times
+both exchanges of the layer, and :data:`PAIRED_ALIASES` files its winner
+under ``all_to_all_tiles@moe.combine`` too. The reference's tensor-,
+sequence-parallel and decode patterns come with the modules that make
+those calls (ROADMAP A12, A13).
 """
 from __future__ import annotations
 
@@ -731,6 +733,23 @@ def _op_body(engine, mesh, op: str, nbytes: int, device) -> Callable:
                                  recv[..., 1].reshape(-1))
         return body
 
+    if op == "all_to_all_tiles@moe.dispatch":
+        # MoE's paired exchanges on the ring: the dispatch all-to-all
+        # (experts split across ranks, batch shards gathered), a stand-in
+        # expert compute touching every landed tile, and the inverse
+        # combine exchange, back-to-back; the local buffer is
+        # (B_loc = 1, E = nranks, L)
+        L = max(elems // nranks, 1)
+        x = torch.ones(1, nranks, L, **f32)
+
+        def body():
+            buf = engine.all_to_all_tiles(x, names[0], split_axis=1,
+                                          concat_axis=0)
+            buf = torch.nn.functional.silu(buf) * buf
+            return engine.all_to_all_tiles(buf, names[0], split_axis=0,
+                                           concat_axis=1)
+        return body
+
     if op == "all_to_all_tiles@fft.transpose":
         # pencil-FFT global transpose on the ring: the signal-gathering
         # exchange, the local full-signal FFT, and the inverse scatter
@@ -815,7 +834,20 @@ _TORUS_OPS = ("grid_transpose", "bcast@hpl.panel")
 MEASURED_OPS = ("bcast", "allreduce", "all_to_all_tiles", "ring_exchange",
                 "grid_transpose", "bcast@hpl.panel",
                 "all_to_all_tiles@ra.updates",
-                "all_to_all_tiles@fft.transpose")
+                "all_to_all_tiles@fft.transpose",
+                "all_to_all_tiles@moe.dispatch")
+
+# callsite patterns that time both directions of a paired exchange: the
+# measured winner is filed under every tag of the pair
+PAIRED_ALIASES: Dict[str, Tuple[str, ...]] = {
+    "all_to_all_tiles@moe.dispatch": ("all_to_all_tiles@moe.combine",),
+}
+
+
+def table_keys(ops: Sequence[str] = MEASURED_OPS) -> List[str]:
+    """The tuning-table keys a measured run of ``ops`` fills: each op and
+    its :data:`PAIRED_ALIASES`."""
+    return [k for op in ops for k in (op,) + PAIRED_ALIASES.get(op, ())]
 
 
 def exact_schedules(op: str) -> List[str]:
@@ -889,7 +921,10 @@ def autotune_mesh(*, ops: Sequence[str] = MEASURED_OPS,
     ``"all_to_all_tiles@ra.updates"`` the GUPS bucketed int32 update
     exchange plus the receiving scatter-add, and
     ``"all_to_all_tiles@fft.transpose"`` the pencil-FFT gather / local
-    transform / inverse-scatter sandwich. Payloads live on ``device`` (the
+    transform / inverse-scatter sandwich, and
+    ``"all_to_all_tiles@moe.dispatch"`` MoE's dispatch / expert compute /
+    combine, whose winner is also filed under its
+    :data:`PAIRED_ALIASES`. Payloads live on ``device`` (the
     card unless ``"cpu"`` is given); gloo stages a card's payloads through
     host memory. A time is the slowest rank's, best of ``reps``, plus the
     active fault injector's modeled delay (:func:`_add_fault_delays`). Returns
@@ -967,6 +1002,7 @@ def autotune_mesh(*, ops: Sequence[str] = MEASURED_OPS,
                       f"({ladder})")
         if winners:
             bounds = _winner_bounds(measured_sizes, winners)
-            for s in sigs:
-                table.set(op, s, bounds)
+            for key in table_keys((op,)):
+                for s in sigs:
+                    table.set(key, s, bounds)
     return table, record

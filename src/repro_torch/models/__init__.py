@@ -1,1 +1,1 @@
-"""The LM of the port: the dense decoder family so far."""
+"""The LM of the port: the dense, MoE, SSM and hybrid decoder families."""

@@ -12,9 +12,11 @@ another. Products that the reference computes in fp32 from bf16 operands
 (``preferred_element_type=float32``) cast their operands to fp32 here, which
 gives the same exact products and fp32 sums.
 
-Not in this slice: cross-attention and qk-norm (their families wait for
-ROADMAP A11), the paged-cache branch of :func:`apply_attention` (A13), the
-explicit ``attn_impl`` hook and tensor-parallel flash (A12).
+qk-norm (``cfg.use_qk_norm``, qwen3-moe) normalizes q and k per head after
+the qkv biases and before rope, as the reference does (``layers.py:319``).
+Not in this slice: cross-attention (vlm, ROADMAP A11), the paged-cache
+branch of :func:`apply_attention` (A13), the explicit ``attn_impl`` hook
+and tensor-parallel flash (A12).
 """
 from __future__ import annotations
 
@@ -231,6 +233,9 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, *,
         p["bq"] = torch.zeros((h, hd), device=device)
         p["bk"] = torch.zeros((kv, hd), device=device)
         p["bv"] = torch.zeros((kv, hd), device=device)
+    if cfg.use_qk_norm:
+        p["q_norm"] = init_rmsnorm(hd, device)
+        p["k_norm"] = init_rmsnorm(hd, device)
     return p
 
 
@@ -256,6 +261,9 @@ def apply_attention(p, cfg: ModelConfig, x: torch.Tensor, *,
         q = q + p["bq"].to(dtype)
         k = k + p["bk"].to(dtype)
         v = v + p["bv"].to(dtype)
+    if cfg.use_qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
 
     if isinstance(pos, torch.Tensor) and pos.dim() == 1:
         raise NotImplementedError("per-row positions (paged decode) are not "

@@ -1,12 +1,15 @@
 """Family dispatch: one Model API, and weights to and from the reference.
 
 Port of ``repro/models/model.py``. ``build_model(cfg)`` returns a
-:class:`Model` with ``init / apply / init_cache`` closures for the dense
-decoder family; every other family raises ``NotImplementedError`` naming
-its ROADMAP item. :func:`from_reference` and :func:`to_reference` move
-weights between the reference's parameter tree (numpy arrays, each block
-leaf stacked over super-blocks) and the port's per-layer modules; they are
-the one place where layouts change.
+:class:`Model` with ``init / apply / init_cache`` closures for the dense,
+MoE, SSM and hybrid decoder families; cross-attention (vlm) and
+encoder-decoder models raise ``NotImplementedError`` naming ROADMAP A11.
+:func:`from_reference` and :func:`to_reference` move weights between the
+reference's parameter tree (numpy arrays, each block leaf stacked over
+super-blocks, ``blocks/p{i}`` per period position with its own kind of
+layer: attention or SSM, MoE (with ``shared``) or MLP) and the port's
+per-layer modules, bit for bit; they are the one place where layouts
+change.
 """
 from __future__ import annotations
 

@@ -1,11 +1,11 @@
-"""Serving steps: prefill + decode against a dense KV cache, and batched
-generation.
+"""Serving steps: prefill + decode against a dense KV cache (and the SSM
+layers' conv and state cache), and batched generation.
 
 Port of ``repro/train/serve.py`` (``make_prefill_step`` :33,
 ``make_decode_step`` :46, ``generate`` :149-198): the reference's "batched
 requests" server. With a one-rank mesh (``launch/mesh.py::
 single_rank_mesh(("x",))``) the prefill takes the hand-written flash kernel
-(``ops.flash_attention``, one launch per layer) for prompts of 128 tokens
+(``ops.flash_attention``, one launch per attention layer) for prompts of 128 tokens
 or more, as the reference's ``make_prefill_step(model, mesh)`` takes its
 Pallas kernel; with ``mesh=None`` it takes the plain ``attention``. Decode
 never takes the flash kernel.

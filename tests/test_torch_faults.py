@@ -818,7 +818,7 @@ def test_hook_adds_measured_extra_time_in_reference_order(monkeypatch):
                 n_extra += extra > 0
     assert n_extra > 0
     assert clean.to_json()["entries"].keys() == \
-        set(autotune.MEASURED_OPS)
+        set(autotune.table_keys())
 
 
 def test_hook_leaves_times_alone_without_injector(monkeypatch):

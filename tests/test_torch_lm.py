@@ -3,14 +3,18 @@ configs, weights, ``transformer.apply`` in train, prefill and decode, and
 ``generate`` with and without the one-rank mesh.
 
 The reference's weights (``model.init(jax.random.key(0))``) move to the port
-with ``from_reference``; prompts come from a numpy seed. The model is
-``reduced(llama3.2-3b, layers=2, d_model=64)`` (four heads, MHA) and its
-GQA variant (``num_kv_heads=2``), in fp32, with prompts of 128 tokens so
-that the mesh path reaches the flash kernel (one call per layer, counted
-with a spy on ``ops.flash_attention``; on the CPU it runs its plain
-version, as the reference runs its Pallas kernel in interpret mode). Logits
-and caches agree within 1e-5 and greedy tokens exactly. The EOS tests
-mirror ``tests/test_serve.py``.
+with ``from_reference``; prompts come from a numpy seed. The models, all
+at d_model 64 in fp32: ``reduced(llama3.2-3b, layers=2)`` (four heads,
+MHA), its GQA variant (``num_kv_heads=2``) and its qk-norm variant; reduced
+qwen3-moe (MoE every layer, qk-norm), llama4-maverick (MoE every 2nd
+layer, shared expert) and mamba2 (SSM, no attention), at 2 layers; and
+reduced jamba at 4 layers (SSM, attention, SSM, attention; MoE every 2nd
+layer). Prompts have 128 tokens so that the mesh path reaches the flash
+kernel (one call per attention layer, counted with a spy on
+``ops.flash_attention``; on the CPU it runs its plain version, as the
+reference runs its Pallas kernel in interpret mode). Logits and caches
+agree within 1e-5 and greedy tokens exactly. The EOS tests mirror
+``tests/test_serve.py``.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from repro.train import serve as jserve
 from repro_torch import configs
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import single_rank_mesh
+from repro_torch.models import transformer
 from repro_torch.models.model import (build_model, from_reference,
                                       next_token_loss, to_reference)
 from repro_torch.train import serve
@@ -93,25 +98,57 @@ def test_serving_config_is_llama3_2_3b():
                                   if jconfigs.get_config(a).family != "dense"]
                          + ["llama3.2-3b with qk-norm"])
 def test_unported_families_raise(arch):
+    """Vision cross-attention and encoder-decoder still raise naming
+    ROADMAP A11; the MoE, SSM, hybrid and qk-norm families are served:
+    ``build_model`` takes the full configuration, and its reduced form
+    runs a forward on the CPU."""
     cfg = dataclasses.replace(configs.get_config("llama3.2-3b"),
                               use_qk_norm=True) if arch.endswith("qk-norm") \
         else configs.get_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        build_model(cfg)
+    if cfg.cross_attn_every or cfg.is_encoder_decoder:
+        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+            build_model(cfg)
+        return
+    assert build_model(cfg).cfg == cfg
+    small = configs.reduced(cfg, layers=4)
+    model = build_model(small)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, small.vocab_size, (1, 8)).astype(np.int32))
+    logits, _, _ = model.apply(model.init(0, device="cpu"),
+                               {"tokens": tokens})
+    assert logits.shape == (1, 8, small.padded_vocab())
+    assert bool(torch.isfinite(logits).all())
 
 
 # ---------------------------------------------------------------------------
-# the two reduced models, weights from the reference
+# the reduced models, weights from the reference
 # ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = {"qwen3-moe": ("qwen3-moe-235b-a22b", 2),
+                "maverick": ("llama4-maverick-400b-a17b", 2),
+                "mamba2": ("mamba2-130m", 2),
+                "jamba": ("jamba-1.5-large-398b", 4)}
 
 
 def _reduced(kind):
+    if kind in FAMILY_ARCHS:
+        arch, layers = FAMILY_ARCHS[kind]
+        return configs.reduced(configs.get_config(arch), layers=layers,
+                               d_model=64)
     cfg = configs.reduced(configs.get_config("llama3.2-3b"), layers=2,
                           d_model=64)
+    if kind == "qk-norm":
+        return dataclasses.replace(cfg, use_qk_norm=True)
     return cfg if kind == "mha" else dataclasses.replace(cfg, num_kv_heads=2)
 
 
-@pytest.fixture(scope="module", params=["mha", "gqa"])
+def _n_attn(cfg):
+    """Attention layers: one flash call each in a mesh prefill."""
+    return sum(kind == "attn" for kind in cfg.layer_kinds())
+
+
+@pytest.fixture(scope="module", params=["mha", "gqa", "qk-norm",
+                                        *FAMILY_ARCHS])
 def setup(request):
     cfg = _reduced(request.param)
     jmodel = jbuild_model(_jcfg(cfg))
@@ -140,7 +177,8 @@ def flash_calls(monkeypatch):
 
 def test_reduced_gqa_variant_keeps_grouped_heads(setup):
     cfg = setup["cfg"]
-    assert cfg.num_heads == 4 and cfg.num_kv_heads in (4, 2)
+    assert cfg.num_heads == 4
+    assert cfg.num_kv_heads in ((0,) if cfg.family == "ssm" else (4, 2))
 
 
 def test_from_reference_round_trip_is_bitwise(setup):
@@ -164,7 +202,8 @@ def test_init_params_has_the_reference_layout(setup):
     again = to_reference(build_model(cfg).init(0, device="cpu"))
     assert all(np.array_equal(a, b) for a, b in
                zip(jax.tree.leaves(back), jax.tree.leaves(again)))
-    w = params.blocks[0].attn["wq"]
+    lp = params.blocks[0]
+    w = lp["attn"]["wq"] if "attn" in lp else lp["ssm"]["in_x"]
     assert abs(float(w.std()) - 0.02) < 2e-3
 
 
@@ -192,9 +231,10 @@ def test_apply_train_logits_and_loss(setup):
 
 @pytest.mark.parametrize("mesh_on", [False, True], ids=["no_mesh", "mesh"])
 def test_prefill_and_decode_match_reference(setup, flash_calls, mesh_on):
-    """Prefill then two decode steps: logits and the dense cache within
-    1e-5 of the reference, with one flash call per layer in the mesh
-    prefill and none elsewhere."""
+    """Prefill then two decode steps: logits and every layer's cache (k/v,
+    or the SSM conv and state) within 1e-5 of the reference, with one
+    flash call per attention layer in the mesh prefill and none
+    elsewhere."""
     cfg, tokens = setup["cfg"], setup["prompts"]
     max_seq = S0 + 4
     jmesh = make_mesh((1,), ("x",)) if mesh_on else None
@@ -206,7 +246,7 @@ def test_prefill_and_decode_match_reference(setup, flash_calls, mesh_on):
         setup["jparams"], {"tokens": jnp.asarray(tokens)}, jcache)
     logits, cache = serve.make_prefill_step(setup["model"], mesh)(
         setup["params"], {"tokens": torch.from_numpy(tokens)}, cache)
-    assert len(flash_calls) == (cfg.num_layers if mesh_on else 0)
+    assert len(flash_calls) == (_n_attn(cfg) if mesh_on else 0)
     np.testing.assert_allclose(_np(logits), _np(jlogits), atol=ATOL, rtol=0)
     assert cache["pos"] == int(jcache["pos"]) == S0
 
@@ -222,13 +262,16 @@ def test_prefill_and_decode_match_reference(setup, flash_calls, mesh_on):
         np.testing.assert_allclose(_np(logits), _np(jlogits), atol=ATOL,
                                    rtol=0)
         tok = np.array(jnp.argmax(jlogits[:, -1:], -1), np.int32)
-    assert len(flash_calls) == (cfg.num_layers if mesh_on else 0)
+    assert len(flash_calls) == (_n_attn(cfg) if mesh_on else 0)
     assert cache["pos"] == int(jcache["pos"]) == S0 + 2
+    period = transformer.period_of(cfg)
     for i, layer in enumerate(cache["layers"]):
-        for name in ("k", "v"):
-            np.testing.assert_allclose(
-                _np(layer[name]), _np(jcache["layers"]["p0"][name][i]),
-                atol=ATOL, rtol=0)
+        s, p = divmod(i, period)
+        want = jcache["layers"][f"p{p}"]
+        assert set(layer) == set(want)
+        for name in layer:
+            np.testing.assert_allclose(_np(layer[name]),
+                                       _np(want[name][s]), atol=ATOL, rtol=0)
 
 
 @pytest.fixture(scope="module")
@@ -249,7 +292,7 @@ def test_generate_greedy_matches_reference(setup, reference_tokens,
                          mesh=single_rank_mesh(("x",)) if mesh_on else None)
     assert out.dtype == torch.int32 and out.shape == (B, S0 + NEW)
     np.testing.assert_array_equal(out.numpy(), reference_tokens[mesh_on])
-    assert len(flash_calls) == (setup["cfg"].num_layers if mesh_on else 0)
+    assert len(flash_calls) == (_n_attn(setup["cfg"]) if mesh_on else 0)
 
 
 def test_generate_sampling_is_seeded(setup):
