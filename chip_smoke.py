@@ -50,8 +50,9 @@ Phases, one JSON line each:
                in the late rows; the run shows that they do. Every bf16
                flash call must launch on the ``wgmma_bf16`` route, every
                fp32 one on ``simt_f32``; the bf16 cases include the
-               prefill shapes of phases moe (q 64 heads on 4 kv heads) and
-               ssm (4 heads of 128); flash's TFLOP/s and its share of
+               prefill shapes of phases moe (q 64 heads on 4 kv heads), ssm
+               (4 heads of 128) and vlm (64 heads on 8); flash's TFLOP/s
+               and its share of
                the bf16 tensor-core bound are printed;
 3. hpl       — ``run_hpl`` on the 1x1 grid at n = 16384, b = 64: residual
                < 1 (and whether it equals HPL_RESIDUAL), GFLOP/s, and each
@@ -185,6 +186,42 @@ Phases, one JSON line each:
                layer is 19.3 GB of bf16 experts), each served as in serve:
                flash launches per prefill equal to the attention layers,
                two runs bit-identical, and the same times.
+19. vlm     — llama-3.2-vision-90b at full width, depth cut to one period
+               of 5 layers (the cross layer last; 5.47e9 parameters, drawn
+               in fp32 and cast to bf16), its cross gates drawn from
+               VLM_GATE_SEED (the reference's start at 0 and hide the cross
+               branch), served as in serve with 1024 patches x 1280 a
+               request: 5 flash launches per prefill, all ``wgmma_bf16``,
+               none for the cross layer or in decode, output (8, 1056)
+               keeping the prompts, two runs bit-identical; an fp32
+               batch-1 prefill of VLM_WITNESS_S tokens and 1024 patches on
+               the card against the same call on the CPU within FP32_TOL;
+               one request's logits must move when the gates close; the
+               times, the init and serving peaks, and the TFLOP each decode
+               step spends recomputing the cross K/V from the patches.
+20. whisper — whisper-base at full size, 8 requests of 1500 frames and 64
+               prompt tokens, 32 new: no flash launch (no path of the
+               encoder-decoder takes it, as in the reference), two runs
+               bit-identical, the times; then an fp32 batch-1 prefill on
+               the card against the same call on the CPU within
+               FP32_TOL (the cpu phase's limit).
+21. engine  — the continuous-batching ``ServeEngine`` on llama3.2-3b at
+               full size in bf16: 16 requests of 512-1024 prompt tokens
+               (numpy seed ENGINE_SEED), 32 new, pages of 16 tokens, 8
+               slots, a pool of 8 x 66 pages, run twice: every request
+               returns its prompt and 32 tokens, the runs bit-identical, no
+               kernel launched (the engine's prefill has no mesh, C7);
+               generated tokens/s, decode-step p50/p99, prefill seconds per
+               request, peak memory. Before them, the paged decode's
+               witness: the same requests through an fp32 engine, every
+               decode step's logits row of every active slot against the
+               dense model's logits (one forward without a cache over
+               the request's final sequence) within FP32_TOL, over steps
+               with inactive (sentinel) slots, reused pages and tokens
+               that fill their last page. Then ``resilience_bench``'s serve-
+               degradation section on the card with its gate: a 4-page pool
+               under a ``serve.step`` delay, token-identical to a 16-page
+               pool, no token lost, at least one preemption.
 
 Each main-path phase zeroes the launch counts just before it runs and reads
 them just after (the allreduce phase in each rank's process, around each
@@ -254,6 +291,28 @@ MOE_TOL = (1e-4, 1e-5)  # rtol, atol: tests/dist/test_moe.py
 SSM_ARCH, HYBRID_ARCH, HYBRID_LAYERS, HYBRID_D = ("mamba2-130m",
                                                   "jamba-1.5-large-398b", 4,
                                                   512)
+# the vlm path: llama-3.2-vision-90b at full width, depth cut to one period
+# (VLM_LAYERS = cross_attn_every: four self-attention layers, then the
+# cross layer at index 4), its cross gates drawn from VLM_GATE_SEED (the
+# reference initialises them to 0, which hides the cross branch), and
+# 1024 patches of 1280 from the seed per request
+VLM_ARCH, VLM_LAYERS, VLM_GATE_SEED = "llama-3.2-vision-90b", 5, 0
+# its fp32 witness: a batch-1 prefill of VLM_WITNESS_S prompt tokens and
+# all 1024 patches on the card against the same call on the CPU
+VLM_WITNESS_S = 32
+# the encoder-decoder path: whisper-base at full size, 8 requests of 1500
+# frames and WHISPER_PROMPT prompt tokens; its fp32 batch-1 prefill on the
+# card against the same call on the CPU
+WHISPER_ARCH, WHISPER_PROMPT = "whisper-base", 64
+# an fp32 result on the card against another fp32 computation of it (the
+# CPU's, or the dense decode's for the paged one): the cpu phase's limit
+FP32_TOL = (1e-4, 1e-3)  # rtol, atol
+# the paged engine: SERVE_ARCH at full size, ENGINE_REQUESTS prompts of
+# ENGINE_PROMPT tokens (uniform, numpy seed ENGINE_SEED), SERVE_NEW new
+# tokens, pages of ENGINE_PAGE tokens, ENGINE_SLOTS slots, a pool of
+# ENGINE_SLOTS x pages_per_slot pages (8 x 66)
+ENGINE_REQUESTS, ENGINE_PROMPT, ENGINE_SEED = 16, (512, 1024), 5
+ENGINE_PAGE, ENGINE_SLOTS = 16, 8
 # fp32 prefill, flash vs plain attention: both are fp32 throughout and
 # differ only in the order of the attention's sums (a few ulps per layer),
 # on logits of rms about 1; one bf16 rounding anywhere moves them by ~1e-2
@@ -1081,8 +1140,8 @@ def kernels_flash(torch, randn, rows):
     in fp32 on its own route, timed. Then fp32 and bf16 cases: MQA, head
     dims 64 and 32, non-causal GQA, q_offsets, ragged lengths (Sq = Skv
     = 1000 is no multiple of the bf16 kernel's 128-row tile), and the
-    prefill shapes of phases moe (a GQA group of 16) and ssm (the reduced
-    jamba's 4 heads of 128). Every bf16
+    prefill shapes of phases moe (a GQA group of 16), ssm (the reduced
+    jamba's 4 heads of 128) and vlm (64 heads on 8). Every bf16
     call must run on the ``wgmma_bf16`` route and every fp32 call on
     ``simt_f32``."""
     import torch.nn.functional as F
@@ -1203,7 +1262,10 @@ def kernels_flash(torch, randn, rows):
                                        bf16, True, 0),
         "jamba reduced MHA 4 heads hd128 bf16 causal": (SERVE_B, SERVE_S,
                                                         SERVE_S, 4, 4, 128,
-                                                        bf16, True, 0)}
+                                                        bf16, True, 0),
+        # the vlm prefill (phase vlm): 64 q heads on 8 kv heads
+        "vlm GQA 8:1 hd128 bf16 causal": (SERVE_B, SERVE_S, SERVE_S, 64, 8,
+                                          128, bf16, True, 0)}
     # the plain version keeps the reference's rule that its blocks divide
     # the lengths: 1000 is no multiple of its default 512, so one block
     plain_blocks = {"1000x1000 hd128 bf16 causal": dict(bq=1000, bk=1000)}
@@ -1539,14 +1601,17 @@ def phase_cpu(torch):
           "tol": {"rtol": 1e-4, "atol": 1e-3}})
 
 
-def serve_run(torch, model, params, prompts, new: int, mesh) -> dict:
+def serve_run(torch, model, params, prompts, new: int, mesh, extras=None,
+              n_flash=None) -> dict:
     """``generate`` twice (bit-identical, the second timed), then the same
     work step by step: the prefill and each decode step timed apart.
     ``generate`` takes ``params`` as given (it casts them to the compute
-    dtype); the timed steps take that cast, made before them. Checks the
-    output's shape, the prompts, the vocabulary, and that the flash kernel
-    ran once per attention layer in every prefill, all on the route of the
-    dtype, and never in decode, with no other kernel launched."""
+    dtype); the timed steps take that cast, made before them. ``extras``
+    (``patch_embeds``, ``frames``) go to both, decode without ``frames``.
+    Checks the output's shape, the prompts, the vocabulary, and that the
+    flash kernel ran ``n_flash`` times (default: once per attention layer)
+    in every prefill, all on the route of the dtype, and never in decode,
+    with no other kernel launched."""
     from repro_torch.kernels import attention as kfa
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import cast_params, dtype_of
@@ -1555,13 +1620,17 @@ def serve_run(torch, model, params, prompts, new: int, mesh) -> dict:
 
     cfg = model.cfg
     B, S = prompts.shape
-    n_attn = sum(k == "attn" for k in cfg.layer_kinds())
+    extras = extras or {}
+    decode_extras = {k: v for k, v in extras.items() if k != "frames"}
+    n_attn = sum(k == "attn" for k in cfg.layer_kinds()) if n_flash is None \
+        else n_flash
     route = "wgmma_bf16" if cfg.dtype == "bfloat16" else "simt_f32"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    out = generate(model, params, prompts, max_new_tokens=new, mesh=mesh)
+    out = generate(model, params, prompts, max_new_tokens=new, mesh=mesh,
+                   extras=extras)
     torch.cuda.synchronize()
     generate_s = time.perf_counter() - t0
     counts = ops.launch_counts()
@@ -1585,7 +1654,8 @@ def serve_run(torch, model, params, prompts, new: int, mesh) -> dict:
     check(bool(((out >= 0) & (out < cfg.padded_vocab())).all()),
           f"{cfg.name}: generated tokens outside the padded vocabulary")
     t0 = time.perf_counter()
-    again = generate(model, params, prompts, max_new_tokens=new, mesh=mesh)
+    again = generate(model, params, prompts, max_new_tokens=new, mesh=mesh,
+                     extras=extras)
     torch.cuda.synchronize()
     generate2_s = time.perf_counter() - t0
     check(torch.equal(again, out), f"{cfg.name}: two greedy runs differ")
@@ -1599,7 +1669,7 @@ def serve_run(torch, model, params, prompts, new: int, mesh) -> dict:
     ops.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache = prefill(sp, {"tokens": prompts}, cache)
+    logits, cache = prefill(sp, {"tokens": prompts, **extras}, cache)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     prefill_flash = ops.launch_counts()["flash_attention"]
@@ -1612,7 +1682,7 @@ def serve_run(torch, model, params, prompts, new: int, mesh) -> dict:
     toks, steps = [tok], []
     for _ in range(new - 1):
         t0 = time.perf_counter()
-        logits, cache = decode(sp, tok, cache, {})
+        logits, cache = decode(sp, tok, cache, decode_extras)
         torch.cuda.synchronize()
         steps.append(time.perf_counter() - t0)
         check(bool(torch.isfinite(logits).all()),
@@ -2533,6 +2603,315 @@ def phase_ssm(torch):
     emit({"phase": "ssm", **{label: rec for label, rec in records}})
 
 
+def prefill_card_vs_cpu(torch, cfg, params, batch) -> dict:
+    """An fp32 batch-1 prefill of ``cfg`` with fp32 ``params`` on the card
+    and the same call on a CPU copy of them, held within FP32_TOL. No mesh:
+    both take the plain attention."""
+    import dataclasses
+
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import tree_map
+    from repro_torch.train.serve import make_prefill_step
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = build_model(cfg32)
+    S = batch["tokens"].shape[1]
+    logits = {}
+    for where in (torch.device("cuda"), torch.device("cpu")):
+        p = type(params)(cfg32, tree_map(params.tree(),
+                                         lambda t, w=where: t.to(w)))
+        cache = model32.init_cache(1, S, torch.float32, device=where)
+        b = {k: v[:1].to(where) for k, v in batch.items()}
+        logits[where.type] = make_prefill_step(model32, None)(
+            p, b, cache)[0].float().cpu()
+        del p, cache, b
+    err = max_abs(logits["cuda"], logits["cpu"])
+    check(bool(torch.isfinite(logits["cuda"]).all())
+          and allclose(torch, logits["cuda"], logits["cpu"], *FP32_TOL)[0],
+          f"{cfg.name}: fp32 prefill on the card against the CPU: max "
+          f"|diff| {err}, rtol/atol {FP32_TOL}")
+    return {"batch": 1, "tokens": S, "max_abs": err, "rtol_atol": FP32_TOL,
+            "logit_rms": rms(logits["cpu"])}
+
+
+def phase_vlm(torch):
+    """llama-3.2-vision-90b at full width, one period deep: its fp32 prefill
+    with patches on the card against the CPU, then served on the one-rank
+    mesh with 1024 patches a request; the logits must move when the cross
+    gates open."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import single_rank_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import cast_params
+
+    cfg = dataclasses.replace(get_config(VLM_ARCH), num_layers=VLM_LAYERS)
+    cross = [i for i, c in enumerate(cfg.cross_attn_mask()) if c]
+    check(cross == [VLM_LAYERS - 1], f"vlm cross layers {cross}")
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params32 = model.init(0, device=dev)  # fp32, from a seeded generator
+    # the reference's gates start at 0 (tanh(0) hides the cross branch):
+    # open them to values drawn from the seed
+    gates = torch.rand(len(cross), generator=torch.Generator().manual_seed(
+        VLM_GATE_SEED)) * 0.5 + 0.5
+    for i, g in zip(cross, gates.tolist()):
+        params32.blocks[i]["cross_gate"].data.fill_(g)
+    params = cast_params(params32, torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_S),
+                            generator=gen, device=dev, dtype=torch.int32)
+    patches = torch.randn((SERVE_B, cfg.num_patches, cfg.vision_dim),
+                          generator=gen, device=dev)
+    # the cross layer on the card against the CPU, on the fp32 weights
+    witness = prefill_card_vs_cpu(torch, cfg, params32, {
+        "tokens": prompts[:1, :VLM_WITNESS_S], "patch_embeds": patches[:1]})
+    del params32  # the serving copy stays: about 11 GB of bf16 weights
+    torch.cuda.empty_cache()
+    mesh = single_rank_mesh(("x",))
+    served = serve_run(torch, model, params, prompts, SERVE_NEW, mesh,
+                       extras={"patch_embeds": patches})
+
+    # the cross branch must matter: one request's logits with the gates
+    # set and with them closed
+    with torch.no_grad():
+        batch = {"tokens": prompts[:1], "patch_embeds": patches[:1]}
+        opened = model.apply(params, batch)[0].float()
+        for i in cross:
+            params.blocks[i]["cross_gate"].data.zero_()
+        closed = model.apply(params, batch)[0].float()
+    gate_moves = max_abs(opened, closed)
+    check(bool(torch.isfinite(opened).all()) and gate_moves > 0,
+          f"vlm: the logits with the cross gates open and closed differ "
+          f"by {gate_moves}")
+    del opened, closed, params
+    torch.cuda.empty_cache()
+    # one decode step recomputes the cross K/V of every patch: the patch
+    # projection and the cross layers' k and v projections
+    cross_kv_flop = 2 * SERVE_B * cfg.num_patches * cfg.d_model * (
+        cfg.vision_dim + len(cross) * 2 * cfg.num_kv_heads * cfg.head_dim)
+    emit({"phase": "vlm", **served, "full_depth_layers": 100,
+          "cut": f"depth only: {VLM_LAYERS} of 100 layers (one period, the "
+                 "cross layer last) at full width (random weights, seed 0)",
+          "cross_layers": cross, "cross_gates": gates.tolist(),
+          "patches": [SERVE_B, cfg.num_patches, cfg.vision_dim],
+          "init_s": init_s, "init_peak_memory_gb": init_peak / 1e9,
+          "gate_open_vs_closed_max_abs": gate_moves,
+          "fp32_prefill_vs_cpu": witness,
+          "decode_cross_kv_tflop": cross_kv_flop / 1e12})
+
+
+def phase_whisper(torch):
+    """whisper-base at full size served on the one-rank mesh (no path of
+    the encoder-decoder takes the flash kernel), then its fp32 batch-1
+    prefill on the card against the same call on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import single_rank_mesh
+    from repro_torch.models.model import build_model
+
+    cfg = get_config(WHISPER_ARCH)
+    dev = torch.device("cuda")
+    model = build_model(cfg)
+    params = model.init(0, device=dev)  # fp32, from a seeded generator
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_B, WHISPER_PROMPT),
+                            generator=gen, device=dev, dtype=torch.int32)
+    frames = torch.randn((SERVE_B, cfg.audio_ctx, cfg.d_model),
+                         generator=gen, device=dev)
+    served = serve_run(torch, model, params, prompts, SERVE_NEW, mesh=
+                       single_rank_mesh(("x",)), extras={"frames": frames},
+                       n_flash=0)
+
+    witness = prefill_card_vs_cpu(torch, cfg, params, {
+        "tokens": prompts[:1], "frames": frames[:1]})
+    emit({"phase": "whisper", **served, "frames": list(frames.shape),
+          "cut": "none: full size (random weights, seed 0)",
+          "fp32_prefill_vs_cpu": witness})
+    del params, frames
+    torch.cuda.empty_cache()
+
+
+def engine_run(torch, model, params, prompts, pcfg) -> dict:
+    """One ``ServeEngine.run`` over ``prompts`` on a fresh pool: the
+    streams, per-step stats, wall seconds, launches and peak memory."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ServeEngine
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng = ServeEngine(model, params, pcfg, dtype=torch.bfloat16)
+    out, stats = eng.run(prompts, max_new_tokens=SERVE_NEW,
+                         collect_stats=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"out": out, "stats": stats, "wall_s": wall,
+            "launches": ops.launch_counts(),
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def paged_vs_dense(torch, cfg, params32, prompts, pcfg, new: int) -> dict:
+    """The paged decode held against the dense model: ``prompts`` through
+    an fp32 ``ServeEngine`` on ``params32``'s device, recording every
+    decode step's logits row of each active slot; then each request's
+    final sequence goes once through the model without a cache, and the
+    row of the step that fed position L must match the dense logits at L
+    within FP32_TOL. A wrong page gather or token scatter moves the rows
+    while leaving two runs bit-identical; this does not. Also counts what
+    the compared steps covered: steps with inactive (sentinel) slots,
+    requests on reused pages, tokens that fill their last page."""
+    import dataclasses
+
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import ServeEngine
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = build_model(cfg32)
+    eng = ServeEngine(model32, params32, pcfg, dtype=torch.float32)
+    decode = eng._decode
+    rows = {}  # rid -> [(position fed, logits row on the host)]
+    owner = {}  # page -> the first request seen holding it
+    reused = set()  # requests holding a page an earlier request held
+    cover = {"steps": 0, "steps_with_inactive_slots": 0,
+             "tokens_filling_their_last_page": 0}
+
+    def recording(params, tokens, pages, bt, lengths):
+        logits, pages = decode(params, tokens, pages, bt, lengths)
+        host = logits[:, 0].float().cpu()
+        at = lengths.cpu().tolist()
+        active = eng.scheduler.active
+        cover["steps"] += 1
+        cover["steps_with_inactive_slots"] += len(active) < pcfg.max_slots
+        for slot, req in active.items():
+            rows.setdefault(req.rid, []).append((at[slot], host[slot]))
+            row = eng.alloc.block_table[slot]
+            for page in row[row < pcfg.num_pages].tolist():
+                if owner.setdefault(page, req.rid) != req.rid:
+                    reused.add(req.rid)
+            cover["tokens_filling_their_last_page"] += (
+                (at[slot] + 1) % pcfg.page_size == 0)
+        return logits, pages
+
+    eng._decode = recording
+    out = eng.run(prompts, max_new_tokens=new)
+    eng._decode = decode
+    worst, compared = 0.0, 0
+    for rid, seq in sorted(out.items()):
+        with torch.no_grad():
+            dense = model32.apply(eng.params, {"tokens": torch.from_numpy(
+                seq[None]).to(eng.device)})[0][0].float().cpu()
+        for pos, row in rows.get(rid, []):
+            ok, err = allclose(torch, row, dense[pos], *FP32_TOL)
+            check(ok and bool(torch.isfinite(row).all()),
+                  f"{cfg.name}: paged decode of request {rid} at position "
+                  f"{pos} against the dense logits: max |diff| {err}, "
+                  f"rtol/atol {FP32_TOL}")
+            worst, compared = max(worst, err), compared + 1
+        del dense
+    check(compared == len(prompts) * (new - 1),
+          f"{cfg.name}: {compared} paged decode rows compared, expected "
+          f"{len(prompts) * (new - 1)}")
+    cover["requests_on_reused_pages"] = len(reused)
+    check(cover["steps_with_inactive_slots"] > 0 and reused
+          and cover["tokens_filling_their_last_page"] > 0,
+          f"{cfg.name}: the paged witness covered {cover}")
+    return {"rows": compared, "max_abs": worst, "rtol_atol": FP32_TOL,
+            **cover}
+
+
+def phase_engine(torch):
+    """The continuous-batching ``ServeEngine`` on llama3.2-3b at full size:
+    the paged decode against the dense model in fp32, then ENGINE_REQUESTS
+    requests through the paged cache in bf16, twice (bit-identical), no
+    flash launch (its prefill has no mesh, C7); then resilience_bench's
+    serve-degradation section on the card with its gate."""
+    import numpy as np
+
+    from repro_torch.benchmarks import resilience_bench
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.kvcache import PagedCacheConfig
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import cast_params
+
+    cfg = get_config(SERVE_ARCH)
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    model = build_model(cfg)
+    params32 = model.init(0, device=dev)
+    params = cast_params(params32, torch.bfloat16)
+    rng = np.random.default_rng(ENGINE_SEED)
+    lo, hi = ENGINE_PROMPT
+    prompts = [rng.integers(0, cfg.vocab_size, size=(int(n),)).astype(
+        np.int32) for n in rng.integers(lo, hi + 1, size=ENGINE_REQUESTS)]
+    max_seq = hi + SERVE_NEW
+    pcfg = PagedCacheConfig(page_size=ENGINE_PAGE, num_pages=ENGINE_SLOTS * (
+        -(-max_seq // ENGINE_PAGE)), max_slots=ENGINE_SLOTS, max_seq=max_seq)
+    ops.reset_launch_counts()
+    witness = paged_vs_dense(torch, cfg, params32, prompts, pcfg, SERVE_NEW)
+    check(ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0),
+          f"the fp32 engine launched {ops.launch_counts()}")
+    del params32
+    torch.cuda.empty_cache()
+    runs = [engine_run(torch, model, params, prompts, pcfg) for _ in range(2)]
+    first, second = runs
+    check(set(first["out"]) == set(range(ENGINE_REQUESTS)),
+          f"engine returned requests {sorted(first['out'])}")
+    for rid, p in enumerate(prompts):
+        got = first["out"][rid]
+        check(got.shape == (p.shape[0] + SERVE_NEW,)
+              and np.array_equal(got[:p.shape[0]], p)
+              and bool(((got >= 0) & (got < cfg.padded_vocab())).all()),
+              f"engine request {rid}: {got.shape[0]} tokens for a prompt of "
+              f"{p.shape[0]} + {SERVE_NEW}")
+        check(np.array_equal(got, second["out"][rid]),
+              f"engine request {rid}: two runs differ")
+    for r in runs:
+        check(r["launches"] == dict.fromkeys(ops.KERNELS, 0),
+              f"engine launched {r['launches']}: its prefill has no mesh "
+              "and takes no flash kernel (C7)")
+    stats = second["stats"]
+    steps = sorted(st["decode_s"] for st in stats if st["decode_tokens"])
+    prefills = sum(st["prefills"] for st in stats)
+    new_tokens = sum(st["decode_tokens"] for st in stats) + prefills
+    check(new_tokens == ENGINE_REQUESTS * SERVE_NEW,
+          f"engine generated {new_tokens} tokens")
+    del params
+    torch.cuda.empty_cache()
+
+    sd = resilience_bench.serve_degradation_section(dev)
+    bad = resilience_bench.gate_serve_degradation(sd)
+    check(not bad, f"serve degradation on the card: {bad}")
+    emit({"phase": "engine", "arch": cfg.name, "layers": cfg.num_layers,
+          "dtype": cfg.dtype, "pool_dtype": "bfloat16",
+          "requests": ENGINE_REQUESTS,
+          "prompt_tokens": [int(p.shape[0]) for p in prompts],
+          "new_tokens": SERVE_NEW, "page_size": pcfg.page_size,
+          "num_pages": pcfg.num_pages, "max_slots": pcfg.max_slots,
+          "steps": len(stats), "decode_steps": len(steps),
+          "prefills": prefills,
+          "wall_s": [r["wall_s"] for r in runs],
+          "generated_tokens_per_s": new_tokens / second["wall_s"],
+          "decode_ms_p50": steps[len(steps) // 2] * 1e3,
+          "decode_ms_p99": steps[min(int(len(steps) * 0.99),
+                                     len(steps) - 1)] * 1e3,
+          "prefill_s_per_request": sum(st.get("prefill_s", 0.0)
+                                       for st in stats) / prefills,
+          "peak_memory_gb": max(r["peak"] for r in runs) / 1e9,
+          "launches": second["launches"], "bitwise_repeat": True,
+          "paged_vs_dense_fp32": witness, "serve_degradation": sd})
+
+
 def main() -> int:
     import torch
 
@@ -2571,6 +2950,9 @@ def main() -> int:
     phase_faults(torch)
     phase_moe(torch)
     phase_ssm(torch)
+    phase_vlm(torch)
+    phase_whisper(torch)
+    phase_engine(torch)
 
     check(set(launches) == set(rows) == set(SOURCES),
           f"kernels {sorted(rows)} vs launches {sorted(launches)}")

@@ -34,8 +34,10 @@ host's loopback, not a link rate.
 
 The reference's other two sections wait for later slices of the port and
 are named in the printed record under ``not_ported``: rank-loss elastic
-resume (``:160-241``) needs the training loop (ROADMAP A12), serve rank
-loss (``:251``) the serving engine (A13).
+resume (``:160-241``) needs the training loop (ROADMAP A12); serve rank
+loss (``:251``) runs the serving engine on a GSPMD mesh of several ranks,
+which the port's ``sharding.make_shard_fn`` refuses until the parallel
+model (A12).
 
 The rank body, :func:`link_down_rank`, is a module-level function, so that
 spawned processes can import it. Writes
@@ -73,7 +75,8 @@ PHASES = ("before", "during", "after")
 NOT_PORTED = {
     "rank_loss": "needs the training loop, ROADMAP A12 "
                  "(benchmarks/failover_bench.py:160-241)",
-    "serve_rank_loss": "needs the serving engine, ROADMAP A13 "
+    "serve_rank_loss": "needs a GSPMD mesh of several ranks, which "
+                       "sharding.make_shard_fn refuses until ROADMAP A12 "
                        "(benchmarks/failover_bench.py:251)",
 }
 

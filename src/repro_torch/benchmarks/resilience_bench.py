@@ -1,9 +1,10 @@
 """Degraded-link resilience: detect drift, retune mid-run, flip back.
 
-Port of the train-retune and measured-retune sections of
-``benchmarks/resilience_bench.py`` (``_modeled_step``,
+Port of the train-retune, measured-retune and serve-degradation sections
+of ``benchmarks/resilience_bench.py`` (``_modeled_step``,
 ``_train_retune_section``, ``_gate_train_retune``,
-``_measured_retune_section``, ``:67-204``).
+``_measured_retune_section``, ``:67-204``; ``_serve_degradation_section``,
+``_gate_serve_degradation``, ``:274-336``).
 
     python -m repro_torch.benchmarks.resilience_bench [--quick]
         [--device cuda|cpu]
@@ -36,10 +37,19 @@ Port of the train-retune and measured-retune sections of
   axes ``rows``/``cols``, so the injected delay is 0 and the section
   compares two clean runs (ROADMAP C14).
 
-The reference's other two sections wait for later slices and are named in
-the printed record under ``not_ported``: train degradation (``:206-264``)
-needs the training loop (ROADMAP A12), serve degradation (``:274``) the
-serving engine (A13).
+* **serve degradation** (gated, deterministic): the continuous-batching
+  :class:`~repro_torch.serve.ServeEngine` at the reference's geometry
+  (reduced llama3.2-3b, 2 layers at d_model 32; three 4-token prompts, 8
+  new tokens each) on a pool of 4 pages too small for its work, with
+  ``preempt=True`` and a 20 ms ``serve.step`` host delay over steps [4,
+  8), against a 16-page pool that never preempts. Recorded: tok/s before,
+  during and after the delay, the preemption count, tokens lost. Exits 1
+  unless the streams are token-identical, no token is lost and at least
+  one preemption happened (so that the check could fail).
+
+The reference's train-degradation section (``:206-264``) needs the
+training loop (ROADMAP A12) and is named in the printed record under
+``not_ported``.
 
 The rank body, :func:`train_retune_rank`, is a module-level function, so
 that spawned processes can import it. Writes
@@ -83,8 +93,6 @@ PHASES = (("before", 0, FAULT_AT), ("during", FAULT_AT, HEAL_AT),
 NOT_PORTED = {
     "train_degradation": "needs the training loop, ROADMAP A12 "
                          "(benchmarks/resilience_bench.py:206-264)",
-    "serve_degradation": "needs the serving engine, ROADMAP A13 "
-                         "(benchmarks/resilience_bench.py:274)",
 }
 
 
@@ -254,6 +262,82 @@ def measured_retune_section(quick: bool, device) -> Dict:
     }
 
 
+def _tok_per_s(stats, lo, hi) -> float:
+    window = [s for s in stats[lo:hi] if s["decode_tokens"]]
+    toks = sum(s["decode_tokens"] for s in window)
+    secs = sum(s["decode_s"] for s in window)
+    return toks / secs if secs > 0 else 0.0
+
+
+SERVE_WINDOW = (4, 8)       # serve steps under the host delay
+SERVE_DELAY_S = 0.02
+
+
+def serve_degradation_section(device) -> Dict:
+    """The preempting small-pool engine under a host-delay window against a
+    large pool that never degrades: token-exact, with tok/s phases
+    recorded. Random weights from seed 0, prompts from numpy seed 11, as
+    in the reference."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.kvcache import PagedCacheConfig
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import ServeEngine
+
+    cfg = reduced(get_config("llama3.2-3b"), layers=2, d_model=32)
+    model = build_model(cfg)
+    params = model.init(0, device=device)
+    rng = np.random.default_rng(11)
+    n_req, max_new = 3, 8
+    prompts = [rng.integers(0, cfg.vocab_size, size=(4,)).astype(np.int32)
+               for _ in range(n_req)]
+
+    big = ServeEngine(model, params, PagedCacheConfig(
+        page_size=4, num_pages=16, max_slots=4, max_seq=16))
+    for p in prompts:
+        big.submit(p, max_new)
+    ref = big.run()
+
+    lo, hi = SERVE_WINDOW
+    inj = FaultInjector(hw=H100_80GB)
+    fault = FaultSchedule.degrade_window(
+        inj, lo, hi, axis="x", host_delay_s=SERVE_DELAY_S,
+        callsite="serve.step")
+    small = ServeEngine(model, params, PagedCacheConfig(
+        page_size=4, num_pages=4, max_slots=2, max_seq=16),
+        preempt=True, fault_schedule=fault)
+    for p in prompts:
+        small.submit(p, max_new)
+    out, stats = small.run(collect_stats=True)
+
+    lost = sum(int(ref[r].shape[0] - out[r].shape[0]) for r in ref)
+    return {
+        "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "requests": n_req, "max_new": max_new,
+        "small_pool_pages": 4, "big_pool_pages": 16,
+        "fault_window": [lo, hi], "host_delay_s": SERVE_DELAY_S,
+        "steps": len(stats),
+        "preempted": small.scheduler.preempted_total,
+        "timeouts": sum(s["timeouts"] for s in stats),
+        "rejected": sum(s["rejected"] for s in stats),
+        "tok_per_s_before": _tok_per_s(stats, 1, lo),
+        "tok_per_s_during": _tok_per_s(stats, lo, hi),
+        "tok_per_s_after": _tok_per_s(stats, hi, len(stats)),
+        "tokens_lost": lost,
+        "token_identical": all(np.array_equal(ref[r], out[r]) for r in ref),
+    }
+
+
+def gate_serve_degradation(sec) -> list:
+    """The reference's gate (``_gate_serve_degradation``): what fails in
+    ``sec``."""
+    bad = []
+    if not sec["token_identical"] or sec["tokens_lost"]:
+        bad.append(f"preemption lost tokens (lost={sec['tokens_lost']})")
+    if sec["preempted"] < 1:
+        bad.append("pool pressure never triggered a preemption")
+    return bad
+
+
 def main(quick: bool = False, schedule=None, device=None) -> dict:
     device = resolve_device(device)
     if schedule not in (None, "auto"):
@@ -280,6 +364,16 @@ def main(quick: bool = False, schedule=None, device=None) -> dict:
     print(f"   clean:    {mr['clean_winners']}")
     print(f"   degraded: {mr['degraded_winners']}")
     print(f"   {mr['caveat']}")
+    sd = serve_degradation_section(device)
+    record["serve_degradation"] = sd
+    print("\n-- serve under page exhaustion + host-delay window "
+          f"({SERVE_DELAY_S * 1e3:.0f}ms over steps {sd['fault_window']}) --")
+    print(table([[sd["preempted"], sd["tokens_lost"],
+                  f"{sd['tok_per_s_before']:.1f}",
+                  f"{sd['tok_per_s_during']:.1f}",
+                  f"{sd['tok_per_s_after']:.1f}", sd["token_identical"]]],
+                ["preempted", "lost", "tok/s before", "during", "after",
+                 "token-exact"]))
     for name, why in NOT_PORTED.items():
         print(f"-- {name}: not ported yet, {why} --")
     save_result("resilience_bench", record)
@@ -288,8 +382,12 @@ def main(quick: bool = False, schedule=None, device=None) -> dict:
     if bad:
         print("TRAIN-RETUNE GATE FAILED:", bad)
         raise SystemExit(1)
+    bad = gate_serve_degradation(sd)
+    if bad:
+        print("SERVE-DEGRADATION GATE FAILED:", bad)
+        raise SystemExit(1)
     print("[resilience ok: hpl.panel flipped away and back on every rank, "
-          "bit-identical]")
+          "bit-identical; serving preempted and lost no token]")
     return record
 
 

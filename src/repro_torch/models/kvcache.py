@@ -1,16 +1,27 @@
-"""Decode state: the dense KV cache of attention layers and the conv and
-SSD state of SSM layers.
+"""Decode state: the dense KV cache of attention layers, the conv and SSD
+state of SSM layers, and the paged KV cache of the serving engine.
 
-Port of ``repro/models/kvcache.py::attn_cache_spec`` (:28) and
-``ssm_cache_spec`` (:36). The port keeps one dict per layer (a list, not
-the reference's stack over super-blocks) and writes into it in place. The
-paged page pools and ``PageAllocator`` wait for the paged server (ROADMAP
-A13).
+Port of ``repro/models/kvcache.py``. The port keeps one dict per layer (a
+list, not the reference's stack over super-blocks) and writes into it in
+place.
+
+The paged cache (``:54-217``) holds one pool of fixed-size pages per layer,
+shared by every request; a host-side :class:`PageAllocator` (numpy, as in
+the reference) hands pages to requests on admission and recycles them on
+completion. Its block table marks "no page" with the sentinel
+``num_pages``. The reference's device helpers rely on ``jnp``'s index
+modes there: gathers through the sentinel clip, scatters to it drop. Torch
+indexing has no such modes (an out-of-range index raises on the CPU and is
+a device-side assert on the card), so :func:`gather_pages` clamps
+explicitly and :func:`commit_prefill` and :func:`scatter_token` write only
+the positions whose page is real.
 """
 from __future__ import annotations
 
-from typing import Dict
+from dataclasses import dataclass
+from typing import Dict, List
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -38,3 +49,209 @@ def ssm_cache_spec(cfg: ModelConfig, batch: int, dtype,
         "state": torch.zeros((batch, H, P, N), dtype=torch.float32,
                              device=device),
     }
+
+
+# ---------------------------------------------------------------------------
+# paged KV cache
+# ---------------------------------------------------------------------------
+
+
+class OutOfPagesError(RuntimeError):
+    """The page pool cannot satisfy an allocation (pages or slots)."""
+
+
+@dataclass(frozen=True)
+class PagedCacheConfig:
+    """Geometry of the page pool.
+
+    ``page_size``   tokens per page.
+    ``num_pages``   pool size, shared by all requests (also the block-table
+                    sentinel value: an entry == ``num_pages`` means "no
+                    page"; writes to it are dropped).
+    ``max_slots``   decode batch width: concurrent requests.
+    ``max_seq``     per-request token cap (prompt + generated); bounds the
+                    block-table row width.
+    """
+    page_size: int
+    num_pages: int
+    max_slots: int
+    max_seq: int
+
+    def __post_init__(self):
+        if min(self.page_size, self.num_pages,
+               self.max_slots, self.max_seq) <= 0:
+            raise ValueError(f"non-positive paged-cache geometry: {self}")
+
+    @property
+    def pages_per_slot(self) -> int:
+        return -(-self.max_seq // self.page_size)
+
+
+def paged_attn_cache_spec(cfg: ModelConfig, pcfg: PagedCacheConfig, dtype,
+                          device=None) -> Dict[str, torch.Tensor]:
+    """One layer's page pool: k/v pages of (num_pages, page_size, KV,
+    hd)."""
+    shape = (pcfg.num_pages, pcfg.page_size, cfg.num_kv_heads, cfg.head_dim)
+    return {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
+            "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+class PageAllocator:
+    """Host-side block table + free-list over one page pool.
+
+    A request reserves its worst-case page count up front (``allocate``
+    with the prompt + max-new token total), so decode never runs out of
+    pages mid-flight: admission control happens once, via
+    ``can_allocate``. ``seq_len`` then tracks the filled prefix: ``append``
+    advances it one token per decode step, ``release`` recycles the slot
+    and its pages.
+
+    The numpy ``block_table`` / ``seq_lens`` are the decode step's inputs
+    (:meth:`device_tables`): unallocated entries hold the sentinel
+    ``num_pages``, whose writes drop and whose gathers clamp (masked off by
+    length).
+    """
+
+    def __init__(self, pcfg: PagedCacheConfig):
+        self.cfg = pcfg
+        self.block_table = np.full(
+            (pcfg.max_slots, pcfg.pages_per_slot), pcfg.num_pages, np.int32)
+        self.seq_lens = np.zeros((pcfg.max_slots,), np.int32)
+        self._capacity = np.zeros((pcfg.max_slots,), np.int32)
+        self._free_pages: List[int] = list(range(pcfg.num_pages))
+        self._free_slots: List[int] = list(range(pcfg.max_slots))
+
+    def _pages_for(self, total_tokens: int) -> int:
+        return -(-total_tokens // self.cfg.page_size)
+
+    @property
+    def free_page_count(self) -> int:
+        return len(self._free_pages)
+
+    @property
+    def free_slot_count(self) -> int:
+        return len(self._free_slots)
+
+    def can_allocate(self, total_tokens: int) -> bool:
+        return (bool(self._free_slots)
+                and 0 < total_tokens <= self.cfg.max_seq
+                and self._pages_for(total_tokens) <= len(self._free_pages))
+
+    def allocate(self, total_tokens: int) -> int:
+        """Reserve a slot + pages for up to ``total_tokens``; returns the
+        slot."""
+        if total_tokens <= 0 or total_tokens > self.cfg.max_seq:
+            raise ValueError(
+                f"request of {total_tokens} tokens exceeds max_seq="
+                f"{self.cfg.max_seq}")
+        npages = self._pages_for(total_tokens)
+        if not self._free_slots or npages > len(self._free_pages):
+            raise OutOfPagesError(
+                f"cannot reserve {npages} pages + 1 slot "
+                f"(free: {len(self._free_pages)} pages, "
+                f"{len(self._free_slots)} slots)")
+        slot = self._free_slots.pop(0)
+        for i in range(npages):
+            self.block_table[slot, i] = self._free_pages.pop(0)
+        self.seq_lens[slot] = 0
+        self._capacity[slot] = npages * self.cfg.page_size
+        return slot
+
+    def commit(self, slot: int, length: int) -> None:
+        """Record ``length`` prefilled tokens for ``slot``."""
+        if length > self._capacity[slot]:
+            raise ValueError(
+                f"slot {slot}: prefill of {length} exceeds reserved "
+                f"capacity {int(self._capacity[slot])}")
+        self.seq_lens[slot] = length
+
+    def append(self, slot: int, n: int = 1) -> None:
+        """Advance ``slot`` by ``n`` decoded tokens."""
+        if self.seq_lens[slot] + n > self._capacity[slot]:
+            raise OutOfPagesError(
+                f"slot {slot}: append past reserved capacity "
+                f"{int(self._capacity[slot])}")
+        self.seq_lens[slot] += n
+
+    def release(self, slot: int) -> None:
+        """Recycle the slot and its pages (block-table row -> sentinel)."""
+        row = self.block_table[slot]
+        self._free_pages.extend(int(p) for p in row if p < self.cfg.num_pages)
+        row[:] = self.cfg.num_pages
+        self.seq_lens[slot] = 0
+        self._capacity[slot] = 0
+        self._free_slots.append(slot)
+
+    def device_tables(self, device=None):
+        """(block_table, seq_lens) as int32 tensors on ``device`` for the
+        decode step."""
+        return (torch.from_numpy(self.block_table.copy()).to(device),
+                torch.from_numpy(self.seq_lens.copy()).to(device))
+
+
+def gather_pages(pages: torch.Tensor,
+                 block_table: torch.Tensor) -> torch.Tensor:
+    """Gather a pool's pages into per-slot contiguous KV.
+
+    ``pages``: (num_pages, page_size, KV, hd); ``block_table``: (B, pmax)
+    integers (sentinel entries clamp to the last page, as the reference's
+    ``mode="clip"``; callers mask by length). Returns a new (B, pmax *
+    page_size, KV, hd) tensor."""
+    B, pmax = block_table.shape
+    idx = block_table.long().clamp(0, pages.shape[0] - 1).reshape(-1)
+    g = pages.index_select(0, idx)
+    return g.reshape(B, pmax * pages.shape[1], *pages.shape[2:])
+
+
+def _real(page_idx: torch.Tensor, off: torch.Tensor, num_pages: int):
+    """(positions, pages, offsets) of the entries of ``page_idx`` that name
+    a real page (< ``num_pages``): the reference's scatters drop the
+    others. One nonzero selects them, so no dropped write is clamped onto
+    a page that a real one also writes."""
+    keep = (page_idx < num_pages).nonzero()[:, 0]
+    return keep, page_idx[keep], off[keep]
+
+
+def commit_prefill(pages_layers: List[Dict], dense_layers: List[Dict],
+                   block_row, length, *, page_size: int) -> List[Dict]:
+    """Scatter one request's dense prefill cache into its reserved pages,
+    in place.
+
+    ``pages_layers``: per layer ``{'k_pages', 'v_pages'}`` (P, ps, KV,
+    hd); ``dense_layers``: per layer ``{'k', 'v'}`` (1, S, KV, hd) (a
+    batch-1 prefill, possibly padded past ``length``: pad positions drop,
+    as do positions whose block-table entry is the sentinel).
+    ``block_row``: (pmax,) integers. Returns ``pages_layers``."""
+    S = dense_layers[0]["k"].shape[1]
+    device = pages_layers[0]["k_pages"].device
+    num_pages = pages_layers[0]["k_pages"].shape[0]
+    pos = torch.arange(S, device=device)
+    row = torch.as_tensor(block_row, device=device).long()
+    page_idx = row[(pos // page_size).clamp(max=row.shape[0] - 1)]
+    page_idx = torch.where(pos < int(length), page_idx, num_pages)
+    keep, page, off = _real(page_idx, pos % page_size, num_pages)
+    for pages, dense in zip(pages_layers, dense_layers):
+        for pooled, flat in (("k_pages", "k"), ("v_pages", "v")):
+            pool = pages[pooled]
+            pool[page, off] = dense[flat][0, keep].to(pool.dtype)
+    return pages_layers
+
+
+def token_slots(block_table: torch.Tensor, lengths: torch.Tensor,
+                page_size: int, num_pages: int):
+    """Where each decode row's token at ``lengths[b]`` goes: the page of
+    block-table column ``lengths // page_size`` (clipped to the row) at
+    offset ``lengths % page_size``. Returns (rows, pages, offsets) of the
+    rows whose page is real; rows on the sentinel (inactive slots) drop."""
+    col = (lengths.long() // page_size).clamp(0, block_table.shape[1] - 1)
+    page_idx = block_table.long().gather(1, col[:, None])[:, 0]
+    return _real(page_idx, lengths.long() % page_size, num_pages)
+
+
+def scatter_token(pages: Dict, upd: Dict, slots) -> None:
+    """Write one layer's decode token update ``{'k_upd', 'v_upd'}`` (B, 1,
+    KV, hd) into its pool in place, at :func:`token_slots`' ``slots``."""
+    rows, page, off = slots
+    for name, val in upd.items():
+        pool = pages[name[0] + "_pages"]
+        pool[page, off] = val[rows, 0].to(pool.dtype)

@@ -14,9 +14,11 @@ gives the same exact products and fp32 sums.
 
 qk-norm (``cfg.use_qk_norm``, qwen3-moe) normalizes q and k per head after
 the qkv biases and before rope, as the reference does (``layers.py:319``).
-Not in this slice: cross-attention (vlm, ROADMAP A11), the paged-cache
-branch of :func:`apply_attention` (A13), the explicit ``attn_impl`` hook
-and tensor-parallel flash (A12).
+:func:`apply_attention` also takes the reference's cross-attention source
+``kv_x`` (vlm, whisper), ``causal`` and ``use_rope`` (whisper's encoder)
+and its paged-decode branch (a page pool with a ``page_table``). Not in
+this slice: the explicit ``attn_impl`` hook and tensor-parallel flash
+(ROADMAP A12).
 """
 from __future__ import annotations
 
@@ -209,7 +211,8 @@ def _flash_sharded(q, k, v, *, shard, causal: bool):
 
 
 # ---------------------------------------------------------------------------
-# Attention block (params + apply): self-attention with a dense cache
+# Attention block (params + apply): self- or cross-attention, dense or paged
+# cache
 # ---------------------------------------------------------------------------
 
 
@@ -219,15 +222,21 @@ def _normal(gen, shape, std, device):
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, *,
+                   kv_in_dim: Optional[int] = None,
+                   layers_for_scale: Optional[int] = None,
                    device=None) -> dict:
+    """q/k/v/o projections; k and v read ``kv_in_dim`` features (a
+    cross-attention source) when given, and the output projection's scale
+    follows ``layers_for_scale`` (whisper's encoder) when given."""
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    kv_in = kv_in_dim or d
+    nl = layers_for_scale or cfg.num_layers
     std = 0.02
     p = {
         "wq": _normal(gen, (d, h, hd), std, device),
-        "wk": _normal(gen, (d, kv, hd), std, device),
-        "wv": _normal(gen, (d, kv, hd), std, device),
-        "wo": _normal(gen, (h, hd, d), std / math.sqrt(2 * cfg.num_layers),
-                      device),
+        "wk": _normal(gen, (kv_in, kv, hd), std, device),
+        "wv": _normal(gen, (kv_in, kv, hd), std, device),
+        "wo": _normal(gen, (h, hd, d), std / math.sqrt(2 * nl), device),
     }
     if cfg.qkv_bias:
         p["bq"] = torch.zeros((h, hd), device=device)
@@ -247,16 +256,32 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def apply_attention(p, cfg: ModelConfig, x: torch.Tensor, *,
-                    cache: Optional[dict] = None, pos=None, shard=None):
-    """Causal self-attention; returns (out, cache). ``cache`` is a dense
-    ``{'k', 'v'}`` (B, Smax, KV, hd) pair, written in place: positions
-    [0, S) in prefill (``pos`` None), positions [pos, pos + S) in decode,
-    which then attends over the whole cache under the causal mask. Prefill
-    with a cache and a ``shard`` carrying a mesh takes the flash kernel."""
+                    kv_x: Optional[torch.Tensor] = None,
+                    cache: Optional[dict] = None, pos=None,
+                    causal: bool = True, use_rope: bool = True, shard=None,
+                    page_table: Optional[dict] = None):
+    """Self- or cross-attention; returns (out, cache).
+
+    ``kv_x`` (B, Skv, kv_in) is a cross-attention source: k and v are
+    projected from it, rope is skipped (as with ``use_rope=False``) and the
+    attention is not causal. A dense ``cache`` ``{'k', 'v'}`` (B, Smax, KV,
+    hd) is written in place: positions [0, S) in prefill (``pos`` None),
+    [pos, pos + S) in decode, which then attends over the whole cache under
+    the causal mask. Prefill with a cache and a ``shard`` carrying a mesh
+    takes the flash kernel (causal self-attention only).
+
+    A paged ``cache`` ``{'k_pages', 'v_pages'}`` (num_pages, page_size, KV,
+    hd) is decode only (S == 1): ``pos`` is the (B,) vector of lengths,
+    ``page_table`` holds ``block_table`` (B, pmax) and ``lengths``. Each
+    row attends over its gathered pages with its new token at
+    ``lengths[b]``; the pool is not written here, and the returned cache
+    is the token update ``{'k_upd', 'v_upd'}`` (B, 1, KV, hd) that
+    :func:`repro_torch.models.kvcache.scatter_token` writes into it."""
     dtype = x.dtype
+    src = kv_x if kv_x is not None else x
     q = _project(x, p["wq"])
-    k = _project(x, p["wk"])
-    v = _project(x, p["wv"])
+    k = _project(src, p["wk"])
+    v = _project(src, p["wv"])
     if cfg.qkv_bias:
         q = q + p["bq"].to(dtype)
         k = k + p["bk"].to(dtype)
@@ -265,20 +290,38 @@ def apply_attention(p, cfg: ModelConfig, x: torch.Tensor, *,
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
 
-    if isinstance(pos, torch.Tensor) and pos.dim() == 1:
-        raise NotImplementedError("per-row positions (paged decode) are not "
-                                  "ported yet (ROADMAP A13)")
+    per_row = isinstance(pos, torch.Tensor) and pos.dim() == 1
     q_offset = 0 if pos is None else pos
-    if cfg.rope_theta > 0:
-        positions = torch.arange(x.shape[1], device=x.device) + q_offset
+    if use_rope and cfg.rope_theta > 0 and kv_x is None:
+        steps = torch.arange(x.shape[1], device=x.device)
+        # paged decode: per-row positions (B, S); else (S,)
+        positions = pos[:, None] + steps if per_row else steps + q_offset
         sin, cos = rope_table(positions, cfg.head_dim, cfg.rope_theta)
         q = apply_rope(q, sin, cos)
         k = apply_rope(k, sin, cos)
 
+    if cache is not None and kv_x is not None:
+        raise ValueError("cross-attention KV is not cached here")
+    if cache is not None and "k_pages" in cache:
+        if page_table is None:
+            raise ValueError("paged cache requires page_table=")
+        # local: kvcache imports ssm, which imports this module
+        from repro_torch.models.kvcache import gather_pages
+        kp, vp = cache["k_pages"], cache["v_pages"]
+        k_upd, v_upd = k.to(kp.dtype), v.to(vp.dtype)
+        bt, lengths = page_table["block_table"], page_table["lengths"]
+        gk, gv = gather_pages(kp, bt), gather_pages(vp, bt)
+        # the new token at lengths[b]; a row whose length lies past the
+        # gathered width keeps what it gathered (the reference's drop)
+        rows = torch.arange(q.shape[0], device=q.device)
+        at = lengths.long().clamp(max=gk.shape[1] - 1)
+        inside = (lengths < gk.shape[1])[:, None, None]
+        gk[rows, at] = torch.where(inside, k_upd[:, 0], gk[rows, at])
+        gv[rows, at] = torch.where(inside, v_upd[:, 0], gv[rows, at])
+        o = decode_attention(q, gk.to(dtype), gv.to(dtype), lengths=lengths)
+        return _out_proj(o, p["wo"]), {"k_upd": k_upd, "v_upd": v_upd}
+
     if cache is not None:
-        if "k_pages" in cache:
-            raise NotImplementedError("the paged KV cache is not ported yet "
-                                      "(ROADMAP A13)")
         ck, cv = cache["k"], cache["v"]
         S = x.shape[1]
         if pos is None:  # prefill: write the whole prefix
@@ -290,14 +333,20 @@ def apply_attention(p, cfg: ModelConfig, x: torch.Tensor, *,
             k, v = ck.to(dtype), cv.to(dtype)
 
     o = None
-    if shard is not None and cache is not None and pos is None:
+    if (shard is not None and kv_x is None and causal and cache is not None
+            and pos is None):
         o = _flash_sharded(q, k, v, shard=shard, causal=True)
     if o is None:
-        o = attention(q, k, v, causal=True, q_offset=q_offset)
+        o = attention(q, k, v, causal=causal and kv_x is None,
+                      q_offset=q_offset)
+    return _out_proj(o, p["wo"]), cache
+
+
+def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    # "bshk,hkd->bsd": one product over the flattened head axes
     B, S, H, hd = o.shape
-    wo = p["wo"].to(dtype)
-    out = torch.matmul(o.reshape(B, S, H * hd), wo.reshape(H * hd, -1))
-    return out, cache
+    return torch.matmul(o.reshape(B, S, H * hd),
+                        wo.to(o.dtype).reshape(H * hd, -1))
 
 
 # ---------------------------------------------------------------------------

@@ -1,15 +1,18 @@
 """Family dispatch: one Model API, and weights to and from the reference.
 
 Port of ``repro/models/model.py``. ``build_model(cfg)`` returns a
-:class:`Model` with ``init / apply / init_cache`` closures for the dense,
-MoE, SSM and hybrid decoder families; cross-attention (vlm) and
-encoder-decoder models raise ``NotImplementedError`` naming ROADMAP A11.
-:func:`from_reference` and :func:`to_reference` move weights between the
-reference's parameter tree (numpy arrays, each block leaf stacked over
-super-blocks, ``blocks/p{i}`` per period position with its own kind of
-layer: attention or SSM, MoE (with ``shared``) or MLP) and the port's
-per-layer modules, bit for bit; they are the one place where layouts
-change.
+:class:`Model` with ``init / apply / init_cache`` closures for every
+family: the decoder (dense, MoE, SSM, hybrid and vlm,
+:mod:`repro_torch.models.transformer`; its ``apply`` passes
+``batch["patch_embeds"]``) and the encoder-decoder (whisper,
+:mod:`repro_torch.models.encdec`; its ``apply`` passes
+``batch["frames"]``). :func:`from_reference` and :func:`to_reference` move
+weights between the reference's parameter tree (numpy arrays) and the
+port's per-layer modules, bit for bit; they are the one place where
+layouts change. The decoder's block leaves are stacked over super-blocks,
+``blocks/p{i}`` per period position, plus ``vlm`` (``patch_proj``,
+``patch_norm``); the encoder-decoder's ``enc_blocks`` and ``dec_blocks``
+are stacked over layers.
 """
 from __future__ import annotations
 
@@ -21,38 +24,48 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.hpcc import resolve_device
-from repro_torch.models import transformer
-from repro_torch.models.transformer import Params, _noshard
+from repro_torch.models import encdec, transformer
+from repro_torch.models.transformer import _noshard
 
 
 @dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
-    init: Callable        # (seed=0, *, device=None) -> Params
+    init: Callable        # (seed=0, *, device=None) -> Params / EncDecParams
     apply: Callable       # (params, batch, cache=None, shard=...) -> (logits, cache, aux)
     init_cache: Callable  # (batch, max_seq, dtype=bf16, device=None) -> cache
 
 
 def _decoder_apply(cfg):
-    def apply(params, batch, *, cache=None, shard=_noshard):
+    def apply(params, batch, *, cache=None, shard=_noshard, page_table=None):
         return transformer.apply(params, cfg, batch["tokens"], cache=cache,
-                                 shard=shard)
+                                 patch_embeds=batch.get("patch_embeds"),
+                                 shard=shard, page_table=page_table)
+    return apply
+
+
+def _encdec_apply(cfg):
+    def apply(params, batch, *, cache=None, shard=_noshard):
+        return encdec.apply(params, cfg, batch["tokens"],
+                            frames=batch.get("frames"), cache=cache,
+                            shard=shard)
     return apply
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    transformer.check_supported(cfg)
+    mod = encdec if cfg.is_encoder_decoder else transformer
 
-    def init(seed: int = 0, *, device=None) -> Params:
+    def init(seed: int = 0, *, device=None):
         gen = torch.Generator(device=resolve_device(device))
-        return transformer.init_params(cfg, gen.manual_seed(seed))
+        return mod.init_params(cfg, gen.manual_seed(seed))
 
     def init_cache(batch, max_seq, dtype=torch.bfloat16, device=None):
-        return transformer.init_cache(cfg, batch, max_seq, dtype,
-                                      resolve_device(device))
+        return mod.init_cache(cfg, batch, max_seq, dtype,
+                              resolve_device(device))
 
-    return Model(cfg=cfg, init=init, apply=_decoder_apply(cfg),
-                 init_cache=init_cache)
+    apply = _encdec_apply(cfg) if cfg.is_encoder_decoder \
+        else _decoder_apply(cfg)
+    return Model(cfg=cfg, init=init, apply=apply, init_cache=init_cache)
 
 
 # ---------------------------------------------------------------------------
@@ -79,44 +92,52 @@ def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def from_reference(cfg: ModelConfig, params_np: Dict, *,
-                   device=None) -> Params:
+def from_reference(cfg: ModelConfig, params_np: Dict, *, device=None):
     """The port's weights from the reference's parameter tree (numpy or
-    array-like leaves): layer ``i`` takes index ``i // period`` of every
-    ``blocks/p{i % period}`` leaf; shapes and values are unchanged."""
-    transformer.check_supported(cfg)
+    array-like leaves); shapes and values are unchanged. Decoder layer
+    ``i`` takes index ``i // period`` of every ``blocks/p{i % period}``
+    leaf; encoder-decoder layer ``i`` takes index ``i`` of its block
+    list's leaves."""
     dev = resolve_device(device)
-    period = transformer.period_of(cfg)
 
     def t(a):
         return torch.from_numpy(np.array(a, copy=True)).to(dev)
 
-    blocks = []
-    for i in range(cfg.num_layers):
-        s, p = divmod(i, period)
-        blocks.append(transformer.tree_map(params_np["blocks"][f"p{p}"],
-                                lambda a, s=s: t(np.asarray(a)[s])))
-    return Params(cfg, {"embed": t(params_np["embed"]),
-                        "final_norm": t(params_np["final_norm"]),
-                        "blocks": blocks})
+    def layer(stacked, s):
+        return transformer.tree_map(stacked, lambda a: t(np.asarray(a)[s]))
 
-
-def to_reference(params: Params) -> Dict:
-    """The reference's parameter tree (numpy leaves, block leaves stacked
-    over super-blocks) of the port's weights."""
-    cfg = params.cfg
+    if cfg.is_encoder_decoder:
+        return encdec.EncDecParams(cfg, {
+            "embed": t(params_np["embed"]),
+            "enc_blocks": [layer(params_np["enc_blocks"], i)
+                           for i in range(cfg.num_encoder_layers)],
+            "enc_norm": t(params_np["enc_norm"]),
+            "dec_blocks": [layer(params_np["dec_blocks"], i)
+                           for i in range(cfg.num_layers)],
+            "final_norm": t(params_np["final_norm"])})
     period = transformer.period_of(cfg)
-    tree = params.tree()
+    tree = {"embed": t(params_np["embed"]),
+            "final_norm": t(params_np["final_norm"]),
+            "blocks": [layer(params_np["blocks"][f"p{i % period}"],
+                             i // period) for i in range(cfg.num_layers)]}
+    if "vlm" in params_np:
+        tree["vlm"] = transformer.tree_map(params_np["vlm"], t)
+    return transformer.Params(cfg, tree)
 
-    def n(x):
-        return x.detach().cpu().numpy()
 
-    blocks = {}
-    for p in range(period):
-        layers = tree["blocks"][p::period]
-        blocks[f"p{p}"] = _stack([transformer.tree_map(b, n) for b in layers])
-    return {"embed": n(tree["embed"]), "final_norm": n(tree["final_norm"]),
-            "blocks": blocks}
+def to_reference(params) -> Dict:
+    """The reference's parameter tree (numpy leaves, block leaves stacked
+    over super-blocks, or over layers for the encoder-decoder) of the
+    port's weights."""
+    cfg = params.cfg
+    tree = transformer.tree_map(params.tree(),
+                                lambda x: x.detach().cpu().numpy())
+    if cfg.is_encoder_decoder:
+        return {**tree, "enc_blocks": _stack(tree["enc_blocks"]),
+                "dec_blocks": _stack(tree["dec_blocks"])}
+    period = transformer.period_of(cfg)
+    return {**tree, "blocks": {f"p{p}": _stack(tree["blocks"][p::period])
+                               for p in range(period)}}
 
 
 def _stack(trees):
@@ -124,4 +145,3 @@ def _stack(trees):
     if isinstance(first, dict):
         return {k: _stack([t[k] for t in trees]) for k in first}
     return np.stack(trees)
-

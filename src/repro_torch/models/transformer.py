@@ -1,4 +1,4 @@
-"""Decoder-only LM: the dense, MoE, SSM and hybrid families.
+"""Decoder-only LM: the dense, MoE, SSM, hybrid and vlm families.
 
 Port of ``repro/models/transformer.py``. The reference stacks each period
 position's parameters over super-blocks and runs the layers as one
@@ -8,14 +8,15 @@ layer ``i`` holding what the reference keeps at index ``i // period`` of
 moves weights across). A layer is attention or SSM by
 ``cfg.layer_kinds()`` (jamba: one attention layer per ``attn_every``), and
 its feed-forward is MoE on ``cfg.moe_layer_mask()`` (every ``moe_every``-th
-layer), else the dense MLP when ``d_ff`` is set (mamba2 has none). The
-cache is a list of per-layer dicts written in place (``{'k', 'v'}`` for
-attention, ``{'conv_x', 'conv_bc', 'state'}`` for SSM); the reference
-donates its cache and returns the updated one.
+layer), else the dense MLP when ``d_ff`` is set (mamba2 has none). vlm
+layers on ``cfg.cross_attn_mask()`` (every ``cross_attn_every``-th) add a
+gated cross-attention to the projected patch embeddings. The cache is a
+list of per-layer dicts written in place (``{'k', 'v'}`` for attention,
+``{'conv_x', 'conv_bc', 'state'}`` for SSM, ``{'k_pages', 'v_pages'}``
+pools for paged decode); the reference donates its cache and returns the
+updated one.
 
-Cross-attention (vlm) and encoder-decoder models raise
-``NotImplementedError`` naming ROADMAP A11; the paged cache raises naming
-A13.
+Encoder-decoder models are :mod:`repro_torch.models.encdec`.
 """
 from __future__ import annotations
 
@@ -29,7 +30,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
-from repro_torch.models.kvcache import attn_cache_spec, ssm_cache_spec
+from repro_torch.models.kvcache import (PagedCacheConfig, attn_cache_spec,
+                                        paged_attn_cache_spec, scatter_token,
+                                        ssm_cache_spec, token_slots)
 
 Shard = Callable[[torch.Tensor, str], torch.Tensor]
 
@@ -46,14 +49,10 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for a configuration outside the ported families."""
+    """Raise for a configuration this decoder-only module does not run."""
     if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder models are "
-                                  "not ported yet (ROADMAP A11)")
-    if cfg.cross_attn_every:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family's cross-attention layers "
-            "are not ported yet (ROADMAP A11)")
+        raise ValueError(f"{cfg.name}: an encoder-decoder model runs in "
+                         "repro_torch.models.encdec")
 
 
 def period_of(cfg: ModelConfig) -> int:
@@ -113,15 +112,16 @@ class ParamTree(nn.Module):
 
 class LayerParams(ParamTree):
     """One decoder layer, in the reference's shapes: ``ln1``; ``attn``
-    (wq, wk, wv, wo [+ biases] [+ q_norm, k_norm]) or ``ssm``; then ``ln2``
-    with ``moe`` (router, w_gate, w_in, w_out [+ ``shared``]) or ``mlp``
-    (w_gate, w_in, w_out), or neither (mamba2)."""
+    (wq, wk, wv, wo [+ biases] [+ q_norm, k_norm]) or ``ssm``; on a cross
+    layer ``cross_ln``, ``cross_attn`` and the scalar ``cross_gate``; then
+    ``ln2`` with ``moe`` (router, w_gate, w_in, w_out [+ ``shared``]) or
+    ``mlp`` (w_gate, w_in, w_out), or neither (mamba2)."""
 
 
 class Params(nn.Module):
     """The model's weights: ``embed`` (padded vocab, d_model; also the tied
-    LM head), ``final_norm`` and ``blocks``, one :class:`LayerParams` per
-    layer."""
+    LM head), ``final_norm``, ``blocks``, one :class:`LayerParams` per
+    layer, and for vlm ``vlm`` (``patch_proj``, ``patch_norm``)."""
 
     def __init__(self, cfg: ModelConfig, tree: Dict):
         super().__init__()
@@ -129,11 +129,16 @@ class Params(nn.Module):
         self.embed = _param(tree["embed"])
         self.final_norm = _param(tree["final_norm"])
         self.blocks = nn.ModuleList(LayerParams(t) for t in tree["blocks"])
+        self.vlm = ParamTree(tree["vlm"]) if "vlm" in tree else None
 
     def tree(self) -> Dict:
-        """``{'embed', 'final_norm', 'blocks': [per-layer dicts]}``."""
-        return {"embed": self.embed.data, "final_norm": self.final_norm.data,
-                "blocks": [b.tree() for b in self.blocks]}
+        """``{'embed', 'final_norm', 'blocks': [per-layer dicts]}`` and
+        ``'vlm'`` where the model has one."""
+        out = {"embed": self.embed.data, "final_norm": self.final_norm.data,
+               "blocks": [b.tree() for b in self.blocks]}
+        if self.vlm is not None:
+            out["vlm"] = self.vlm.tree()
+        return out
 
 
 def tree_map(tree, fn):
@@ -152,16 +157,24 @@ def cast_params(params: Params, dtype: torch.dtype) -> Params:
     re-reading the fp32 weights at every decode step."""
     if all(t.dtype == dtype for t in params.parameters()):
         return params
-    return Params(params.cfg, tree_map(params.tree(), lambda t: t.to(dtype)))
+    return type(params)(params.cfg,
+                        tree_map(params.tree(), lambda t: t.to(dtype)))
 
 
 def _init_layer(gen, cfg: ModelConfig, device, kind: str = "attn",
-                has_moe: bool = False) -> Dict:
+                has_moe: bool = False, has_cross: bool = False) -> Dict:
     p: Dict = {"ln1": L.init_rmsnorm(cfg.d_model, device)}
     if kind == "attn":
         p["attn"] = L.init_attention(gen, cfg, device=device)
     else:
         p["ssm"] = SSM.init_ssm(gen, cfg, device)
+    if has_cross:
+        p["cross_ln"] = L.init_rmsnorm(cfg.d_model, device)
+        p["cross_attn"] = L.init_attention(gen, cfg, kv_in_dim=cfg.d_model,
+                                           device=device)
+        # llama-vision's gated cross-attention starts closed, as in the
+        # reference: tanh(0) hides the whole cross branch
+        p["cross_gate"] = torch.zeros((), device=device)
     if has_moe:
         p["ln2"] = L.init_rmsnorm(cfg.d_model, device)
         p["moe"] = MOE.init_moe(gen, cfg, device)
@@ -174,19 +187,27 @@ def _init_layer(gen, cfg: ModelConfig, device, kind: str = "attn",
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     """Random weights with the reference's shapes and scales (normal, std
-    0.02; output projections 0.02 / sqrt(2 * layers); norms 1), drawn in
-    fp32 from ``gen`` on its device. The reference's ``jax.random`` draws
-    other numbers: move its weights with ``from_reference`` to compare."""
+    0.02; output projections 0.02 / sqrt(2 * layers); norms 1; cross gates
+    0), drawn in fp32 from ``gen`` on its device. The reference's
+    ``jax.random`` draws other numbers: move its weights with
+    ``from_reference`` to compare."""
     check_supported(cfg)
     period_of(cfg)
     device = gen.device
     V = cfg.padded_vocab()
     kinds, moe_mask = cfg.layer_kinds(), cfg.moe_layer_mask()
+    cross_mask = cfg.cross_attn_mask()
     tree = {"embed": torch.randn((V, cfg.d_model), generator=gen,
                                  device=device) * 0.02,
             "final_norm": L.init_rmsnorm(cfg.d_model, device),
-            "blocks": [_init_layer(gen, cfg, device, kinds[i], moe_mask[i])
+            "blocks": [_init_layer(gen, cfg, device, kinds[i], moe_mask[i],
+                                   cross_mask[i])
                        for i in range(cfg.num_layers)]}
+    if cfg.family == "vlm":
+        tree["vlm"] = {
+            "patch_proj": torch.randn((cfg.vision_dim, cfg.d_model),
+                                      generator=gen, device=device) * 0.02,
+            "patch_norm": L.init_rmsnorm(cfg.d_model, device)}
     return Params(cfg, tree)
 
 
@@ -202,20 +223,45 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                        for kind in cfg.layer_kinds()]}
 
 
+def init_paged_cache(cfg: ModelConfig, pcfg: PagedCacheConfig,
+                     dtype=torch.bfloat16, device=None) -> Dict:
+    """Page pools for every layer: ``{'layers': [{'k_pages', 'v_pages'}]}``
+    and no ``'pos'``: the paged decode step supplies each slot's length as
+    its position. Attention-only architectures (an SSM state is per slot
+    and recurrent, not paged), as in the reference."""
+    check_supported(cfg)
+    period_of(cfg)
+    kinds = cfg.layer_kinds()
+    if any(k != "attn" for k in kinds):
+        raise ValueError(
+            f"paged cache supports attention-only models; {cfg.name} has "
+            f"layer kinds {sorted(set(kinds))}")
+    return {"layers": [paged_attn_cache_spec(cfg, pcfg, dtype, device)
+                       for _ in kinds]}
+
+
 # ---------------------------------------------------------------------------
 # apply
 # ---------------------------------------------------------------------------
 
 
 def _apply_layer(lp: LayerParams, cfg: ModelConfig, x, *, kind: str,
-                 has_moe: bool, cache, pos, shard: Shard):
+                 has_moe: bool, has_cross: bool, cache, pos, cross_kv,
+                 shard: Shard, page_table=None):
     h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
     if kind == "attn":
-        a, _ = L.apply_attention(lp["attn"], cfg, h, cache=cache, pos=pos,
-                                 shard=shard)
+        a, new_cache = L.apply_attention(lp["attn"], cfg, h, cache=cache,
+                                         pos=pos, shard=shard,
+                                         page_table=page_table)
     else:
-        a, _ = SSM.apply_ssm(lp["ssm"], cfg, h, cache=cache, pos=pos)
+        a, new_cache = SSM.apply_ssm(lp["ssm"], cfg, h, cache=cache, pos=pos)
     x = shard(x + a, "residual")
+    if has_cross and cross_kv is not None:
+        h = L.rmsnorm(x, lp["cross_ln"], cfg.norm_eps)
+        c, _ = L.apply_attention(lp["cross_attn"], cfg, h, kv_x=cross_kv,
+                                 causal=False, use_rope=False)
+        x = shard(x + torch.tanh(lp["cross_gate"]).to(x.dtype) * c,
+                  "residual")
     if has_moe:
         h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
         x = shard(x + MOE.apply_moe(lp["moe"], cfg, h, shard=shard),
@@ -223,42 +269,70 @@ def _apply_layer(lp: LayerParams, cfg: ModelConfig, x, *, kind: str,
     elif cfg.d_ff:
         h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
         x = shard(x + L.apply_mlp(lp["mlp"], h), "residual")
-    return x
+    return x, new_cache
 
 
 def apply(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
-          cache: Optional[Dict] = None, shard: Shard = _noshard,
-          collect_aux: bool = False
+          cache: Optional[Dict] = None,
+          patch_embeds: Optional[torch.Tensor] = None,
+          shard: Shard = _noshard, collect_aux: bool = False,
+          page_table: Optional[Dict] = None
           ) -> Tuple[torch.Tensor, Optional[Dict], Optional[Dict]]:
     """Returns (logits, cache, aux).
 
     train:   cache=None                  -> logits (B, S, V)
     prefill: cache at pos 0              -> logits (B, S, V), cache filled
     decode:  cache with pos > 0, S == 1  -> logits (B, 1, V), cache advanced
+    paged:   cache from ``init_paged_cache`` with ``pos`` the (B,) lengths
+             and ``page_table``, S == 1 only: each layer's token is
+             written into its slot's current page
 
-    The cache's tensors are written in place; the returned dict shares them
-    and carries ``pos + S``. ``aux`` is ``{}`` with ``collect_aux`` and None
-    otherwise, as the reference returns it (its layers collect no MoE
-    metrics)."""
+    vlm: ``patch_embeds`` (B, P, vision_dim) become the cross layers'
+    source, ``rmsnorm(patch_embeds @ patch_proj)``; without them the cross
+    layers are skipped, as in the reference. The cache's tensors are
+    written in place; the returned dict shares them and carries ``pos +
+    S``. ``aux`` is ``{}`` with ``collect_aux`` and None otherwise, as the
+    reference returns it (its layers collect no MoE metrics)."""
     check_supported(cfg)
     dtype = dtype_of(cfg.dtype)
     kinds, moe_mask = cfg.layer_kinds(), cfg.moe_layer_mask()
+    cross_mask = cfg.cross_attn_mask()
     embed = params.embed.to(dtype)
     x = shard(embed[tokens], "residual")
 
-    pos = None
+    cross_kv = None
+    if cfg.family == "vlm" and patch_embeds is not None:
+        vlm = params.vlm
+        pe = torch.matmul(patch_embeds.to(dtype), vlm["patch_proj"].to(dtype))
+        cross_kv = L.rmsnorm(pe, vlm["patch_norm"], cfg.norm_eps)
+
+    pos, slots = None, None
     layer_caches = [None] * cfg.num_layers
     if cache is not None:
         layer_caches = cache["layers"]
-        if any("k_pages" in c for c in layer_caches):
-            raise NotImplementedError("the paged KV cache is not ported yet "
-                                      "(ROADMAP A13)")
-        if tokens.shape[1] == 1:  # decode
+        is_decode = tokens.shape[1] == 1
+        if "k_pages" in layer_caches[0]:
+            if not is_decode:
+                raise ValueError(
+                    "paged cache is decode-only (S == 1); prefill runs "
+                    "against a dense cache and is committed into pages via "
+                    "repro_torch.models.kvcache.commit_prefill")
+            pool = layer_caches[0]["k_pages"]
+            slots = token_slots(page_table["block_table"],
+                                page_table["lengths"], pool.shape[1],
+                                pool.shape[0])
+        if is_decode:
             pos = cache["pos"]
 
     for i, (lp, lc) in enumerate(zip(params.blocks, layer_caches)):
-        x = _apply_layer(lp, cfg, x, kind=kinds[i], has_moe=moe_mask[i],
-                         cache=lc, pos=pos, shard=shard)
+        x, upd = _apply_layer(lp, cfg, x, kind=kinds[i], has_moe=moe_mask[i],
+                              has_cross=cross_mask[i], cache=lc, pos=pos,
+                              cross_kv=cross_kv, shard=shard,
+                              page_table=page_table)
+        if slots is not None:
+            # the reference scatters every layer's update after its scan;
+            # each layer's pool is its own, so writing it now is the same
+            scatter_token(lc, upd, slots)
 
     x = shard(L.rmsnorm(x, params.final_norm, cfg.norm_eps), "residual")
     logits = shard(torch.matmul(x, embed.T), "logits")

@@ -1,31 +1,37 @@
 """Serving steps: prefill + decode against a dense KV cache (and the SSM
-layers' conv and state cache), and batched generation.
+layers' conv and state cache), the paged decode step, and batched
+generation.
 
 Port of ``repro/train/serve.py`` (``make_prefill_step`` :33,
-``make_decode_step`` :46, ``generate`` :149-198): the reference's "batched
-requests" server. With a one-rank mesh (``launch/mesh.py::
-single_rank_mesh(("x",))``) the prefill takes the hand-written flash kernel
-(``ops.flash_attention``, one launch per attention layer) for prompts of 128 tokens
-or more, as the reference's ``make_prefill_step(model, mesh)`` takes its
+``make_decode_step`` :46, ``make_paged_decode_step`` :63-87, ``generate``
+:149-198): the reference's "batched requests" server, and the decode step
+of the continuous-batching engine (:mod:`repro_torch.serve`). With a
+one-rank mesh (``launch/mesh.py::single_rank_mesh(("x",))``) the prefill
+takes the hand-written flash kernel (``ops.flash_attention``, one launch
+per self-attention layer of the decoder) for prompts of 128 tokens or
+more, as the reference's ``make_prefill_step(model, mesh)`` takes its
 Pallas kernel; with ``mesh=None`` it takes the plain ``attention``. Decode
-never takes the flash kernel.
+never takes the flash kernel, nor does the encoder-decoder.
 
 The steps run under ``torch.no_grad`` and write the cache in place (the
 reference donates it). ``generate`` casts the weights once into a serving
 copy in the compute dtype (the reference casts them inside every call; the
 bits are the same), runs on the weights' device, and keeps the reference's
 EOS rule: rows that hit ``eos_id`` are held at EOS, decoding stops when
-every row has, and the output is padded with EOS to (B, S0 + new). Greedy
-decoding (``temperature == 0``) is the reference's argmax; sampling draws
-from ``torch.multinomial`` with the caller's ``generator`` and cannot match
+every row has, and the output is padded with EOS to (B, S0 + new). Its
+``extras`` (``patch_embeds``, ``frames``) go to the prefill; decode gets
+them without ``frames``, as in the reference, so each vlm decode step
+recomputes its cross K/V from the patches. Greedy decoding
+(``temperature == 0``) is the reference's argmax; sampling draws from
+``torch.multinomial`` with the caller's ``generator`` and cannot match
 ``jax.random.categorical``'s numbers.
 
-The paged decode steps and the explicit tensor-parallel decode wait for
-ROADMAP A13 and A12.
+The explicit tensor-parallel decode (``make_decode_step_explicit``) waits
+for ROADMAP A12 and A13.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -69,15 +75,45 @@ def make_decode_step(model: Model, mesh=None) -> Callable:
     return decode
 
 
+def make_paged_decode_step(model: Model, mesh=None) -> Callable:
+    """``(params, tokens (B, 1), pages, block_table, lengths) -> (logits
+    (B, 1, V), pages)``.
+
+    ``pages`` is :func:`repro_torch.models.transformer.init_paged_cache`'s
+    output, written in place; ``block_table`` (B, pmax) and ``lengths``
+    (B,) come from the host
+    :class:`~repro_torch.models.kvcache.PageAllocator`. Row b attends to
+    its pages' positions ``<= lengths[b]`` (the new token is written at
+    ``lengths[b]``); rows with a sentinel block-table row are inactive:
+    their logits are garbage and their cache writes drop."""
+    shard = _shard_fn(mesh)
+
+    @torch.no_grad()
+    def decode(params, tokens, pages, block_table, lengths):
+        cache = {"pos": lengths, "layers": pages["layers"]}
+        page_table = {"block_table": block_table, "lengths": lengths}
+        logits, new_cache, _ = model.apply(
+            params, {"tokens": tokens}, cache=cache, shard=shard,
+            page_table=page_table)
+        return logits, {"layers": new_cache["layers"]}
+
+    return decode
+
+
 @torch.no_grad()
 def generate(model: Model, params, prompts, *, max_new_tokens: int = 32,
              max_seq: Optional[int] = None, temperature: float = 0.0,
              generator: Optional[torch.Generator] = None, mesh=None,
+             extras: Optional[Dict] = None,
              eos_id: Optional[int] = None) -> torch.Tensor:
     """Batched generation. prompts: (B, S0) integers -> (B, S0 + new) in
-    the prompts' dtype, on the weights' device."""
+    the prompts' dtype, on the weights' device. ``extras`` are the model's
+    other inputs (``patch_embeds`` for vlm, ``frames`` for whisper), moved
+    to that device."""
     device = params.embed.device
     prompts = torch.as_tensor(prompts).to(device)
+    extras = {k: torch.as_tensor(v).to(device)
+              for k, v in (extras or {}).items()}
     B, S0 = prompts.shape
     max_seq = max_seq or (S0 + max_new_tokens)
     dtype = transformer.dtype_of(model.cfg.dtype)
@@ -87,8 +123,9 @@ def generate(model: Model, params, prompts, *, max_new_tokens: int = 32,
     prefill = make_prefill_step(model, mesh)
     decode = make_decode_step(model, mesh)
 
-    logits, cache = prefill(params, {"tokens": prompts}, cache)
+    logits, cache = prefill(params, {"tokens": prompts, **extras}, cache)
     last = logits[:, -1]
+    decode_extras = {k: v for k, v in extras.items() if k != "frames"}
 
     def sample(logits_1):
         if temperature <= 0.0:
@@ -108,7 +145,7 @@ def generate(model: Model, params, prompts, *, max_new_tokens: int = 32,
                 break  # every request hit EOS: stop decoding early
         if i == max_new_tokens - 1:
             break
-        logits, cache = decode(params, tok, cache, {})
+        logits, cache = decode(params, tok, cache, decode_extras)
         tok = sample(logits[:, -1])[:, None]
         if eos_id is not None:
             # finished rows are held at EOS: their continuations never leak

@@ -266,10 +266,38 @@ def test_apply_attention_prefill_then_decode(gqa_cfg, qkv_bias):
 
 
 def test_apply_attention_paged_cache_raises(gqa_cfg):
-    (p, _), _ = _layer_params(_jcfg(gqa_cfg), 24)
-    x = torch.zeros((1, 1, gqa_cfg.d_model))
-    with pytest.raises(NotImplementedError, match="A13"):
-        L.apply_attention(p, gqa_cfg, x, cache={"k_pages": None}, pos=0)
+    """The paged branch against the reference's: pools with random
+    pages, a block table with an inactive (sentinel) row and a row whose
+    token falls past its last page; output within the layer tolerance on
+    the active rows, the token update the same, and the reference's
+    ValueErrors for a missing page table and for cross-attention K/V."""
+    (p, jp), _ = _layer_params(_jcfg(gqa_cfg), 24)
+    shape = (6, 4, gqa_cfg.num_kv_heads, gqa_cfg.head_dim)
+    kp, jkp = _both(_normal(40, shape))
+    vp, jvp = _both(_normal(41, shape))
+    bt = np.asarray([[4, 1, 6], [6, 6, 6], [0, 2, 6]], np.int32)
+    lens = np.asarray([6, 0, 8], np.int32)
+    x, jx = _both(_normal(42, (3, 1, gqa_cfg.d_model)))
+    cache = {"k_pages": kp, "v_pages": vp}
+    table = {"block_table": torch.from_numpy(bt),
+             "lengths": torch.from_numpy(lens)}
+    out, upd = L.apply_attention(p, gqa_cfg, x, cache=cache,
+                                 pos=table["lengths"], page_table=table)
+    jout, jupd = JL.apply_attention(
+        jp, _jcfg(gqa_cfg), jx, cache={"k_pages": jkp, "v_pages": jvp},
+        pos=jnp.asarray(lens), page_table={"block_table": jnp.asarray(bt),
+                                           "lengths": jnp.asarray(lens)})
+    np.testing.assert_allclose(_np(out)[[0, 2]], _np(jout)[[0, 2]],
+                               atol=LAYER_ATOL, rtol=0)
+    for name in ("k_upd", "v_upd"):
+        np.testing.assert_allclose(_np(upd[name]), _np(jupd[name]),
+                                   atol=LAYER_ATOL, rtol=0)
+    assert torch.equal(cache["k_pages"], kp)  # the pool is not written here
+    with pytest.raises(ValueError, match="page_table"):
+        L.apply_attention(p, gqa_cfg, x, cache=cache, pos=table["lengths"])
+    with pytest.raises(ValueError, match="cross-attention"):
+        L.apply_attention(p, gqa_cfg, x, kv_x=x, cache=cache,
+                          pos=table["lengths"], page_table=table)
 
 
 # ---------------------------------------------------------------------------

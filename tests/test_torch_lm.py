@@ -98,24 +98,26 @@ def test_serving_config_is_llama3_2_3b():
                                   if jconfigs.get_config(a).family != "dense"]
                          + ["llama3.2-3b with qk-norm"])
 def test_unported_families_raise(arch):
-    """Vision cross-attention and encoder-decoder still raise naming
-    ROADMAP A11; the MoE, SSM, hybrid and qk-norm families are served:
-    ``build_model`` takes the full configuration, and its reduced form
-    runs a forward on the CPU."""
+    """Every family is served now: the MoE, SSM, hybrid and qk-norm ones,
+    vision cross-attention and the encoder-decoder. ``build_model`` takes
+    the full configuration, and its reduced form runs a forward on the CPU
+    (vlm with patch embeddings, whisper with frames)."""
     cfg = dataclasses.replace(configs.get_config("llama3.2-3b"),
                               use_qk_norm=True) if arch.endswith("qk-norm") \
         else configs.get_config(arch)
-    if cfg.cross_attn_every or cfg.is_encoder_decoder:
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-            build_model(cfg)
-        return
     assert build_model(cfg).cfg == cfg
     small = configs.reduced(cfg, layers=4)
     model = build_model(small)
-    tokens = torch.from_numpy(np.random.default_rng(0).integers(
-        0, small.vocab_size, (1, 8)).astype(np.int32))
-    logits, _, _ = model.apply(model.init(0, device="cpu"),
-                               {"tokens": tokens})
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, small.vocab_size, (1, 8)).astype(np.int32))}
+    if small.family == "vlm":
+        batch["patch_embeds"] = torch.from_numpy(rng.standard_normal(
+            (1, small.num_patches, small.vision_dim)).astype(np.float32))
+    if small.is_encoder_decoder:
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (1, small.audio_ctx, small.d_model)).astype(np.float32))
+    logits, _, _ = model.apply(model.init(0, device="cpu"), batch)
     assert logits.shape == (1, 8, small.padded_vocab())
     assert bool(torch.isfinite(logits).all())
 
@@ -309,11 +311,52 @@ def test_generate_sampling_is_seeded(setup):
 
 
 def test_paged_cache_raises(setup):
-    tokens = torch.from_numpy(setup["prompts"][:, :1])
-    paged = {"pos": 3, "layers": [{"k_pages": None, "v_pages": None}] * 2}
-    with pytest.raises(NotImplementedError, match="A13"):
-        setup["model"].apply(setup["params"], {"tokens": tokens},
-                             cache=paged)
+    """The paged decode of every model against the reference's
+    ``make_paged_decode_step``: each row's prompt prefilled and committed
+    into its pages, one decode step, logits within 1e-5 on the active
+    rows (a third slot stays inactive on the sentinel). The SSM and hybrid
+    models have no paged cache in either package."""
+    from repro.models import kvcache as jkv
+    from repro.models import transformer as jT
+    from repro_torch.models import kvcache as kv
+
+    cfg, tokens = setup["cfg"], setup["prompts"][:, :8]
+    geometry = dict(page_size=4, num_pages=12, max_slots=3, max_seq=12)
+    pcfg, jpcfg = kv.PagedCacheConfig(**geometry), jkv.PagedCacheConfig(
+        **geometry)
+    if any(kind != "attn" for kind in cfg.layer_kinds()):
+        with pytest.raises(ValueError, match="attention-only"):
+            transformer.init_paged_cache(cfg, pcfg)
+        with pytest.raises(ValueError, match="attention-only"):
+            jT.init_paged_cache(_jcfg(cfg), jpcfg)
+        return
+    alloc = kv.PageAllocator(pcfg)
+    pages = transformer.init_paged_cache(cfg, pcfg, torch.float32, "cpu")
+    jpages = jT.init_paged_cache(_jcfg(cfg), jpcfg, jnp.float32)
+    for b in range(B):
+        slot = alloc.allocate(12)
+        row = tokens[b:b + 1]
+        cache = setup["model"].init_cache(1, 8, torch.float32, device="cpu")
+        _, cache = serve.make_prefill_step(setup["model"])(
+            setup["params"], {"tokens": torch.from_numpy(row)}, cache)
+        kv.commit_prefill(pages["layers"], cache["layers"],
+                          alloc.block_table[slot], 8, page_size=4)
+        jcache = setup["jmodel"].init_cache(1, 8, jnp.float32)
+        _, jcache = jserve.make_prefill_step(setup["jmodel"], None)(
+            setup["jparams"], {"tokens": jnp.asarray(row)}, jcache)
+        jpages = {"layers": jkv.commit_prefill(
+            jpages["layers"], jcache["layers"],
+            jnp.asarray(alloc.block_table[slot]), 8, page_size=4)}
+        alloc.commit(slot, 8)
+    tok = np.asarray([[5], [9], [0]], np.int32)
+    bt, lens = alloc.device_tables("cpu")
+    logits, _ = serve.make_paged_decode_step(setup["model"])(
+        setup["params"], torch.from_numpy(tok), pages, bt, lens)
+    jlogits, _ = jserve.make_paged_decode_step(setup["jmodel"])(
+        setup["jparams"], jnp.asarray(tok), jpages,
+        jnp.asarray(alloc.block_table), jnp.asarray(alloc.seq_lens))
+    np.testing.assert_allclose(_np(logits)[:B], _np(jlogits)[:B], atol=ATOL,
+                               rtol=0)
 
 
 # ---------------------------------------------------------------------------
