@@ -222,10 +222,48 @@ Phases, one JSON line each:
                degradation section on the card with its gate: a 4-page pool
                under a ``serve.step`` delay, token-identical to a 16-page
                pool, no token lost, at least one preemption.
+22. train   — llama3.2-3b at full size (3.21e9 parameters, random weights
+               from seed 0) trained TRAIN_STEPS steps through
+               ``make_train_step``: bf16 compute over fp32 master weights
+               and AdamW moments, remat "full", the port's synthetic data
+               at 4 x 1024 tokens a step, TRAIN_WARMUP warmup steps. Every
+               loss finite, the last below the first; a second run of the
+               first TRAIN_REPEAT steps gives the same losses and weights
+               bit for bit (the phase runs in a process of its own under
+               ``torch.use_deterministic_algorithms``, cuBLAS with the
+               fixed workspace CUBLAS_WORKSPACE_CONFIG=:4096:8, set before
+               CUDA starts there, so that no other phase's cuBLAS runs
+               with it); no hand kernel launched (training takes the
+               plain attention: the reference's flash kernel has no VJP).
+               Prints each loss, the median step seconds after the first,
+               tokens/s and the peak memory beside the card's name and
+               power limit. Then a reduced fp32 llama's two steps on the
+               card against the same steps on the CPU within
+               TRAIN_WITNESS_TOL, and ``resilience_bench``'s
+               train-degradation section on the card with its gate (a
+               flag inside the delay window, an off-cadence checkpoint).
+23. dp      — four processes sharing the card over gloo run
+               ``make_dp_train_step_explicit`` for DP_STEPS steps on
+               llama3.2-3b cut to 2 layers at d_model 1024 and a vocab of
+               32768 (54.5e6 parameters), 8 x 256 tokens a step, for each
+               of DP_SCHEDULES (``auto`` prints what it resolves): the
+               losses agree across schedules and with the one-rank step on
+               the global batch within DP_RTOL, every grad norm within
+               DP_GN_RTOL of the one-rank step's (int8_ef's first only,
+               within DP_INT8_GN_RTOL);
+               native and rs_ag leave the ranks' weights bit-identical and
+               within DP_WEIGHT_ATOL of the one-rank step's (chain's
+               bit-identity is printed);
+               int8_ef's loss and error tree are finite and its ranks
+               agree; ``ring_add_step`` runs on every rank on rs_ag and
+               int8_ef (and auto when it resolves to a ring), never on
+               native or chain.
 
 Each main-path phase zeroes the launch counts just before it runs and reads
-them just after (the allreduce phase in each rank's process, around each
-``allreduce_tree``). Then the card's ``nvidia-smi`` name and power limit, the
+them just after (the allreduce and dp phases in each rank's process, around
+each ``allreduce_tree`` or each schedule's steps; ``ring_add_step``'s
+launches in the summary line add rank 0's dp launches to the allreduce
+phase's). Then the card's ``nvidia-smi`` name and power limit, the
 per-kernel summary line ``{"kernels": [...]}`` (each kernel's launches from
 the phase that drives it), and last ``{"ok": true, "device": ...}``. Any
 failed check raises and the script exits non-zero. Without a CUDA device,
@@ -313,6 +351,36 @@ FP32_TOL = (1e-4, 1e-3)  # rtol, atol
 # ENGINE_SLOTS x pages_per_slot pages (8 x 66)
 ENGINE_REQUESTS, ENGINE_PROMPT, ENGINE_SEED = 16, (512, 1024), 5
 ENGINE_PAGE, ENGINE_SLOTS = 16, 8
+# the training path: llama3.2-3b at full size, bf16 compute over fp32
+# master weights and AdamW moments, remat "full", the port's synthetic data
+# at TRAIN_B x TRAIN_S, TRAIN_STEPS steps (TRAIN_WARMUP of warmup), run a
+# second time for its first TRAIN_REPEAT steps, which must give the same bits
+TRAIN_ARCH, TRAIN_B, TRAIN_S = "llama3.2-3b", 4, 1024
+TRAIN_STEPS, TRAIN_WARMUP, TRAIN_REPEAT, TRAIN_LR = 8, 2, 3, 3e-4
+# its witness: a reduced fp32 llama3.2-3b (2 layers, d_model 64) takes
+# TRAIN_WITNESS_STEPS steps on the card and on the CPU from the same state;
+# loss rtol, grad_norm rtol, weights atol, as tests/test_torch_train_step.py
+# holds the CPU step against the reference
+TRAIN_WITNESS_STEPS, TRAIN_WITNESS_TOL = 2, (1e-5, 3e-5, 1e-3)
+# the explicit data-parallel step on DP_RANKS processes sharing the card:
+# llama3.2-3b cut to DP_LAYERS layers at d_model DP_D and a vocab of
+# DP_VOCAB (54.5e6 parameters, a 0.22 GB fp32 gradient), DP_STEPS steps of
+# DP_B x DP_S tokens per schedule, the loss held at rtol DP_RTOL, the grad
+# norm at rtol DP_GN_RTOL and the weights after DP_STEPS steps at atol
+# DP_WEIGHT_ATOL against the one-rank step on the global batch (the last
+# two as tests/test_torch_dp_step.py holds them)
+DP_RANKS, DP_TIMEOUT = 4, 600.0
+DP_LAYERS, DP_D, DP_VOCAB, DP_B, DP_S, DP_STEPS = 2, 1024, 32768, 8, 256, 2
+DP_SCHEDULES = ("native", "chain", "rs_ag", "auto", "int8_ef")
+DP_RTOL = 1e-5  # tests/dist/test_schedules.py:194-217
+DP_GN_RTOL, DP_WEIGHT_ATOL = 3e-5, 1e-3
+# int8_ef's first grad norm: its gradient is reduced through int8, whose
+# rounding moved the norm by 4.5e-5 on the CPU at a small size; a reduction
+# that is off by a constant factor moves it by far more
+DP_INT8_GN_RTOL = 1e-3
+# the schedules whose weights rank 0 hands back for that comparison
+DP_WEIGHTS_OF = ("native", "rs_ag")
+TRAIN_TIMEOUT = 600.0  # phase train's own process
 # fp32 prefill, flash vs plain attention: both are fp32 throughout and
 # differ only in the order of the attention's sums (a few ulps per layer),
 # on logits of rms about 1; one bf16 rounding anywhere moves them by ~1e-2
@@ -2397,6 +2465,7 @@ def moe_ep_rank(mesh):
     from repro_torch.models import moe
 
     torch.cuda.set_device(0)
+    torch.set_grad_enabled(False)  # forward only: no autograd graph
     dev = torch.device("cuda")
     ax = mesh.axis("x")
     cfg = dataclasses.replace(get_config(MOE_ARCH), dtype="float32")
@@ -2490,8 +2559,9 @@ def phase_moe(torch):
                     generator=torch.Generator(device=dev).manual_seed(4),
                     device=dev)
     aux = {}
-    got = moe.apply_moe(p, lcfg, x, aux=aux)
-    want = moe.reference_moe(p, lcfg, x)
+    with torch.no_grad():
+        got = moe.apply_moe(p, lcfg, x, aux=aux)
+        want = moe.reference_moe(p, lcfg, x)
     err = max_abs(got, want)
     check(float(aux["moe_dropped"]) == 0.0,
           f"the oracle's layer dropped {float(aux['moe_dropped'])}")
@@ -2912,7 +2982,400 @@ def phase_engine(torch):
           "paged_vs_dense_fp32": witness, "serve_degradation": sd})
 
 
-def main() -> int:
+def param_sums(torch, params) -> list:
+    """One int64 sum of each weight's int32 bit patterns, on the card: two
+    states with the same bits give the same list."""
+    from repro_torch.comm.overlap import tree_flatten
+    return torch.stack([p.detach().view(torch.int32).sum(dtype=torch.int64)
+                        for p in tree_flatten(params.tree())[0]]).tolist()
+
+
+def params_sha(params) -> str:
+    """sha256 (first 16 hex digits) of every weight's bytes, in tree
+    order."""
+    from repro_torch.comm.overlap import tree_flatten
+    h = hashlib.sha256()
+    for p in tree_flatten(params.tree())[0]:
+        h.update(p.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def train_run(torch, steps: int, sums_at: int) -> dict:
+    """TRAIN_ARCH at full size through ``make_train_step`` for ``steps``
+    steps: each step's loss, grad norm and seconds, the weights' sums after
+    step ``sums_at``, and the peak memory."""
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.models.model import build_model
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg)
+    data = SyntheticLMDataset(DataConfig(cfg.vocab_size, TRAIN_B, TRAIN_S))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(model, 0, device="cuda")
+    step = make_train_step(model, RunConfig(
+        remat="full", learning_rate=TRAIN_LR, warmup_steps=TRAIN_WARMUP),
+        total_steps=TRAIN_STEPS)
+    out = {"loss": [], "grad_norm": [], "lr": [], "seconds": []}
+    for i in range(steps):
+        batch = data.batch(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        out["seconds"].append(time.perf_counter() - t0)
+        out["loss"].append(loss)
+        out["grad_norm"].append(float(m["grad_norm"]))
+        out["lr"].append(float(m["lr"]))
+        if i + 1 == sums_at:
+            out["sums"] = param_sums(torch, state.params)
+    out["peak"] = torch.cuda.max_memory_allocated()
+    out["params"] = cfg.param_count()
+    del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_witness(torch) -> dict:
+    """A reduced fp32 llama takes TRAIN_WITNESS_STEPS steps on the card and
+    on the CPU from the same state and data: loss, grad norm and weights
+    within TRAIN_WITNESS_TOL."""
+    from repro_torch.comm.overlap import tree_flatten
+    from repro_torch.configs import RunConfig, get_config, reduced
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.models.model import (build_model, state_from_reference,
+                                          state_to_reference)
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    cfg = reduced(get_config(TRAIN_ARCH), layers=2, d_model=64)
+    model = build_model(cfg)
+    start = state_to_reference(init_train_state(model, 0, device="cpu"))
+    data = SyntheticLMDataset(DataConfig(cfg.vocab_size, TRAIN_B, 128))
+    run = RunConfig(remat="full", learning_rate=1e-2, warmup_steps=0)
+    res = {}
+    for where in ("cuda", "cpu"):
+        state = state_from_reference(cfg, start, device=where)
+        step = make_train_step(model, run)
+        metrics = []
+        for i in range(TRAIN_WITNESS_STEPS):
+            state, m = step(state, data.batch(i))
+            metrics.append({k: float(v) for k, v in m.items()})
+        res[where] = (metrics, tree_flatten(state.params.tree())[0])
+    (card, wcard), (cpu, wcpu) = res["cuda"], res["cpu"]
+    rt_loss, rt_gnorm, at_w = TRAIN_WITNESS_TOL
+    loss_rel = max(abs(a["loss"] / b["loss"] - 1) for a, b in zip(card, cpu))
+    gnorm_rel = max(abs(a["grad_norm"] / b["grad_norm"] - 1)
+                    for a, b in zip(card, cpu))
+    w_abs = max(max_abs(a.cpu(), b) for a, b in zip(wcard, wcpu))
+    check(loss_rel <= rt_loss and gnorm_rel <= rt_gnorm and w_abs <= at_w,
+          f"train witness, card vs CPU: loss {loss_rel}, grad_norm "
+          f"{gnorm_rel} (relative), weights {w_abs} (absolute); limits "
+          f"{TRAIN_WITNESS_TOL}")
+    return {"config": f"{cfg.name} reduced: {cfg.num_layers} layers, "
+                      f"d_model {cfg.d_model}, fp32", "steps":
+            TRAIN_WITNESS_STEPS, "loss_rel": loss_rel,
+            "grad_norm_rel": gnorm_rel, "weights_max_abs": w_abs,
+            "limits": dict(zip(("loss_rtol", "grad_norm_rtol",
+                                "weights_atol"), TRAIN_WITNESS_TOL))}
+
+
+def phase_train(torch, card: str) -> None:
+    """Runs :func:`train_phase` in a process of its own (``chip_smoke.py
+    --phase-train CARD``) with CUBLAS_WORKSPACE_CONFIG set before CUDA
+    starts there: its bit-identical repeat needs cuBLAS's fixed workspace,
+    and no other phase runs with it."""
+    import os
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    sys.stdout.flush()
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    rc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                         "--phase-train", card], env=env,
+                        timeout=TRAIN_TIMEOUT).returncode
+    check(rc == 0, f"phase train exited with {rc}")
+
+
+def train_phase(torch, card: str):
+    """llama3.2-3b at full size trained TRAIN_STEPS steps on the card: the
+    losses fall, every one finite; a second run's first TRAIN_REPEAT steps
+    give the same losses and weights bit for bit (under
+    ``torch.use_deterministic_algorithms``); no hand kernel runs (training
+    takes the plain attention, as the reference: its flash kernel has no
+    VJP). Then the reduced fp32 step on the card against the CPU, and
+    ``resilience_bench``'s train-degradation section with its gate."""
+    from repro_torch.benchmarks import resilience_bench
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    try:
+        ops.reset_launch_counts()
+        first = train_run(torch, TRAIN_STEPS, TRAIN_REPEAT)
+        launches = ops.launch_counts()
+        again = train_run(torch, TRAIN_REPEAT, TRAIN_REPEAT)
+        witness = train_witness(torch)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    losses = first["loss"]
+    check(all(math.isfinite(x) for x in losses + first["grad_norm"]),
+          f"train: a loss or grad norm is not finite: {losses}, "
+          f"{first['grad_norm']}")
+    check(losses[-1] < losses[0],
+          f"train: the last loss {losses[-1]} is not below the first "
+          f"{losses[0]}: {losses}")
+    repeat = (again["loss"] == losses[:TRAIN_REPEAT]
+              and again["sums"] == first["sums"])
+    check(repeat, f"train: two runs differ over {TRAIN_REPEAT} steps: "
+                  f"losses {losses[:TRAIN_REPEAT]} vs {again['loss']}, "
+                  "weight sums equal: " + str(again["sums"] == first["sums"]))
+    check(all(v == 0 for v in launches.values()),
+          f"train launched hand kernels: {launches}")
+    td = resilience_bench.train_degradation_section("cuda")
+    bad = resilience_bench.gate_train_degradation(td)
+    check(not bad, f"train-degradation gate: {bad}")
+    tokens = TRAIN_B * TRAIN_S
+    median_s = statistics.median(first["seconds"][1:])
+    emit({"phase": "train", "arch": TRAIN_ARCH, "card": card,
+          "params": first["params"], "batch": [TRAIN_B, TRAIN_S],
+          "dtype": "bfloat16 compute, fp32 weights and moments",
+          "remat": "full", "lr": TRAIN_LR, "warmup": TRAIN_WARMUP,
+          "losses": losses, "grad_norms": first["grad_norm"],
+          "lrs": first["lr"], "step_s": first["seconds"],
+          "median_step_s_after_first": median_s,
+          "tokens_per_s": tokens / median_s,
+          "peak_memory_gb": first["peak"] / 1e9,
+          "bitwise_repeat_steps": TRAIN_REPEAT,
+          "determinism": "torch.use_deterministic_algorithms(True), "
+                         "CUBLAS_WORKSPACE_CONFIG=:4096:8",
+          "launches": launches, "card_vs_cpu": witness,
+          "train_degradation": {k: td[k] for k in (
+              "device", "fault_window", "delay_s", "flagged",
+              "forced_checkpoints", "median_before_s", "median_during_s",
+              "median_after_s")},
+          "seconds": time.perf_counter() - t0})
+
+
+DP_DIMS = (DP_LAYERS, DP_D, DP_VOCAB, DP_B, DP_S, DP_STEPS)
+
+
+def dp_cfg(dims):
+    from repro_torch.configs import get_config, reduced
+    layers, d_model, vocab = dims[:3]
+    return reduced(get_config(TRAIN_ARCH), layers=layers, d_model=d_model,
+                   vocab=vocab)
+
+
+def dp_batches(dims):
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    vocab, b, s, steps = dims[2:]
+    data = SyntheticLMDataset(DataConfig(vocab, b, s))
+    return [data.batch(i) for i in range(steps)]
+
+
+def dp_rank(mesh, device, dims):
+    """Runs on every rank of the dp phase: the steps of
+    ``make_dp_train_step_explicit`` per schedule of DP_SCHEDULES, each from
+    the same initial state, weights on ``device``; ``dims`` is
+    :data:`DP_DIMS` (smaller ones make a probe on the CPU)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.comm.engine import reset_staged_bytes, staged_bytes
+    from repro_torch.comm.overlap import pack_buckets, tree_flatten
+    from repro_torch.configs import RunConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.train.step import (GRADS_CALLSITE, init_train_state,
+                                        make_dp_train_step_explicit)
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    model = build_model(dp_cfg(dims))
+    batches = dp_batches(dims)
+    out = {}
+    for name in DP_SCHEDULES:
+        compress = name == "int8_ef"
+        state = init_train_state(model, 0, compression_on=compress,
+                                 device=device)
+        step = make_dp_train_step_explicit(
+            model, RunConfig(learning_rate=1e-3, warmup_steps=0,
+                             grad_compression="int8_ef" if compress
+                             else "none"), mesh,
+            schedule_kind="rs_ag" if compress else name)
+        rec = {"loss": [], "grad_norm": [], "seconds": []}
+        ops.reset_launch_counts()
+        reset_staged_bytes()
+        for batch in batches:
+            dist.barrier()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            loss = float(m["loss"])
+            if device == "cuda":
+                torch.cuda.synchronize()
+            rec["seconds"].append(time.perf_counter() - t0)
+            rec["loss"].append(loss)
+            rec["grad_norm"].append(float(m["grad_norm"]))
+        rec["launches"] = ops.launch_counts().get("ring_add_step", 0)
+        rec["staged_bytes"] = staged_bytes()
+        rec["sha"] = params_sha(state.params)
+        rec["device"] = str(next(state.params.parameters()).device)
+        if mesh.rank == 0 and name in DP_WEIGHTS_OF:
+            rec["weights"] = [t.detach().float().cpu().numpy() for t in
+                              tree_flatten(state.params.tree())[0]]
+        if compress:
+            rec["error_finite"] = all(bool(torch.isfinite(e).all()) for e in
+                                      tree_flatten(state.error)[0])
+        leaves = tree_flatten(state.params.tree())[0]
+        engine = step.engine
+        nbytes = [sum(leaves[i].numel() * 4 for i in b) for b in
+                  pack_buckets(leaves, engine.bucket_bytes_for("x"))]
+        rec["buckets"] = nbytes
+        rec["resolved"] = sorted({engine.schedule_for(
+            "allreduce", nbytes=n, axis="x", callsite=GRADS_CALLSITE)
+            for n in nbytes})
+        out[name] = rec
+        del state, step
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_dp(torch):
+    """The explicit data-parallel step on DP_RANKS processes sharing the
+    card over gloo, per schedule: losses agree across schedules and with
+    the one-rank step on the global batch; native and rs_ag leave the
+    ranks' weights bit-identical; ring_add_step runs on the schedules that
+    reduce through it (rs_ag, int8_ef's transport) and on no other."""
+    from repro_torch.comm.engine import schedules_for
+    from repro_torch.comm.overlap import tree_flatten
+    from repro_torch.configs import RunConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import spawn_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    cfg = dp_cfg(DP_DIMS)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    ranks = spawn_mesh(DP_RANKS, dp_rank, "cuda", DP_DIMS, axes=("x",),
+                       timeout=DP_TIMEOUT)
+    ranks_s = time.perf_counter() - t0
+    model = build_model(cfg)
+    state = init_train_state(model, 0, device="cuda")
+    step = make_train_step(model, RunConfig(learning_rate=1e-3,
+                                            warmup_steps=0))
+    one, one_gn = [], []
+    for batch in dp_batches(DP_DIMS):
+        state, m = step(state, batch)
+        one.append(float(m["loss"]))
+        one_gn.append(float(m["grad_norm"]))
+    one_weights = tree_flatten(state.params.tree())[0]
+    # the largest difference from the one-rank step's weights, per schedule
+    # whose weights rank 0 handed back
+    weight_err = {name: max(
+        float((torch.from_numpy(w).to(t.device) - t.float()).abs().max())
+        for w, t in zip(ranks[0][name].pop("weights"), one_weights))
+        for name in DP_WEIGHTS_OF}
+    del state, step, one_weights
+    torch.cuda.empty_cache()
+    check(all(v == 0 for v in ops.launch_counts().values()),
+          "the parent launched kernels during the dp phase")
+
+    def close(a, b, rtol=DP_RTOL):
+        return all(abs(x / y - 1) <= rtol for x, y in zip(a, b))
+
+    table = {}
+    for name in DP_SCHEDULES:
+        recs = [r[name] for r in ranks]
+        what = f"dp/{name}"
+        check(all(r["device"].startswith("cuda") for r in recs),
+              f"{what} ran on {[r['device'] for r in recs]}")
+        check(all(math.isfinite(x) for r in recs for x in r["loss"]),
+              f"{what}: a loss is not finite")
+        resolved = recs[0]["resolved"]
+        check(set(resolved) <= set(schedules_for("allreduce")),
+              f"{what} resolved {resolved}")
+        same_bits = len({r["sha"] for r in recs}) == 1
+        if name == "int8_ef":
+            check(all(r["error_finite"] for r in recs),
+                  f"{what}: the error tree is not finite")
+            check(all(close(r["loss"][:1], one[:1]) for r in recs),
+                  f"{what}: first loss {recs[0]['loss'][0]} vs the one-rank "
+                  f"step's {one[0]}")
+            # the first gradient is reduced before any compressed update,
+            # through int8 on the wire
+            check(all(close(r["grad_norm"][:1], one_gn[:1], DP_INT8_GN_RTOL)
+                      for r in recs),
+                  f"{what}: first grad norm {recs[0]['grad_norm'][0]} vs "
+                  f"the one-rank step's {one_gn[0]} beyond rtol "
+                  f"{DP_INT8_GN_RTOL}")
+            check(same_bits and len({tuple(r["loss"]) for r in recs}) == 1,
+                  f"{what}: the ranks disagree")
+        else:
+            check(all(close(r["loss"], one) for r in recs),
+                  f"{what}: losses {[r['loss'] for r in recs]} vs the "
+                  f"one-rank step's {one} beyond rtol {DP_RTOL}")
+            check(all(close(r["loss"], x["native"]["loss"])
+                      for r, x in zip(recs, ranks)),
+                  f"{what}: losses differ from native's beyond rtol "
+                  f"{DP_RTOL}")
+            check(all(close(r["grad_norm"], one_gn, DP_GN_RTOL)
+                      for r in recs),
+                  f"{what}: grad norms {[r['grad_norm'] for r in recs]} vs "
+                  f"the one-rank step's {one_gn} beyond rtol {DP_GN_RTOL}")
+        if name in ("native", "rs_ag"):
+            check(same_bits, f"{what}: the ranks' weights differ: "
+                             f"{[r['sha'] for r in recs]}")
+        if name in DP_WEIGHTS_OF:
+            check(weight_err[name] <= DP_WEIGHT_ATOL,
+                  f"{what}: weights {weight_err[name]} from the one-rank "
+                  f"step's, beyond atol {DP_WEIGHT_ATOL}")
+        # rs_ag (and int8_ef's rs_ag transport) accumulate every hop with
+        # ring_add_step; native (the library's allreduce) and chain (a
+        # plain add, as in the reference's chain) never launch it
+        ring = name in ("rs_ag", "int8_ef") or (
+            name == "auto" and any(s in ("rs_ag", "ring2d", "int8_ef")
+                                   for s in resolved))
+        launches = [r["launches"] for r in recs]
+        check(all(n > 0 for n in launches) if ring
+              else all(n == 0 for n in launches),
+              f"{what}: ring_add_step launches per rank {launches}")
+        table[name] = {"loss": recs[0]["loss"],
+                       "grad_norm": recs[0]["grad_norm"],
+                       "step_s": [max(r["seconds"][i] for r in recs)
+                                  for i in range(DP_STEPS)],
+                       "ring_add_step_per_rank": launches,
+                       "staged_bytes_per_rank": recs[0]["staged_bytes"],
+                       "ranks_bit_identical": same_bits,
+                       "max_abs_weight_diff_vs_one_rank":
+                           weight_err.get(name),
+                       "resolved": resolved, "buckets": recs[0]["buckets"]}
+    emit({"phase": "dp", "arch": f"{TRAIN_ARCH} cut to {DP_LAYERS} layers, "
+          f"d_model {DP_D}, vocab {DP_VOCAB}, fp32",
+          "params": cfg.param_count(), "ranks": DP_RANKS,
+          "global_batch": [DP_B, DP_S], "steps": DP_STEPS,
+          "transport": "gloo, staged through host memory; kernels on the "
+                       "card",
+          "one_rank_loss": one, "one_rank_grad_norm": one_gn,
+          "schedules": table, "gates": "ok",
+          "seconds": {"ranks": ranks_s, "phase": time.perf_counter() - t0},
+          "what_the_time_measures": "the host's loopback (gloo on one "
+                                    "machine), not a link rate"})
+    return (sum(ranks[0][n]["launches"] for n in DP_SCHEDULES),
+            sum(r[n]["launches"] for r in ranks for n in DP_SCHEDULES))
+
+
+def main(argv=()) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -2923,6 +3386,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    if argv[:1] == ["--phase-train"]:  # phase train's own process
+        train_phase(torch, argv[1])
+        return 0
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2953,6 +3419,10 @@ def main() -> int:
     phase_vlm(torch)
     phase_whisper(torch)
     phase_engine(torch)
+    phase_train(torch, smi)
+    dp_launches, dp_all_ranks = phase_dp(torch)
+    launches["ring_add_step"] += dp_launches
+    ring_all_ranks += dp_all_ranks
 
     check(set(launches) == set(rows) == set(SOURCES),
           f"kernels {sorted(rows)} vs launches {sorted(launches)}")
@@ -2976,4 +3446,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

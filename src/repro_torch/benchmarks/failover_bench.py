@@ -34,10 +34,11 @@ host's loopback, not a link rate.
 
 The reference's other two sections wait for later slices of the port and
 are named in the printed record under ``not_ported``: rank-loss elastic
-resume (``:160-241``) needs the training loop (ROADMAP A12); serve rank
-loss (``:251``) runs the serving engine on a GSPMD mesh of several ranks,
-which the port's ``sharding.make_shard_fn`` refuses until the parallel
-model (A12).
+resume (``:160-241``) needs ``train_loop_elastic`` and the
+``explicit_tp`` step (ROADMAP A12's second half); serve rank loss
+(``:251``) runs the serving engine on a GSPMD mesh of several ranks, which
+the port's ``sharding.make_shard_fn`` refuses until the parallel model
+(A12's second half).
 
 The rank body, :func:`link_down_rank`, is a module-level function, so that
 spawned processes can import it. Writes
@@ -73,10 +74,12 @@ TIMEOUT = 240.0         # seconds the gloo world may take
 OPS = ("bcast", "allreduce")
 PHASES = ("before", "during", "after")
 NOT_PORTED = {
-    "rank_loss": "needs the training loop, ROADMAP A12 "
+    "rank_loss": "needs train_loop_elastic and the explicit_tp step, "
+                 "ROADMAP A12's second half "
                  "(benchmarks/failover_bench.py:160-241)",
     "serve_rank_loss": "needs a GSPMD mesh of several ranks, which "
-                       "sharding.make_shard_fn refuses until ROADMAP A12 "
+                       "sharding.make_shard_fn refuses until ROADMAP A12's "
+                       "second half "
                        "(benchmarks/failover_bench.py:251)",
 }
 

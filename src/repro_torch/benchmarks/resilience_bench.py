@@ -1,9 +1,10 @@
 """Degraded-link resilience: detect drift, retune mid-run, flip back.
 
-Port of the train-retune, measured-retune and serve-degradation sections
-of ``benchmarks/resilience_bench.py`` (``_modeled_step``,
-``_train_retune_section``, ``_gate_train_retune``,
-``_measured_retune_section``, ``:67-204``; ``_serve_degradation_section``,
+Port of ``benchmarks/resilience_bench.py``: the train-retune,
+measured-retune, train-degradation and serve-degradation sections
+(``_modeled_step``, ``_train_retune_section``, ``_gate_train_retune``,
+``_measured_retune_section``, ``:67-204``; ``_train_degradation_section``,
+``_gate_train_degradation``, ``:206-264``; ``_serve_degradation_section``,
 ``_gate_serve_degradation``, ``:274-336``).
 
     python -m repro_torch.benchmarks.resilience_bench [--quick]
@@ -46,10 +47,15 @@ of ``benchmarks/resilience_bench.py`` (``_modeled_step``,
   during and after the delay, the preemption count, tokens lost. Exits 1
   unless the streams are token-identical, no token is lost and at least
   one preemption happened (so that the check could fail).
-
-The reference's train-degradation section (``:206-264``) needs the
-training loop (ROADMAP A12) and is named in the printed record under
-``not_ported``.
+* **train degradation** (gated): the training loop
+  (:func:`repro_torch.train.loop.train_loop`) on a reduced llama3.2-3b (2
+  layers, d_model 32; batch 4 x 32 tokens; 16 steps) with a 0.25 s
+  ``train.step`` host delay over steps [10, 13) and the 'checkpoint'
+  straggler policy (deadline 2x the median). Recorded: the flagged steps,
+  the forced checkpoints, the median step time before, during and after.
+  Exits 1 unless a step inside the window is flagged and at least one
+  off-cadence checkpoint was forced. The injector prices on the port's
+  ``H100_80GB`` model.
 
 The rank body, :func:`train_retune_rank`, is a module-level function, so
 that spawned processes can import it. Writes
@@ -58,6 +64,8 @@ that spawned processes can import it. Writes
 from __future__ import annotations
 
 import argparse
+import shutil
+import tempfile
 import time
 from typing import Dict
 
@@ -90,10 +98,6 @@ TIMEOUT = 240.0         # seconds each gloo world may take
 CONTROLLER = dict(drift_factor=1.75, recent=2, min_baseline=3, cooldown=2)
 PHASES = (("before", 0, FAULT_AT), ("during", FAULT_AT, HEAL_AT),
           ("after", HEAL_AT, STEPS))
-NOT_PORTED = {
-    "train_degradation": "needs the training loop, ROADMAP A12 "
-                         "(benchmarks/resilience_bench.py:206-264)",
-}
 
 
 def modeled_step(inj: FaultInjector, axes, bcast_schedule: str) -> float:
@@ -262,6 +266,69 @@ def measured_retune_section(quick: bool, device) -> Dict:
     }
 
 
+TRAIN_STEPS, TRAIN_WINDOW, TRAIN_DELAY_S = 16, (10, 13), 0.25
+
+
+def train_degradation_section(device) -> Dict:
+    """A real ``train_loop`` run through a host-delay window: the monitor
+    must flag inside the window and force an off-cadence checkpoint. The
+    reference's geometry and seeds."""
+    from repro_torch.checkpoint.manager import all_steps, restore
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.train.loop import TrainLoopConfig, train_loop
+
+    device = resolve_device(device)
+    lo, hi = TRAIN_WINDOW
+    cfg = reduced(get_config("llama3.2-3b"), layers=2, d_model=32)
+    ckdir = tempfile.mkdtemp(prefix="resilience_ck_")
+    try:
+        run = RunConfig(checkpoint_dir=ckdir, checkpoint_every=100,
+                        learning_rate=1e-2, warmup_steps=2,
+                        step_deadline_factor=2.0)
+        data = DataConfig(vocab_size=cfg.vocab_size, global_batch=4,
+                          seq_len=32)
+        inj = FaultInjector(hw=H100_80GB)
+        fault = FaultSchedule.degrade_window(
+            inj, lo, hi, axis="x", host_delay_s=TRAIN_DELAY_S,
+            callsite="train.step")
+        hist = train_loop(cfg, run, data, TrainLoopConfig(
+            steps=TRAIN_STEPS, straggler_policy="checkpoint",
+            fault_schedule=fault), device=device)
+        flagged = hist["straggler"].get("flagged", [])
+        forced = [s for s in all_steps(ckdir)
+                  if restore(ckdir, {}, step=s)[2].get("forced")]
+        times = hist["step_time"]
+        return {
+            "arch": cfg.name, "layers": cfg.num_layers,
+            "d_model": cfg.d_model, "device": device_name(device),
+            "steps": TRAIN_STEPS, "fault_window": [lo, hi],
+            "delay_s": TRAIN_DELAY_S, "flagged": flagged,
+            "detected": any(lo <= f < hi for f in flagged),
+            "forced_checkpoints": forced,
+            "losses": hist["loss"],
+            "median_before_s": float(np.median(times[1:lo])),
+            "median_during_s": float(np.median(times[lo:hi])),
+            "median_after_s": float(np.median(times[hi:])),
+            "time": float(np.median(times[lo:hi])),
+        }
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+
+def gate_train_degradation(sec) -> list:
+    """The reference's gate (``_gate_train_degradation``): what fails in
+    ``sec``."""
+    bad = []
+    if not sec["detected"]:
+        bad.append(f"no straggler flag inside the fault window "
+                   f"{sec['fault_window']} (flagged={sec['flagged']})")
+    if not sec["forced_checkpoints"]:
+        bad.append("the 'checkpoint' policy forced no off-cadence save")
+    return bad
+
+
 def _tok_per_s(stats, lo, hi) -> float:
     window = [s for s in stats[lo:hi] if s["decode_tokens"]]
     toks = sum(s["decode_tokens"] for s in window)
@@ -343,7 +410,7 @@ def main(quick: bool = False, schedule=None, device=None) -> dict:
     if schedule not in (None, "auto"):
         print(f"[resilience: --schedule {schedule} ignored: this module "
               "measures the adaptive auto path]")
-    record = {"device": device_name(device), "not_ported": NOT_PORTED}
+    record = {"device": device_name(device)}
 
     tr = train_retune_section(device)
     record["train_retune"] = tr
@@ -364,6 +431,16 @@ def main(quick: bool = False, schedule=None, device=None) -> dict:
     print(f"   clean:    {mr['clean_winners']}")
     print(f"   degraded: {mr['degraded_winners']}")
     print(f"   {mr['caveat']}")
+    td = train_degradation_section(device)
+    record["train_degradation"] = td
+    print(f"\n-- train under a host-delay window ({TRAIN_DELAY_S * 1e3:.0f}"
+          f"ms over steps {td['fault_window']}, policy 'checkpoint') --")
+    print(table([[td["flagged"], td["forced_checkpoints"],
+                  f"{td['median_before_s'] * 1e3:.1f}",
+                  f"{td['median_during_s'] * 1e3:.1f}",
+                  f"{td['median_after_s'] * 1e3:.1f}"]],
+                ["flagged", "forced ckpts", "ms before", "during",
+                 "after"]))
     sd = serve_degradation_section(device)
     record["serve_degradation"] = sd
     print("\n-- serve under page exhaustion + host-delay window "
@@ -374,20 +451,23 @@ def main(quick: bool = False, schedule=None, device=None) -> dict:
                   f"{sd['tok_per_s_after']:.1f}", sd["token_identical"]]],
                 ["preempted", "lost", "tok/s before", "during", "after",
                  "token-exact"]))
-    for name, why in NOT_PORTED.items():
-        print(f"-- {name}: not ported yet, {why} --")
     save_result("resilience_bench", record)
 
     bad = gate_train_retune(tr)
     if bad:
         print("TRAIN-RETUNE GATE FAILED:", bad)
         raise SystemExit(1)
+    bad = gate_train_degradation(td)
+    if bad:
+        print("TRAIN-DEGRADATION GATE FAILED:", bad)
+        raise SystemExit(1)
     bad = gate_serve_degradation(sd)
     if bad:
         print("SERVE-DEGRADATION GATE FAILED:", bad)
         raise SystemExit(1)
     print("[resilience ok: hpl.panel flipped away and back on every rank, "
-          "bit-identical; serving preempted and lost no token]")
+          "bit-identical; training flagged the delay and forced a "
+          "checkpoint; serving preempted and lost no token]")
     return record
 
 

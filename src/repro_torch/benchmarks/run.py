@@ -19,7 +19,7 @@ in the same invocation; alone it only tunes.
 Module arguments accept short aliases: ``hpl`` -> hpl_scaling, ``ptrans``
 -> ptrans_scaling, ``beff`` -> beff_bandwidth, ``gups`` / ``fftd`` ->
 gups_fft_bench, ``overlap`` -> overlap_bench, ``failover`` ->
-failover_bench, ``resilience`` -> resilience_bench.
+failover_bench, ``resilience`` -> resilience_bench, ``lm`` -> lm_step_bench.
 
   beff_bandwidth   Fig. 10/11 + Eqs. 1/2/4
   ptrans_scaling   Fig. 12 + Eqs. 5/6
@@ -32,7 +32,10 @@ failover_bench, ``resilience`` -> resilience_bench.
   failover_bench   a severed ring hop rerouted and repaired on a ring of
                    processes (gated)
   resilience_bench drift detection and in-run retune under a degraded
-                   link on a ring of processes (gated)
+                   link on a ring of processes, training and serving
+                   under a host delay (gated)
+  lm_step_bench    train and decode step times per architecture (reduced
+                   configs)
 """
 from __future__ import annotations
 
@@ -44,12 +47,13 @@ from typing import Optional
 
 MODULES = ["beff_bandwidth", "ptrans_scaling", "hpl_matrix_sweep",
            "hpl_scaling", "legacy_suite", "gups_fft_bench", "overlap_bench",
-           "failover_bench", "resilience_bench"]
+           "failover_bench", "resilience_bench", "lm_step_bench"]
 
 ALIASES = {"hpl": "hpl_scaling", "ptrans": "ptrans_scaling",
            "beff": "beff_bandwidth", "gups": "gups_fft_bench",
            "fftd": "gups_fft_bench", "overlap": "overlap_bench",
-           "failover": "failover_bench", "resilience": "resilience_bench"}
+           "failover": "failover_bench", "resilience": "resilience_bench",
+           "lm": "lm_step_bench"}
 
 # the drivers whose main() takes quick= and schedule=
 _SCHEDULED = ("beff_bandwidth", "ptrans_scaling", "hpl_scaling",

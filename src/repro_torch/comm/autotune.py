@@ -64,7 +64,7 @@ caller's injector. The MoE pattern ``all_to_all_tiles@moe.dispatch`` times
 both exchanges of the layer, and :data:`PAIRED_ALIASES` files its winner
 under ``all_to_all_tiles@moe.combine`` too. The reference's tensor-,
 sequence-parallel and decode patterns come with the modules that make
-those calls (ROADMAP A12, A13).
+those calls (ROADMAP A12's second half, A13).
 """
 from __future__ import annotations
 

@@ -13,7 +13,7 @@ batched stream with slots recycled on EOS / max-new. ``--legacy`` keeps
 the whole-batch ``generate`` loop, which also serves the model families
 the paged cache does not cover (encoder-decoder and SSM layers).
 ``--mode explicit`` raises: the engine-routed decode waits for ROADMAP
-A12 and A13.
+A12's second half and A13.
 """
 from __future__ import annotations
 

@@ -1,9 +1,10 @@
 """Training launcher's fault flags.
 
 Port of ``repro/launch/train.py::parse_fault_args`` (``:23-43``), which
-the serving launcher (:mod:`repro_torch.launch.serve`) shares. The rest of
-the training launcher (``main``: the fault-tolerant loop on the local
-devices) waits for the training loop, ROADMAP A14.
+the serving launcher (:mod:`repro_torch.launch.serve`) shares. The
+training loop itself is :func:`repro_torch.train.loop.train_loop`; the
+launcher around it (``main``: argument parsing and the loop on the local
+devices) waits for ROADMAP A14.
 """
 from __future__ import annotations
 

@@ -27,7 +27,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.kvcache import attn_cache_spec
 from repro_torch.models.transformer import (ParamTree, Shard, _noshard,
-                                            _param, dtype_of)
+                                            _param, dtype_of, rematerialize)
 
 
 def _init_enc_layer(gen, cfg: ModelConfig, device) -> Dict:
@@ -71,12 +71,15 @@ class EncDecParams(nn.Module):
                                         for t in tree["dec_blocks"])
         self.final_norm = _param(tree["final_norm"])
 
-    def tree(self) -> Dict:
-        return {"embed": self.embed.data,
-                "enc_blocks": [b.tree() for b in self.enc_blocks],
-                "enc_norm": self.enc_norm.data,
-                "dec_blocks": [b.tree() for b in self.dec_blocks],
-                "final_norm": self.final_norm.data}
+    def tree(self, data: bool = True) -> Dict:
+        """The nested dict of weights; ``data=False`` gives the parameters
+        themselves."""
+        leaf = (lambda p: p.data) if data else (lambda p: p)
+        return {"embed": leaf(self.embed),
+                "enc_blocks": [b.tree(data) for b in self.enc_blocks],
+                "enc_norm": leaf(self.enc_norm),
+                "dec_blocks": [b.tree(data) for b in self.dec_blocks],
+                "final_norm": leaf(self.final_norm)}
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> EncDecParams:
@@ -126,9 +129,13 @@ def encode(params: EncDecParams, cfg: ModelConfig, frames: torch.Tensor,
 
 def decode(params: EncDecParams, cfg: ModelConfig, tokens: torch.Tensor,
            encoder_out: torch.Tensor, *, cache: Optional[Dict] = None,
-           shard: Shard = _noshard) -> torch.Tensor:
+           shard: Shard = _noshard, remat: str = "none") -> torch.Tensor:
     """Decoder logits (B, S, V); with a ``cache``, its layers are written
-    in place (positions [0, S) in prefill, ``pos`` in decode)."""
+    in place (positions [0, S) in prefill, ``pos`` in decode). Without one
+    (train mode) each decoder layer runs under the checkpoint policy
+    ``remat`` (``transformer.REMAT_POLICIES``); the reference checkpoints
+    its decoder layers under ``"full"`` only and runs ``"dots"`` as
+    ``"none"``, which changes no value."""
     dtype = dtype_of(cfg.dtype)
     S = tokens.shape[1]
     pos = cache["pos"] if cache is not None and S == 1 else None
@@ -140,9 +147,12 @@ def decode(params: EncDecParams, cfg: ModelConfig, tokens: torch.Tensor,
     x = shard(x, "residual")
     layer_caches = cache["layers"] if cache is not None else \
         [None] * cfg.num_layers
-    for lp, lc in zip(params.dec_blocks, layer_caches):
+
+    def block(x, i):
+        lp = params.dec_blocks[i]
         h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
-        a, _ = L.apply_attention(lp["self_attn"], cfg, h, cache=lc, pos=pos,
+        a, _ = L.apply_attention(lp["self_attn"], cfg, h,
+                                 cache=layer_caches[i], pos=pos,
                                  use_rope=False)
         x = shard(x + a, "residual")
         h = L.rmsnorm(x, lp["cross_ln"], cfg.norm_eps)
@@ -150,20 +160,27 @@ def decode(params: EncDecParams, cfg: ModelConfig, tokens: torch.Tensor,
                                  causal=False, use_rope=False)
         x = shard(x + c, "residual")
         h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
-        x = shard(x + L.apply_mlp(lp["mlp"], h), "residual")
+        return shard(x + L.apply_mlp(lp["mlp"], h), "residual")
+
+    body = rematerialize(block, remat if cache is None else "none")
+    for i in range(cfg.num_layers):
+        x = body(x, i)
     x = L.rmsnorm(x, params.final_norm, cfg.norm_eps)
     return shard(torch.matmul(x, embed.T), "logits")
 
 
 def apply(params: EncDecParams, cfg: ModelConfig, tokens: torch.Tensor, *,
           frames: Optional[torch.Tensor] = None,
-          cache: Optional[Dict] = None, shard: Shard = _noshard):
+          cache: Optional[Dict] = None, shard: Shard = _noshard,
+          remat: str = "none"):
     """Returns (logits, cache, None). train (no cache) and prefill (S > 1)
     run the encoder on ``frames``; prefill stores its output in the
-    cache's dtype. Decode (S == 1) reads it back in the compute dtype."""
+    cache's dtype. Decode (S == 1) reads it back in the compute dtype.
+    ``remat`` applies to the decoder in train mode (:func:`decode`)."""
     if cache is None:
         enc = encode(params, cfg, frames, shard=shard)
-        return decode(params, cfg, tokens, enc, shard=shard), None, None
+        return decode(params, cfg, tokens, enc, shard=shard,
+                      remat=remat), None, None
     S = tokens.shape[1]
     if S > 1:  # prefill
         enc = encode(params, cfg, frames, shard=shard)

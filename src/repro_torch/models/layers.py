@@ -18,7 +18,7 @@ the qkv biases and before rope, as the reference does (``layers.py:319``).
 ``kv_x`` (vlm, whisper), ``causal`` and ``use_rope`` (whisper's encoder)
 and its paged-decode branch (a page pool with a ``page_table``). Not in
 this slice: the explicit ``attn_impl`` hook and tensor-parallel flash
-(ROADMAP A12).
+(ROADMAP A12's second half).
 """
 from __future__ import annotations
 

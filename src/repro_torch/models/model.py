@@ -8,7 +8,9 @@ family: the decoder (dense, MoE, SSM, hybrid and vlm,
 :mod:`repro_torch.models.encdec`; its ``apply`` passes
 ``batch["frames"]``). :func:`from_reference` and :func:`to_reference` move
 weights between the reference's parameter tree (numpy arrays) and the
-port's per-layer modules, bit for bit; they are the one place where
+port's per-layer modules, bit for bit, and :func:`state_from_reference` and
+:func:`state_to_reference` a whole training state (weights, AdamW moments,
+counters and the compression error tree); they are the one place where
 layouts change. The decoder's block leaves are stacked over super-blocks,
 ``blocks/p{i}`` per period position, plus ``vlm`` (``patch_proj``,
 ``patch_norm``); the encoder-decoder's ``enc_blocks`` and ``dec_blocks``
@@ -32,23 +34,25 @@ from repro_torch.models.transformer import _noshard
 class Model:
     cfg: ModelConfig
     init: Callable        # (seed=0, *, device=None) -> Params / EncDecParams
-    apply: Callable       # (params, batch, cache=None, shard=...) -> (logits, cache, aux)
+    apply: Callable       # (params, batch, cache=None, shard=..., remat=...) -> (logits, cache, aux)
     init_cache: Callable  # (batch, max_seq, dtype=bf16, device=None) -> cache
 
 
 def _decoder_apply(cfg):
-    def apply(params, batch, *, cache=None, shard=_noshard, page_table=None):
+    def apply(params, batch, *, cache=None, shard=_noshard, remat="none",
+              page_table=None):
         return transformer.apply(params, cfg, batch["tokens"], cache=cache,
                                  patch_embeds=batch.get("patch_embeds"),
-                                 shard=shard, page_table=page_table)
+                                 shard=shard, remat=remat,
+                                 page_table=page_table)
     return apply
 
 
 def _encdec_apply(cfg):
-    def apply(params, batch, *, cache=None, shard=_noshard):
+    def apply(params, batch, *, cache=None, shard=_noshard, remat="none"):
         return encdec.apply(params, cfg, batch["tokens"],
                             frames=batch.get("frames"), cache=cache,
-                            shard=shard)
+                            shard=shard, remat=remat)
     return apply
 
 
@@ -128,10 +132,10 @@ def from_reference(cfg: ModelConfig, params_np: Dict, *, device=None):
 def to_reference(params) -> Dict:
     """The reference's parameter tree (numpy leaves, block leaves stacked
     over super-blocks, or over layers for the encoder-decoder) of the
-    port's weights."""
+    port's weights: a copy, which later in-place updates leave alone."""
     cfg = params.cfg
     tree = transformer.tree_map(params.tree(),
-                                lambda x: x.detach().cpu().numpy())
+                                lambda x: x.detach().cpu().numpy().copy())
     if cfg.is_encoder_decoder:
         return {**tree, "enc_blocks": _stack(tree["enc_blocks"]),
                 "dec_blocks": _stack(tree["dec_blocks"])}
@@ -145,3 +149,50 @@ def _stack(trees):
     if isinstance(first, dict):
         return {k: _stack([t[k] for t in trees]) for k in first}
     return np.stack(trees)
+
+
+def state_from_reference(cfg: ModelConfig, state_np, *, device=None):
+    """The port's :class:`~repro_torch.train.step.TrainState` from the
+    reference's (a ``TrainState`` or a dict with ``params``, ``opt``,
+    ``step`` and ``error``, numpy or array-like leaves): the weights with
+    gradients on, ``mu``, ``nu`` and ``error`` as trees of the port's
+    layout, ``count`` and ``step`` as int32 scalars on the host."""
+    from repro_torch.train.step import TrainState
+
+    def get(k):
+        return state_np[k] if isinstance(state_np, dict) else \
+            getattr(state_np, k)
+
+    def tree(t):
+        return from_reference(cfg, t, device=device).tree()
+
+    def scalar(v):
+        return torch.tensor(int(np.asarray(v)), dtype=torch.int32)
+
+    params = from_reference(cfg, get("params"), device=device)
+    params.requires_grad_(True)
+    opt, error = get("opt"), get("error")
+    return TrainState(params=params,
+                      opt={"mu": tree(opt["mu"]), "nu": tree(opt["nu"]),
+                           "count": scalar(opt["count"])},
+                      step=scalar(get("step")),
+                      error=None if error is None else tree(error))
+
+
+def state_to_reference(state) -> Dict:
+    """The reference's layout of a port training state: ``{'params',
+    'opt': {'mu', 'nu', 'count'}, 'step', 'error'}`` with numpy leaves."""
+    params = state.params
+    cls, cfg = type(params), params.cfg
+
+    def ref(tree):
+        return to_reference(cls(cfg, tree))
+
+    def scalar(t):
+        return np.asarray(int(t), dtype=np.int32)
+
+    return {"params": to_reference(params),
+            "opt": {"mu": ref(state.opt["mu"]), "nu": ref(state.opt["nu"]),
+                    "count": scalar(state.opt["count"])},
+            "step": scalar(state.step),
+            "error": None if state.error is None else ref(state.error)}

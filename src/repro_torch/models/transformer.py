@@ -20,6 +20,7 @@ Encoder-decoder models are :mod:`repro_torch.models.encdec`.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, Dict, Optional, Tuple
 
@@ -75,7 +76,8 @@ def period_of(cfg: ModelConfig) -> int:
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
-    # serving builds no autograd graph; training comes with ROADMAP A12
+    # frozen, so that serving builds no autograd graph; training turns
+    # gradients on for its own copy (repro_torch.train.step.init_train_state)
     return nn.Parameter(t, requires_grad=False)
 
 
@@ -105,9 +107,11 @@ class ParamTree(nn.Module):
     def items(self):
         return [(k, self[k]) for k in self._names]
 
-    def tree(self) -> Dict:
-        return {k: v.tree() if isinstance(v, ParamTree) else v.data
-                for k, v in self.items()}
+    def tree(self, data: bool = True) -> Dict:
+        """The nested dict of weights; ``data=False`` gives the parameters
+        themselves (with their ``.grad``) instead of their data."""
+        return {k: v.tree(data) if isinstance(v, ParamTree)
+                else (v.data if data else v) for k, v in self.items()}
 
 
 class LayerParams(ParamTree):
@@ -131,13 +135,15 @@ class Params(nn.Module):
         self.blocks = nn.ModuleList(LayerParams(t) for t in tree["blocks"])
         self.vlm = ParamTree(tree["vlm"]) if "vlm" in tree else None
 
-    def tree(self) -> Dict:
+    def tree(self, data: bool = True) -> Dict:
         """``{'embed', 'final_norm', 'blocks': [per-layer dicts]}`` and
-        ``'vlm'`` where the model has one."""
-        out = {"embed": self.embed.data, "final_norm": self.final_norm.data,
-               "blocks": [b.tree() for b in self.blocks]}
+        ``'vlm'`` where the model has one; ``data=False`` gives the
+        parameters themselves."""
+        leaf = (lambda p: p.data) if data else (lambda p: p)
+        out = {"embed": leaf(self.embed), "final_norm": leaf(self.final_norm),
+               "blocks": [b.tree(data) for b in self.blocks]}
         if self.vlm is not None:
-            out["vlm"] = self.vlm.tree()
+            out["vlm"] = self.vlm.tree(data)
         return out
 
 
@@ -241,6 +247,46 @@ def init_paged_cache(cfg: ModelConfig, pcfg: PagedCacheConfig,
 
 
 # ---------------------------------------------------------------------------
+# activation checkpointing (train mode)
+# ---------------------------------------------------------------------------
+
+REMAT_POLICIES = ("none", "full", "dots")
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    # the counterpart of jax's dots_with_no_batch_dims_saveable: the
+    # products without batch dimensions (the projections and the MLP, each
+    # one ``mm``) are saved; everything else, the attention's batched
+    # products (``bmm``) too, is recomputed in the backward pass
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def rematerialize(fn: Callable, remat: str) -> Callable:
+    """``fn`` under the activation-checkpoint policy ``remat``: ``"none"``
+    keeps every activation, ``"full"`` keeps only ``fn``'s inputs and
+    recomputes the rest in the backward pass, ``"dots"`` also keeps the
+    products without batch dimensions (the reference's
+    ``jax.checkpoint`` policies, ``transformer.py:257-262``)."""
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {remat!r}; policies are "
+                         f"{REMAT_POLICIES}")
+    if remat == "none":
+        return fn
+    from torch.utils import checkpoint as ckpt
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+
+    def run(*args):
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+    return run
+
+
+# ---------------------------------------------------------------------------
 # apply
 # ---------------------------------------------------------------------------
 
@@ -275,8 +321,8 @@ def _apply_layer(lp: LayerParams, cfg: ModelConfig, x, *, kind: str,
 def apply(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
           cache: Optional[Dict] = None,
           patch_embeds: Optional[torch.Tensor] = None,
-          shard: Shard = _noshard, collect_aux: bool = False,
-          page_table: Optional[Dict] = None
+          shard: Shard = _noshard, remat: str = "none",
+          collect_aux: bool = False, page_table: Optional[Dict] = None
           ) -> Tuple[torch.Tensor, Optional[Dict], Optional[Dict]]:
     """Returns (logits, cache, aux).
 
@@ -292,7 +338,11 @@ def apply(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     layers are skipped, as in the reference. The cache's tensors are
     written in place; the returned dict shares them and carries ``pos +
     S``. ``aux`` is ``{}`` with ``collect_aux`` and None otherwise, as the
-    reference returns it (its layers collect no MoE metrics)."""
+    reference returns it (its layers collect no MoE metrics).
+
+    ``remat`` (:data:`REMAT_POLICIES`) checkpoints each period of layers,
+    the reference's super-block, in train mode (no cache); serving runs
+    without autograd and ignores it."""
     check_supported(cfg)
     dtype = dtype_of(cfg.dtype)
     kinds, moe_mask = cfg.layer_kinds(), cfg.moe_layer_mask()
@@ -324,15 +374,32 @@ def apply(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         if is_decode:
             pos = cache["pos"]
 
-    for i, (lp, lc) in enumerate(zip(params.blocks, layer_caches)):
-        x, upd = _apply_layer(lp, cfg, x, kind=kinds[i], has_moe=moe_mask[i],
-                              has_cross=cross_mask[i], cache=lc, pos=pos,
-                              cross_kv=cross_kv, shard=shard,
-                              page_table=page_table)
-        if slots is not None:
-            # the reference scatters every layer's update after its scan;
-            # each layer's pool is its own, so writing it now is the same
-            scatter_token(lc, upd, slots)
+    def layer(i, x):
+        return _apply_layer(params.blocks[i], cfg, x, kind=kinds[i],
+                            has_moe=moe_mask[i], has_cross=cross_mask[i],
+                            cache=layer_caches[i], pos=pos,
+                            cross_kv=cross_kv, shard=shard,
+                            page_table=page_table)
+
+    if cache is None:
+        period = period_of(cfg)
+
+        def superblock(x, start):
+            for i in range(start, start + period):
+                x = layer(i, x)[0]
+            return x
+
+        body = rematerialize(superblock, remat)
+        for start in range(0, cfg.num_layers, period):
+            x = body(x, start)
+    else:
+        for i in range(cfg.num_layers):
+            x, upd = layer(i, x)
+            if slots is not None:
+                # the reference scatters every layer's update after its
+                # scan; each layer's pool is its own, so writing it now is
+                # the same
+                scatter_token(layer_caches[i], upd, slots)
 
     x = shard(L.rmsnorm(x, params.final_norm, cfg.norm_eps), "residual")
     logits = shard(torch.matmul(x, embed.T), "logits")

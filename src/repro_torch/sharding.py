@@ -7,7 +7,7 @@ nothing, so the shard function is the identity; like the reference's, it
 carries ``.mesh`` and ``.rules``, which is what makes the model choose the
 flash-attention path (``models/layers.py::_flash_sharded``). A mesh with an
 axis of size > 1 raises: the GSPMD activation and parameter specs and the
-tensor- and data-parallel model wait for ROADMAP A12.
+tensor- and data-parallel model wait for ROADMAP A12's second half.
 """
 from __future__ import annotations
 
@@ -25,7 +25,8 @@ class MeshRules:
 
 def rules_for(mesh) -> MeshRules:
     """The reference's data- and tensor-parallel axis roles for a mesh's
-    axis names (its sequence-shard and FSDP options wait for A12)."""
+    axis names (its sequence-shard and FSDP options wait for A12's second
+    half)."""
     names = tuple(mesh.shape)
     dp = tuple(a for a in ("pod", "data") if a in names)
     if not dp:
@@ -45,7 +46,7 @@ def make_shard_fn(mesh, rules: MeshRules) -> Callable:
     if wide:
         raise NotImplementedError(
             f"mesh axes {wide}: sharded activations and parameters are not "
-            "ported yet (ROADMAP A12); use a one-rank mesh")
+            "ported yet (ROADMAP A12's second half); use a one-rank mesh")
 
     def shard(x: torch.Tensor, name: str) -> torch.Tensor:
         return x

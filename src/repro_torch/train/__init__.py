@@ -1,1 +1,3 @@
-"""Serving steps of the port (train steps come with ROADMAP A12)."""
+"""Training and serving steps of the port: the one-rank and explicit
+data-parallel train steps, the fault-tolerant loop, the straggler monitor,
+and the serving steps."""

@@ -637,7 +637,18 @@ def test_run_rejects_unknown_module_and_schedule():
 # ---------------------------------------------------------------------------
 
 
-def test_hpl_scaling_quick_cpu(monkeypatch, tmp_path):
+@pytest.fixture
+def one_thread():
+    """One intra-op thread: HPL on the CPU is many small ops, and under six
+    test workers a thread per core in every worker oversubscribes the
+    cores (this test: 13.6 s alone, 1140 s in a whole run)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_hpl_scaling_quick_cpu(monkeypatch, tmp_path, one_thread):
     monkeypatch.setattr(common, "RESULTS", tmp_path)
     rec = hpl_scaling.main(quick=True, device="cpu")
     assert (tmp_path / "torch_hpl_scaling.json").is_file()
