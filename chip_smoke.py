@@ -258,12 +258,30 @@ Phases, one JSON line each:
                agree; ``ring_add_step`` runs on every rank on rs_ag and
                int8_ef (and auto when it resolves to a ring), never on
                native or chain.
+24. whole   — four processes sharing the card over gloo run
+               ``make_whole_model_train_step_explicit`` (the tp and sp
+               attention exchanges through the engine's differentiable
+               all_to_all_tiles and ring_exchange) on llama3.2-3b at full
+               width cut to WHOLE_LAYERS layers in fp32 (595e6 parameters),
+               remat "full", WHOLE_STEPS steps of WHOLE_B x WHOLE_S tokens
+               for each leg of WHOLE_LEGS, against the one-rank step on the
+               global batch within WHOLE_TOL (the weights of the WHOLE_SAVED
+               legs come back through ``checkpoint.save`` into a temporary
+               directory, restored and compared one leg at a time, tp
+               against sp too); ``ring_add_step`` 3 times per nonempty
+               bucket plus 3 per step per rank on rs_ag, never on native;
+               the step seconds, bytes staged by callsite and peak memory
+               per rank; then qwen3-moe's ``tiny(4, layers=2)`` for each
+               mode x nchunks 1, "auto" to the same gates, and
+               ``failover_bench``'s rank-loss section with its gate (the
+               ring shrinks 4 -> 2, the resumed losses equal the snapshot
+               control's bit for bit).
 
 Each main-path phase zeroes the launch counts just before it runs and reads
-them just after (the allreduce and dp phases in each rank's process, around
-each ``allreduce_tree`` or each schedule's steps; ``ring_add_step``'s
-launches in the summary line add rank 0's dp launches to the allreduce
-phase's). Then the card's ``nvidia-smi`` name and power limit, the
+them just after (the allreduce, dp and whole phases in each rank's process,
+around each ``allreduce_tree``, each schedule's or each leg's steps;
+``ring_add_step``'s launches in the summary line add rank 0's dp and whole
+launches to the allreduce phase's). Then the card's ``nvidia-smi`` name and power limit, the
 per-kernel summary line ``{"kernels": [...]}`` (each kernel's launches from
 the phase that drives it), and last ``{"ok": true, "device": ...}``. Any
 failed check raises and the script exits non-zero. Without a CUDA device,
@@ -381,6 +399,25 @@ DP_INT8_GN_RTOL = 1e-3
 # the schedules whose weights rank 0 hands back for that comparison
 DP_WEIGHTS_OF = ("native", "rs_ag")
 TRAIN_TIMEOUT = 600.0  # phase train's own process
+# the explicit whole-model step on WHOLE_RANKS processes sharing the card:
+# TRAIN_ARCH at full width cut to WHOLE_LAYERS layers, fp32 weights, moments
+# and compute (595e6 parameters), remat "full", WHOLE_STEPS steps of
+# WHOLE_B x WHOLE_S tokens per leg of WHOLE_LEGS (attention mode, engine
+# schedule), each leg from the same state; against the one-rank step on
+# the global batch: the loss at rtol WHOLE_TOL[0], the grad norm at rtol
+# WHOLE_TOL[1] (tests/dist/test_transformer.py:92-100) and, for the legs of
+# WHOLE_SAVED (their weights handed back through checkpoint.save), the
+# weights at atol WHOLE_TOL[2] (phase dp's limit). Then the reference's
+# reduction of qwen3-moe, tiny(4, layers=2), in fp32 for each mode x
+# nchunks of WHOLE_MOE_CHUNKS on rs_ag, WHOLE_MOE_B x WHOLE_MOE_S tokens a
+# step, to the same gates; then failover_bench's rank-loss section
+WHOLE_RANKS, WHOLE_TIMEOUT = 4, 600.0
+WHOLE_LAYERS, WHOLE_B, WHOLE_S, WHOLE_STEPS = 2, 8, 1024, 2
+WHOLE_LEGS = (("tp", "native"), ("tp", "rs_ag"), ("sp", "rs_ag"))
+WHOLE_SAVED = (("tp", "rs_ag"), ("sp", "rs_ag"))
+WHOLE_MOE_CHUNKS = (1, "auto")
+WHOLE_MOE_B, WHOLE_MOE_S = 4, 16
+WHOLE_TOL = (1e-5, 1e-4, 1e-3)  # loss rtol, grad-norm rtol, weights atol
 # fp32 prefill, flash vs plain attention: both are fp32 throughout and
 # differ only in the order of the attention's sums (a few ulps per layer),
 # on logits of rms about 1; one bf16 rounding anywhere moves them by ~1e-2
@@ -3375,6 +3412,354 @@ def phase_dp(torch):
             sum(r[n]["launches"] for r in ranks for n in DP_SCHEDULES))
 
 
+WHOLE_DIMS = (WHOLE_LAYERS, None, None, WHOLE_B, WHOLE_S, WHOLE_STEPS)
+
+
+def whole_cfg(dims):
+    """TRAIN_ARCH cut to ``dims[0]`` layers at full width in fp32, or, with
+    a d_model and vocab in ``dims``, ``reduced()`` to them (a CPU probe)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    layers, d_model, vocab = dims[:3]
+    if d_model is None:
+        return dataclasses.replace(get_config(TRAIN_ARCH), num_layers=layers,
+                                   dtype="float32")
+    return reduced(get_config(TRAIN_ARCH), layers=layers, d_model=d_model,
+                   vocab=vocab)
+
+
+def whole_batches(vocab: int, b: int, s: int, steps: int):
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    data = SyntheticLMDataset(DataConfig(vocab, b, s))
+    return [data.batch(i) for i in range(steps)]
+
+
+def whole_run():
+    from repro_torch.configs import RunConfig
+    return RunConfig(learning_rate=1e-3, warmup_steps=0)  # remat "full"
+
+
+def whole_leg(mesh, device, model, batches, mode: str, schedule: str,
+              nchunks=1, save_to=None, hand_back: bool = False) -> dict:
+    """One leg on this rank: the explicit whole-model step's steps from
+    seed 0's state, with this rank's losses, grad norms, seconds (from a
+    barrier to the drained card), ring_add_step launches and the count the
+    buckets imply, bytes staged by callsite and peak memory. ``save_to``:
+    rank 0 writes the whole weights there (``checkpoint.save``);
+    ``hand_back``: rank 0 returns them."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.comm.callsites import DP_GRADS
+    from repro_torch.comm.engine import (reset_staged_bytes,
+                                         staged_bytes_by_callsite)
+    from repro_torch.comm.overlap import pack_buckets, tree_flatten
+    from repro_torch.kernels import ops
+    from repro_torch.train.step import (gather_whole_model_state,
+                                        init_train_state,
+                                        make_whole_model_train_step_explicit,
+                                        shard_whole_model_state,
+                                        whole_model_param_specs)
+
+    cuda = device == "cuda"
+    state = shard_whole_model_state(init_train_state(model, 0, device=device),
+                                    mesh)
+    step = make_whole_model_train_step_explicit(
+        model, whole_run(), mesh, attn_mode=mode, schedule_kind=schedule,
+        nchunks=nchunks)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    reset_staged_bytes()
+    rec = {"loss": [], "grad_norm": [], "seconds": []}
+    for batch in batches:
+        dist.barrier()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        loss = float(m["loss"])
+        if cuda:
+            torch.cuda.synchronize()
+        rec["seconds"].append(time.perf_counter() - t0)
+        rec["loss"].append(loss)
+        rec["grad_norm"].append(float(m["grad_norm"]))
+    rec["launches"] = ops.launch_counts().get("ring_add_step", 0)
+    rec["staged"] = {str(k): v for k, v in staged_bytes_by_callsite().items()}
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if cuda \
+        else None
+    rec["device"] = str(next(state.params.parameters()).device)
+    # on the card rs_ag adds each nonempty bucket's hop chunks with
+    # ring_add_step 3 times on a ring of 4 (n - 1), and the loss's, and the
+    # expert shards' sum of squares where the model has them (on the CPU
+    # the wrapper runs its plain version and counts nothing)
+    engine = step.engine
+    leaves = tree_flatten(state.params.tree())[0]
+    specs = tree_flatten(whole_model_param_specs(state.params))[0]
+    rep = [t for t, sp in zip(leaves, specs) if sp.replicated]
+    buckets = [b for b in pack_buckets(rep, engine.bucket_bytes_for("x"))
+               if sum(rep[i].numel() for i in b)]
+    hops = mesh.axis("x").size - 1
+    per_step = hops * (len(buckets) + 1 + (len(rep) < len(leaves)))
+    resolved = sorted({engine.schedule_for(
+        "allreduce", nbytes=sum(rep[i].numel() * 4 for i in b), axis="x",
+        callsite=DP_GRADS) for b in buckets})
+    ring = cuda and any(r in ("rs_ag", "ring2d") for r in resolved)
+    rec.update(buckets=len(buckets), dp_grads_resolved=resolved,
+               want_launches=per_step * len(batches) if ring else 0)
+    if save_to is not None or hand_back:
+        whole = gather_whole_model_state(state, mesh, engine=engine)
+        if mesh.rank == 0 and save_to is not None:
+            ckpt.save(save_to, len(batches), {"params": whole.params})
+        if mesh.rank == 0 and hand_back:
+            rec["weights"] = [t.detach().cpu().numpy().copy()
+                              for t in tree_flatten(whole.params.tree())[0]]
+        del whole
+        dist.barrier()  # the writer has renamed its directory
+    del state, step
+    if cuda:
+        torch.cuda.empty_cache()
+    return rec
+
+
+def whole_rank(mesh, device, dims, root):
+    """Runs on every rank of phase whole: each leg of WHOLE_LEGS on
+    ``whole_cfg(dims)`` (the legs of WHOLE_SAVED written under ``root``),
+    then the reduced qwen3-moe legs (rank 0 hands their weights back)."""
+    import os
+
+    import torch
+
+    from repro_torch.configs.qwen3_moe_235b_a22b import tiny
+    from repro_torch.models.model import build_model
+
+    if device == "cuda":
+        # four ranks share the card: segments that grow in place keep each
+        # rank's cached but free memory small (set before CUDA starts here)
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
+        torch.cuda.set_device(0)
+    cfg = whole_cfg(dims)
+    model = build_model(cfg)
+    batches = whole_batches(cfg.vocab_size, *dims[3:])
+    out = {}
+    for mode, schedule in WHOLE_LEGS:
+        save = (os.path.join(root, f"{mode}_{schedule}")
+                if (mode, schedule) in WHOLE_SAVED else None)
+        out[mode, schedule] = whole_leg(mesh, device, model, batches, mode,
+                                        schedule, save_to=save)
+    moe = tiny(mesh.axis("x").size, layers=2)
+    moe_model = build_model(moe)
+    moe_batches = whole_batches(moe.vocab_size, WHOLE_MOE_B, WHOLE_MOE_S,
+                                dims[5])
+    for mode in ("tp", "sp"):
+        for nchunks in WHOLE_MOE_CHUNKS:
+            out["moe", mode, nchunks] = whole_leg(
+                mesh, device, moe_model, moe_batches, mode, "rs_ag",
+                nchunks=nchunks, hand_back=True)
+    return out
+
+
+def one_rank_steps(torch, cfg, batches, device):
+    """The one-rank ``make_train_step`` on the global batches from seed 0's
+    state: losses, grad norms and the final weights (on ``device``)."""
+    from repro_torch.comm.overlap import tree_flatten
+    from repro_torch.models.model import build_model
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    model = build_model(cfg)
+    state = init_train_state(model, 0, device=device)
+    step = make_train_step(model, whole_run())
+    loss, gn = [], []
+    for batch in batches:
+        state, m = step(state, batch)
+        loss.append(float(m["loss"]))
+        gn.append(float(m["grad_norm"]))
+    return loss, gn, state.params
+
+
+def run_whole(torch, device, dims, timeout=WHOLE_TIMEOUT) -> dict:
+    """Phase whole's legs on WHOLE_RANKS gloo processes, then, after they
+    exit, the one-rank comparisons in this process, leg by leg; every gate
+    asserted. Returns the record (``dims`` smaller than WHOLE_DIMS and
+    ``device="cpu"`` make a probe on the CPU)."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.comm.overlap import tree_flatten
+    from repro_torch.configs.qwen3_moe_235b_a22b import tiny
+    from repro_torch.launch.mesh import spawn_mesh
+
+    rtol_loss, rtol_gn, atol_w = WHOLE_TOL
+
+    def close(a, b, rtol):
+        return all(abs(x / y - 1) <= rtol for x, y in zip(a, b))
+
+    def max_diff(xs, ys):
+        return max(float((x.to(y.device) - y).abs().max()) if x.numel()
+                   else 0.0 for x, y in zip(xs, ys))
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_whole_")
+    try:
+        t0 = time.perf_counter()
+        ranks = spawn_mesh(WHOLE_RANKS, whole_rank, device, dims, root,
+                           axes=("x",), timeout=timeout)
+        ranks_s = time.perf_counter() - t0
+        cfg = whole_cfg(dims)
+        one, one_gn, one_params = one_rank_steps(
+            torch, cfg, whole_batches(cfg.vocab_size, *dims[3:]), device)
+        one_w = tree_flatten(one_params.tree())[0]
+        legs, saved = {}, {}
+        for mode, schedule in WHOLE_LEGS:
+            recs = [r[mode, schedule] for r in ranks]
+            what = f"whole/{mode}/{schedule}"
+            check(all(r["device"].startswith(device) for r in recs),
+                  f"{what} ran on {[r['device'] for r in recs]}")
+            check(all(close(r["loss"], one, rtol_loss) for r in recs),
+                  f"{what}: losses {[r['loss'] for r in recs]} vs the "
+                  f"one-rank step's {one} beyond rtol {rtol_loss}")
+            check(all(close(r["grad_norm"], one_gn, rtol_gn) for r in recs),
+                  f"{what}: grad norms {[r['grad_norm'] for r in recs]} vs "
+                  f"{one_gn} beyond rtol {rtol_gn}")
+            launches = [r["launches"] for r in recs]
+            check(all(n == r["want_launches"]
+                      for n, r in zip(launches, recs)),
+                  f"{what}: ring_add_step launches {launches}, want "
+                  f"{recs[0]['want_launches']}")
+            err = None
+            if (mode, schedule) in WHOLE_SAVED:
+                # one leg at a time: restore, compare, delete
+                d = os.path.join(root, f"{mode}_{schedule}")
+                _, got, _ = ckpt.restore(d, {"params": one_params})
+                w = tree_flatten(got["params"].tree())[0]
+                err = max_diff(w, one_w)
+                check(err <= atol_w, f"{what}: weights {err} from the "
+                                     f"one-rank step's, beyond {atol_w}")
+                saved[mode] = w
+                shutil.rmtree(d)
+            legs[f"{mode}/{schedule}"] = {
+                "loss": recs[0]["loss"], "grad_norm": recs[0]["grad_norm"],
+                "step_s": [max(r["seconds"][i] for r in recs)
+                           for i in range(len(one))],
+                "ring_add_step_per_rank": launches,
+                "buckets": recs[0]["buckets"],
+                "dp_grads_resolved": recs[0]["dp_grads_resolved"],
+                "staged_bytes_per_rank_by_callsite": recs[0]["staged"],
+                "peak_gb_per_rank": [r["peak_gb"] for r in recs],
+                "max_abs_weight_diff_vs_one_rank": err}
+        tp, sp = legs["tp/rs_ag"], legs["sp/rs_ag"]
+        tp_sp = max_diff(saved["tp"], saved["sp"])
+        check(close(tp["loss"], sp["loss"], rtol_loss)
+              and close(tp["grad_norm"], sp["grad_norm"], rtol_gn)
+              and tp_sp <= atol_w,
+              f"whole: tp and sp disagree (weights {tp_sp})")
+        del saved, one_params, one_w
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+        moe = tiny(WHOLE_RANKS, layers=2)
+        m_one, m_gn, m_params = one_rank_steps(
+            torch, moe, whole_batches(moe.vocab_size, WHOLE_MOE_B,
+                                      WHOLE_MOE_S, dims[5]), device)
+        m_w = tree_flatten(m_params.tree())[0]
+        moe_legs = {}
+        for mode in ("tp", "sp"):
+            for nchunks in WHOLE_MOE_CHUNKS:
+                recs = [r["moe", mode, nchunks] for r in ranks]
+                what = f"whole/moe/{mode}/nchunks={nchunks}"
+                err = max_diff([torch.from_numpy(w)
+                                for w in recs[0]["weights"]], m_w)
+                launches = [r["launches"] for r in recs]
+                check(all(close(r["loss"], m_one, rtol_loss)
+                          and close(r["grad_norm"], m_gn, rtol_gn)
+                          for r in recs) and err <= atol_w,
+                      f"{what}: losses {recs[0]['loss']} vs {m_one}, grad "
+                      f"norms {recs[0]['grad_norm']} vs {m_gn}, weights "
+                      f"{err}")
+                check(all(n == r["want_launches"] and (n > 0 or
+                                                       device == "cpu")
+                          for n, r in zip(launches, recs)),
+                      f"{what}: ring_add_step launches {launches}, want "
+                      f"{recs[0]['want_launches']}")
+                moe_legs[f"{mode}/nchunks={nchunks}"] = {
+                    "loss": recs[0]["loss"],
+                    "grad_norm": recs[0]["grad_norm"],
+                    "step_s": [max(r["seconds"][i] for r in recs)
+                               for i in range(len(m_one))],
+                    "ring_add_step_per_rank": launches,
+                    "staged_bytes_per_rank_by_callsite": recs[0]["staged"],
+                    "max_abs_weight_diff_vs_one_rank": err}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"legs": legs, "one_rank_loss": one, "one_rank_grad_norm": one_gn,
+            "tp_vs_sp_max_abs_weight_diff": tp_sp, "moe_legs": moe_legs,
+            "moe_one_rank_loss": m_one, "params": cfg.param_count(),
+            "seconds_ranks": ranks_s,
+            "launches_rank0": sum(r["launches"] for r in ranks[0].values()),
+            "launches_all": sum(r["launches"] for x in ranks
+                                for r in x.values())}
+
+
+def phase_whole(torch, card: str):
+    """The explicit whole-model step on WHOLE_RANKS processes sharing the
+    card over gloo (the legs of WHOLE_LEGS at full width, the reduced
+    qwen3-moe legs), held against the one-rank step on the global batch;
+    ring_add_step launched 3 times per nonempty bucket plus 3 per step on
+    rs_ag and never on native; then failover_bench's rank-loss section
+    with its gate."""
+    from repro_torch.benchmarks import failover_bench
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free_gb = torch.cuda.mem_get_info()[0] / 1e9
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = run_whole(torch, "cuda", WHOLE_DIMS)
+    check(all(v == 0 for v in ops.launch_counts().values()),
+          "the parent launched kernels during the whole phase")
+    t1 = time.perf_counter()
+    rl = failover_bench.rank_loss_section("cuda", quick=True)
+    bad = failover_bench.gate_rank_loss(rl)
+    check(not bad, f"rank-loss gate: {bad}")
+    emit({"phase": "whole", "arch": f"{TRAIN_ARCH} at full width cut to "
+          f"{WHOLE_LAYERS} layers, fp32 weights, moments and compute",
+          "card": card, "params": rec["params"], "ranks": WHOLE_RANKS,
+          "global_batch": [WHOLE_B, WHOLE_S], "steps": WHOLE_STEPS,
+          "card_free_gb_at_start": free_gb,
+          "remat": "full", "tolerances": {
+              "loss_rtol": WHOLE_TOL[0], "grad_norm_rtol": WHOLE_TOL[1],
+              "weights_atol": WHOLE_TOL[2]},
+          "transport": "gloo, staged through host memory; kernels on the "
+                       "card",
+          "staged_bytes_note": "per rank, by callsite; under remat full "
+                               "the forward exchanges of every layer run "
+                               "again in the backward and count again; "
+                               "'None' is the loss's (and the MoE expert "
+                               "shards' sum of squares') allreduce",
+          "one_rank_loss": rec["one_rank_loss"],
+          "one_rank_grad_norm": rec["one_rank_grad_norm"],
+          "legs": rec["legs"],
+          "tp_vs_sp_max_abs_weight_diff": rec["tp_vs_sp_max_abs_weight_diff"],
+          "moe": {"config": "qwen3-moe-235b-a22b tiny(4, layers=2), fp32, "
+                            f"{WHOLE_MOE_B} x {WHOLE_MOE_S} tokens, rs_ag",
+                  "one_rank_loss": rec["moe_one_rank_loss"],
+                  "legs": rec["moe_legs"]},
+          "rank_loss": {k: rl[k] for k in (
+              "steps", "fail_at", "lost_rank", "recovery", "sat_out",
+              "resumed_losses", "control_losses", "loss_bitwise",
+              "device")},
+          "gates": "ok",
+          "seconds": {"ranks": rec["seconds_ranks"],
+                      "whole": t1 - t0, "rank_loss": time.perf_counter() - t1},
+          "what_the_time_measures": "the host's loopback (gloo on one "
+                                    "machine), not a link rate"})
+    return rec["launches_rank0"], rec["launches_all"]
+
+
 def main(argv=()) -> int:
     import torch
 
@@ -3423,6 +3808,10 @@ def main(argv=()) -> int:
     dp_launches, dp_all_ranks = phase_dp(torch)
     launches["ring_add_step"] += dp_launches
     ring_all_ranks += dp_all_ranks
+    whole_launches, whole_all_ranks = phase_whole(torch, smi)
+    check(whole_launches > 0, "phase whole launched no ring_add_step")
+    launches["ring_add_step"] += whole_launches
+    ring_all_ranks += whole_all_ranks
 
     check(set(launches) == set(rows) == set(SOURCES),
           f"kernels {sorted(rows)} vs launches {sorted(launches)}")

@@ -1,7 +1,8 @@
-"""Hard-failure survival: a severed ring hop, rerouted and repaired.
+"""Hard-failure survival: a severed ring hop rerouted and repaired, and a
+lost rank survived by elastic resume.
 
-Port of the link-down section of ``benchmarks/failover_bench.py``
-(``:61-158``).
+Port of the link-down and rank-loss sections of
+``benchmarks/failover_bench.py`` (``:61-158``, ``:160-241``).
 
     python -m repro_torch.benchmarks.failover_bench [--quick]
         [--device cuda|cpu]
@@ -32,21 +33,33 @@ the kernel launches. Exits 1 unless both ops provably flip away and back,
 bit-identically and correctly, on every rank alike. The times are the
 host's loopback, not a link rate.
 
-The reference's other two sections wait for later slices of the port and
-are named in the printed record under ``not_ported``: rank-loss elastic
-resume (``:160-241``) needs ``train_loop_elastic`` and the
-``explicit_tp`` step (ROADMAP A12's second half); serve rank loss
-(``:251``) runs the serving engine on a GSPMD mesh of several ranks, which
-the port's ``sharding.make_shard_fn`` refuses until the parallel model
-(A12's second half).
+**rank-loss elastic resume** (gated): the same four processes train
+reduced qwen3-moe (``tiny(4, layers=2)``, global batch 4 x 16 tokens)
+through :func:`~repro_torch.train.loop.train_loop_elastic` under
+``step_mode="explicit_tp"``, a checkpoint every 2 steps. The fault
+schedule loses the last rank at step 4 of 6 (``--quick``; 6 of 10
+otherwise): every process sees ``RankLostError``, the survivors form a
+ring of :func:`~repro_torch.train.loop.largest_divisible` (3, 4) = 2
+ranks, the first of them snapshots the checkpoint directory, and the
+loop resumes on them from the latest checkpoint resharded onto the new
+mesh; the other two processes sit out. A control loop on an identically
+chosen ring of two restores the snapshot. Gate (the reference's): the
+mesh shrank, the resume step is at or before the failure, the resumed run
+reached the last step, and its losses equal the control's bit for bit.
 
-The rank body, :func:`link_down_rank`, is a module-level function, so that
-spawned processes can import it. Writes
+The reference's serve rank loss (``:251``) waits for a later slice and is
+named in the printed record under ``not_ported``.
+
+The rank bodies, :func:`link_down_rank` and :func:`rank_loss_rank`, are
+module-level functions, so that spawned processes can import them. Writes
 ``results/bench/torch_failover_bench.json`` at the root of the checkout.
 """
 from __future__ import annotations
 
 import argparse
+import os
+import shutil
+import tempfile
 import time
 from typing import Dict, Sequence
 
@@ -56,7 +69,7 @@ import torch
 from repro_torch.benchmarks.common import save_result, table
 from repro_torch.comm.autotune import CostModel, route_links
 from repro_torch.comm.engine import CollectiveEngine, schedules_for
-from repro_torch.comm.faults import FaultInjector
+from repro_torch.comm.faults import FaultInjector, FaultSchedule
 from repro_torch.comm.topology import MeshTopology
 from repro_torch.comm.types import H100_80GB
 from repro_torch.core.hpcc import device_name, resolve_device
@@ -73,13 +86,13 @@ DOWN_HOP = 3            # the severed ring hop: the wraparound wire 3 -> 0
 TIMEOUT = 240.0         # seconds the gloo world may take
 OPS = ("bcast", "allreduce")
 PHASES = ("before", "during", "after")
+# the rank-loss section: (steps, failure step), quick and full, as the
+# reference's; the last rank of the ring is lost
+RANK_LOSS_STEPS = {True: (6, 4), False: (10, 6)}
 NOT_PORTED = {
-    "rank_loss": "needs train_loop_elastic and the explicit_tp step, "
-                 "ROADMAP A12's second half "
-                 "(benchmarks/failover_bench.py:160-241)",
-    "serve_rank_loss": "needs a GSPMD mesh of several ranks, which "
-                       "sharding.make_shard_fn refuses until ROADMAP A12's "
-                       "second half "
+    "serve_rank_loss": "needs a GSPMD mesh of several ranks (the GSPMD "
+                       "placement, the rest of ROADMAP A12's second half) "
+                       "and the explicit decode of ROADMAP A13 "
                        "(benchmarks/failover_bench.py:251)",
 }
 
@@ -213,6 +226,114 @@ def gate_link_down(sec) -> list:
     return bad
 
 
+def rank_loss_rank(mesh, root: str, quick: bool, device) -> Dict:
+    """Runs on every rank of a gloo ring: the elastic run that loses the
+    last rank, then the control on a ring of the same survivors restoring
+    the snapshot (``None`` where this process is outside it). Checkpoints
+    and the snapshot live under ``root``, which every rank shares."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.configs.qwen3_moe_235b_a22b import tiny
+    from repro_torch.data import DataConfig
+    from repro_torch.launch.mesh import sub_ring_mesh
+    from repro_torch.train.loop import (TrainLoopConfig, train_loop,
+                                        train_loop_elastic)
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(0)
+    ax = mesh.axis("x")
+    steps, fail_at = RANK_LOSS_STEPS[quick]
+    lost = ax.size - 1
+    cfg = tiny(ax.size, layers=2)
+    data = DataConfig(cfg.vocab_size, ax.size, 16)
+    ck, snap = os.path.join(root, "ck"), os.path.join(root, "snap")
+
+    def run(directory):
+        return RunConfig(checkpoint_dir=directory, checkpoint_every=2,
+                         learning_rate=1e-3, warmup_steps=1)
+
+    fault = FaultSchedule.rank_loss(FaultInjector(hw=H100_80GB), fail_at,
+                                    rank=lost)
+    hist, rec = train_loop_elastic(
+        cfg, run(ck), data, TrainLoopConfig(steps=steps,
+                                            step_mode="explicit_tp",
+                                            fault_schedule=fault),
+        mesh=mesh, snapshot_dir=snap, device=device)
+    # the control: a fresh loop restoring the snapshot the recovery used,
+    # on an identically chosen ring (every process enters its group)
+    survivors = [g for i, g in enumerate(ax.ranks) if i != lost]
+    ctrl_mesh = sub_ring_mesh(survivors[:rec["new_size"]])
+    ctrl = None
+    if ctrl_mesh is not None:
+        ctrl = train_loop(cfg, run(snap), data,
+                          TrainLoopConfig(steps=steps,
+                                          step_mode="explicit_tp"),
+                          mesh=ctrl_mesh, device=device)["loss"]
+    return {"recovery": rec, "step": hist["step"], "loss": hist["loss"],
+            "control_losses": ctrl, "steps": steps, "fail_at": fail_at,
+            "lost_rank": lost, "device": str(device)}
+
+
+def rank_loss_record(per_rank) -> Dict:
+    """The section's record from every rank's :func:`rank_loss_rank`:
+    rank 0's recovery and losses (the new mesh's first rank), and whether
+    every resumed rank and every control rank agree with it."""
+    first = per_rank[0]
+    rec = first["recovery"]
+    resumed = [r for r in per_rank if not r["recovery"]["sat_out"]]
+    i = first["step"].index(rec["resume_step"])
+    losses = first["loss"][i:]
+    ctrl = first["control_losses"]
+    return {
+        "ranks": len(per_rank), "steps": first["steps"],
+        "fail_at": first["fail_at"], "lost_rank": first["lost_rank"],
+        "device": first["device"], "recovery": rec,
+        "sat_out": [r["recovery"]["sat_out"] for r in per_rank],
+        "completed": bool(first["step"])
+        and first["step"][-1] == first["steps"] - 1,
+        "resumed_losses": losses, "control_losses": ctrl,
+        "loss_bitwise": losses == ctrl,
+        "ranks_agree": all(r["loss"] == first["loss"] for r in resumed)
+        and all(r["control_losses"] in (None, ctrl) for r in per_rank),
+        "recovery_s": rec["recovery_s"], "time": rec["recovery_s"],
+    }
+
+
+def rank_loss_section(device, quick: bool = True) -> Dict:
+    """The section on a gloo ring of :data:`RANKS` processes, the state
+    on ``device``; its checkpoints in a temporary directory, removed
+    after."""
+    root = tempfile.mkdtemp(prefix="torch_failover_")
+    try:
+        per_rank = spawn_mesh(RANKS, rank_loss_rank, root, quick,
+                              str(device), axes=("x",), timeout=TIMEOUT)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return rank_loss_record(per_rank)
+
+
+def gate_rank_loss(sec) -> list:
+    """The reference's gate (``_gate_rank_loss``), plus agreement of the
+    ranks: what fails in ``sec``."""
+    bad = []
+    rec = sec["recovery"]
+    if rec is None:
+        bad.append("rank loss never triggered elastic recovery")
+    else:
+        if rec["new_size"] >= rec["old_size"]:
+            bad.append(f"survivor mesh did not shrink ({rec['old_size']} -> "
+                       f"{rec['new_size']})")
+        if rec["resume_step"] > rec["fail_step"]:
+            bad.append(f"resume step {rec['resume_step']} past the failure "
+                       f"at {rec['fail_step']}")
+    if not sec["completed"]:
+        bad.append("the resumed run never reached the final step")
+    if not sec["loss_bitwise"]:
+        bad.append("resumed losses diverge from the from-checkpoint control")
+    if not sec["ranks_agree"]:
+        bad.append("the resumed ranks disagree")
+    return bad
+
+
 def main(quick: bool = False, schedule=None, device=None) -> dict:
     device = resolve_device(device)
     if schedule not in (None, "auto"):
@@ -231,16 +352,32 @@ def main(quick: bool = False, schedule=None, device=None) -> dict:
           f"loopback); route excludes cut={ld['route_excludes_cut']}; "
           f"bit-identical={ld['bit_identical']}; ring_add_step per rank "
           f"{ld['ring_add_step_per_rank']}")
+    bad = gate_link_down(ld)
+    if bad:
+        save_result("failover_bench", record)
+        print("LINK-DOWN GATE FAILED:", bad)
+        raise SystemExit(1)
+
+    rl = rank_loss_section(device, quick)
+    record["rank_loss"] = rl
+    rec = rl["recovery"]
+    print(f"\n-- elastic resume after losing rank {rl['lost_rank']} at step "
+          f"{rl['fail_at']} (explicit_tp, {rl['ranks']} gloo processes) --")
+    print(table([[rec["old_size"], rec["new_size"], rec["fail_step"],
+                  rec["resume_step"], f"{rec['recovery_s']:.2f}s",
+                  rl["loss_bitwise"]]],
+                ["mesh", "survivors", "fail step", "resume step",
+                 "recovery", "loss bitwise"]))
     for name, why in NOT_PORTED.items():
         print(f"-- {name}: not ported yet, {why} --")
     save_result("failover_bench", record)
-
-    bad = gate_link_down(ld)
+    bad = gate_rank_loss(rl)
     if bad:
-        print("LINK-DOWN GATE FAILED:", bad)
+        print("RANK-LOSS GATE FAILED:", bad)
         raise SystemExit(1)
     print("[failover ok: both ops rerouted off the cut and back, "
-          "bit-identical on every rank]")
+          "bit-identical on every rank; the rank loss resumed on the "
+          "survivors bit for bit as the control]")
     return record
 
 

@@ -35,7 +35,8 @@ failover_bench, ``resilience`` -> resilience_bench, ``lm`` -> lm_step_bench.
                    link on a ring of processes, training and serving
                    under a host delay (gated)
   lm_step_bench    train and decode step times per architecture (reduced
-                   configs)
+                   configs), and the explicit whole-model step on a ring
+                   of processes against the one-rank step (gated)
 """
 from __future__ import annotations
 
@@ -57,7 +58,8 @@ ALIASES = {"hpl": "hpl_scaling", "ptrans": "ptrans_scaling",
 
 # the drivers whose main() takes quick= and schedule=
 _SCHEDULED = ("beff_bandwidth", "ptrans_scaling", "hpl_scaling",
-              "gups_fft_bench", "failover_bench", "resilience_bench")
+              "gups_fft_bench", "failover_bench", "resilience_bench",
+              "lm_step_bench")
 
 
 def _print_resolved(name: str, record) -> None:

@@ -20,8 +20,10 @@ Port of ``repro/checkpoint/manager.py``, with the same layout on disk:
 :func:`restore` rebuilds each tree in the structure of ``like``, each
 tensor on the device and in the dtype of the tensor it replaces, and
 reports every missing, unexpected and mis-shaped leaf at once
-(:class:`CheckpointMismatchError`). Restoring onto a differently shaped
-mesh (``reshard_to``) waits for ROADMAP A12's second half.
+(:class:`CheckpointMismatchError`). ``restore(reshard_to=mesh)`` is the
+elastic path: the files hold whole arrays whatever mesh saved them, and
+every rank keeps its own part under the explicit whole-model layout on
+``mesh`` (:func:`repro_torch.train.step.shard_whole_model_state`).
 """
 from __future__ import annotations
 
@@ -84,21 +86,23 @@ def _to_numpy(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def _walk(node, path, out) -> None:
+    # module-level, not a nested recursive function: that would be a
+    # reference cycle holding every leaf until the garbage collector runs
+    if node is None:
+        return
+    kids = _children(node)
+    if kids is None:
+        out.append((_SEP.join(path), node))
+        return
+    for k, child in kids:
+        _walk(child, path + (str(k),), out)
+
+
 def _leaves(tree):
     """(path, leaf) of every leaf of ``tree``, None holding no leaf."""
     out = []
-
-    def walk(node, path):
-        if node is None:
-            return
-        kids = _children(node)
-        if kids is None:
-            out.append((_SEP.join(path), node))
-            return
-        for k, child in kids:
-            walk(child, path + (str(k),))
-
-    walk(tree, ())
+    _walk(tree, (), out)
     return out
 
 
@@ -190,12 +194,14 @@ def restore(directory: str, like: Dict[str, object], *,
 
     A structure mismatch raises :class:`CheckpointMismatchError` with the
     complete list of missing, unexpected and mis-shaped leaves; leaves on
-    disk that ``like`` lacks alone are not an error (a subset restore)."""
-    if reshard_to is not None:
-        raise NotImplementedError(
-            "restore(reshard_to=) lands the state on a differently shaped "
-            "mesh, which needs the sharding specs of ROADMAP A12's second "
-            "half; restore onto the saving layout instead")
+    disk that ``like`` lacks alone are not an error (a subset restore).
+
+    ``reshard_to`` (a :class:`~repro_torch.launch.mesh.ProcessMesh`) is
+    the rank-loss recovery path (reference ``:125-228``): ``like`` has the
+    whole shapes, and each restored tree is cut to this rank's part under
+    :func:`~repro_torch.train.step.whole_model_param_specs` on ``axis`` of
+    that mesh: a ``TrainState``'s weights and moments alike, a weight
+    module's weights; any other tree stays whole (replicated)."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -234,7 +240,21 @@ def restore(directory: str, like: Dict[str, object], *,
             out[name] = _rebuild(tree, iter(arrays))
     if missing or mismatched:
         raise CheckpointMismatchError(missing, unexpected, mismatched)
+    if reshard_to is not None:
+        out = {name: _reshard(tree, reshard_to, axis)
+               for name, tree in out.items()}
     return step, out, manifest.get("extra", {})
+
+
+def _reshard(tree, mesh, axis: str):
+    """``tree``'s part on this rank of ``mesh`` under the explicit
+    whole-model layout (the reference's ``_reshard_shardings``)."""
+    from repro_torch.train import step as st
+    if isinstance(tree, st.TrainState):
+        return st.shard_whole_model_state(tree, mesh, axis)
+    if isinstance(tree, torch.nn.Module) and hasattr(tree, "blocks"):
+        return st.shard_whole_model_params(tree, mesh, axis)
+    return tree
 
 
 class CheckpointManager:

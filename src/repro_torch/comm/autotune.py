@@ -62,9 +62,11 @@ reference's ``_measure_op`` does. The port adds it in the calling process
 once the ranks' times are gathered: the spawned ranks never see the
 caller's injector. The MoE pattern ``all_to_all_tiles@moe.dispatch`` times
 both exchanges of the layer, and :data:`PAIRED_ALIASES` files its winner
-under ``all_to_all_tiles@moe.combine`` too. The reference's tensor-,
-sequence-parallel and decode patterns come with the modules that make
-those calls (ROADMAP A12's second half, A13).
+under ``all_to_all_tiles@moe.combine`` too; the whole-model attention
+patterns ``all_to_all_tiles@tp.qkv`` and ``all_to_all_tiles@sp.qkv`` time
+their hooks' exchanges and file their winners under ``@tp.out`` and
+``@sp.out``. The reference's decode pattern comes with the explicit decode
+step (ROADMAP A13).
 """
 from __future__ import annotations
 
@@ -750,6 +752,47 @@ def _op_body(engine, mesh, op: str, nbytes: int, device) -> Callable:
                                            concat_axis=1)
         return body
 
+    if op == "all_to_all_tiles@tp.qkv":
+        # whole-model head-parallel attention: three back-to-back
+        # head-gathering exchanges (q, k, v), a stand-in attention touching
+        # every landed tile, then the inverse batch-restoring exchange; the
+        # local activation is (B_loc = 1, H = nranks, L)
+        L = max(elems // nranks, 1)
+        x = torch.ones(1, nranks, L, **f32)
+
+        def gather(a):  # heads split out, batch gathered
+            return engine.all_to_all_tiles(a, names[0], split_axis=1,
+                                           concat_axis=0)
+
+        def body():
+            q, k, v = gather(x), gather(x * 0.5), gather(x * 0.25)
+            o = torch.softmax(q * k, dim=-1) * v
+            return engine.all_to_all_tiles(o, names[0], split_axis=0,
+                                           concat_axis=1)
+        return body
+
+    if op == "all_to_all_tiles@sp.qkv":
+        # whole-model ring attention: the sequence-gathering exchanges, the
+        # kv block circulating the ring (n // 2 bidirectional hops) with a
+        # stand-in fold between hops, then the inverse exchange
+        L = max(elems // nranks, 1)
+        x = torch.ones(1, nranks, L, **f32)
+
+        def gather(a):  # sequence split out, batch gathered
+            return engine.all_to_all_tiles(a, names[0], split_axis=1,
+                                           concat_axis=0)
+
+        def body():
+            q, k, kv = gather(x), gather(x * 0.5), gather(x * 0.25)
+            acc = torch.softmax(q * k, dim=-1) * kv
+            fwd = bwd = kv
+            for _ in range(max(nranks // 2, 1)):
+                fwd, bwd = engine.ring_exchange(fwd, bwd, names[0])
+                acc = acc + torch.softmax(q * fwd, dim=-1) * bwd
+            return engine.all_to_all_tiles(acc, names[0], split_axis=0,
+                                           concat_axis=1)
+        return body
+
     if op == "all_to_all_tiles@fft.transpose":
         # pencil-FFT global transpose on the ring: the signal-gathering
         # exchange, the local full-signal FFT, and the inverse scatter
@@ -835,12 +878,16 @@ MEASURED_OPS = ("bcast", "allreduce", "all_to_all_tiles", "ring_exchange",
                 "grid_transpose", "bcast@hpl.panel",
                 "all_to_all_tiles@ra.updates",
                 "all_to_all_tiles@fft.transpose",
-                "all_to_all_tiles@moe.dispatch")
+                "all_to_all_tiles@moe.dispatch",
+                "all_to_all_tiles@tp.qkv",
+                "all_to_all_tiles@sp.qkv")
 
 # callsite patterns that time both directions of a paired exchange: the
 # measured winner is filed under every tag of the pair
 PAIRED_ALIASES: Dict[str, Tuple[str, ...]] = {
     "all_to_all_tiles@moe.dispatch": ("all_to_all_tiles@moe.combine",),
+    "all_to_all_tiles@tp.qkv": ("all_to_all_tiles@tp.out",),
+    "all_to_all_tiles@sp.qkv": ("all_to_all_tiles@sp.out",),
 }
 
 
@@ -923,8 +970,12 @@ def autotune_mesh(*, ops: Sequence[str] = MEASURED_OPS,
     ``"all_to_all_tiles@fft.transpose"`` the pencil-FFT gather / local
     transform / inverse-scatter sandwich, and
     ``"all_to_all_tiles@moe.dispatch"`` MoE's dispatch / expert compute /
-    combine, whose winner is also filed under its
-    :data:`PAIRED_ALIASES`. Payloads live on ``device`` (the
+    combine, ``"all_to_all_tiles@tp.qkv"`` the head-parallel hook's q/k/v
+    gathers and inverse exchange, and ``"all_to_all_tiles@sp.qkv"`` the
+    ring-attention hook's gathers interleaved with its kv hops (the hops
+    themselves take the untagged ``ring_exchange`` entry); each of the
+    three files its winner also under its :data:`PAIRED_ALIASES`.
+    Payloads live on ``device`` (the
     card unless ``"cpu"`` is given); gloo stages a card's payloads through
     host memory. A time is the slowest rank's, best of ``reps``, plus the
     active fault injector's modeled delay (:func:`_add_fault_delays`). Returns

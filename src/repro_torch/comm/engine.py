@@ -45,6 +45,7 @@ ranking otherwise), ``nchunks="auto"`` through its pipeline fill cost, and
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
 
@@ -109,6 +110,8 @@ def known_schedules() -> Tuple[str, ...]:
 
 
 _STAGED = [0]  # bytes copied between card and host by the transport
+_STAGED_BY: Dict[Optional[str], int] = {}  # the same, by callsite tag
+_CALLSITE: list = [None]  # the tag of the engine op now moving bytes
 
 
 def staged_bytes() -> int:
@@ -117,8 +120,32 @@ def staged_bytes() -> int:
     return _STAGED[0]
 
 
+def staged_bytes_by_callsite() -> Dict[Optional[str], int]:
+    """:func:`staged_bytes` split by the callsite tag of the engine op that
+    moved them (None for an untagged op). The backward of a differentiable
+    exchange counts under its forward's tag; under ``remat`` a recomputed
+    forward's bytes count again."""
+    return dict(_STAGED_BY)
+
+
 def reset_staged_bytes() -> None:
     _STAGED[0] = 0
+    _STAGED_BY.clear()
+
+
+@contextlib.contextmanager
+def _tagged(callsite: Optional[str]):
+    """Count the transport's staged bytes under ``callsite`` meanwhile."""
+    prev, _CALLSITE[0] = _CALLSITE[0], callsite
+    try:
+        yield
+    finally:
+        _CALLSITE[0] = prev
+
+
+def _count_staged(nbytes: int) -> None:
+    _STAGED[0] += nbytes
+    _STAGED_BY[_CALLSITE[0]] = _STAGED_BY.get(_CALLSITE[0], 0) + nbytes
 
 
 def _staged(ax, x: torch.Tensor) -> bool:
@@ -130,12 +157,12 @@ def _staged(ax, x: torch.Tensor) -> bool:
 def _to_host(x: torch.Tensor) -> torch.Tensor:
     # .cpu() waits for the stream that produced x; it keeps a dense view's
     # strides, and gloo sends only contiguous tensors
-    _STAGED[0] += x.numel() * x.element_size()
+    _count_staged(x.numel() * x.element_size())
     return x.cpu().contiguous()
 
 
 def _to_device(h: torch.Tensor, device) -> torch.Tensor:
-    _STAGED[0] += h.numel() * h.element_size()
+    _count_staged(h.numel() * h.element_size())
     return h.to(device)
 
 
@@ -546,6 +573,65 @@ def _exchange_staged(engine, x_fwd, x_bwd, ax):
 
 
 # ---------------------------------------------------------------------------
+# the data-movement exchanges under autograd
+# ---------------------------------------------------------------------------
+#
+# The reference differentiates its exchanges through JAX's transpose rules
+# inside ``shard_map``; here each is a ``torch.autograd.Function`` whose
+# backward is one more exchange of the cotangent on the schedule the forward
+# resolved (never resolved again, so every rank runs the same one), its
+# staged bytes counted under the forward's callsite. The
+# exchanges only move bytes, so gradients through them are exact. Autograd
+# issues the backward exchanges in its graph order, on its device thread for
+# CUDA tensors: every rank builds the same graph, so every rank issues them
+# in the same order. Under ``remat`` the forward exchanges of a checkpointed
+# layer run again inside the backward, as the reference recomputes them.
+
+
+class _AllToAllTiles(torch.autograd.Function):
+    """``all_to_all_tiles`` on schedule ``name``; backward: the exchange
+    with ``split_axis`` and ``concat_axis`` swapped, its exact inverse."""
+
+    @staticmethod
+    def forward(ctx, x, engine, ax, name, split_axis, concat_axis, callsite):
+        ctx.engine, ctx.ax, ctx.name = engine, ax, name
+        ctx.split_axis, ctx.concat_axis = split_axis, concat_axis
+        ctx.callsite = callsite
+        return _REGISTRY["all_to_all_tiles"][name](
+            engine, x, ax, split_axis=split_axis, concat_axis=concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        with _tagged(ctx.callsite):
+            gx = _REGISTRY["all_to_all_tiles"][ctx.name](
+                ctx.engine, g.contiguous(), ctx.ax,
+                split_axis=ctx.concat_axis, concat_axis=ctx.split_axis)
+        return gx, None, None, None, None, None, None
+
+
+class _RingExchange(torch.autograd.Function):
+    """``ring_exchange`` on schedule ``name``. Rank r's ``recv_from_left``
+    is rank r-1's ``x_fwd`` and its ``recv_from_right`` rank r+1's
+    ``x_bwd``, so the backward sends the first cotangent back left and the
+    second back right: one more exchange with the roles swapped."""
+
+    @staticmethod
+    def forward(ctx, x_fwd, x_bwd, engine, ax, name, callsite):
+        ctx.engine, ctx.ax, ctx.name = engine, ax, name
+        ctx.callsite = callsite
+        return _REGISTRY["ring_exchange"][name](engine, x_fwd, x_bwd, ax)
+
+    @staticmethod
+    def backward(ctx, g_left, g_right):
+        with _tagged(ctx.callsite):
+            from_left, from_right = _REGISTRY["ring_exchange"][ctx.name](
+                ctx.engine, g_right.contiguous(), g_left.contiguous(),
+                ctx.ax)
+        # from_right is rank r+1's g_left: the cotangent of what r sent it
+        return from_right, from_left, None, None, None, None
+
+
+# ---------------------------------------------------------------------------
 # grid_transpose schedules (PTRANS partner exchange)
 # ---------------------------------------------------------------------------
 
@@ -776,7 +862,8 @@ class CollectiveEngine:
         name = self.schedule_for("bcast", schedule,
                                  nbytes=val.numel() * val.element_size(),
                                  axis=axis, callsite=callsite)
-        return _REGISTRY["bcast"][name](self, val, ax, int(src))
+        with _tagged(callsite):
+            return _REGISTRY["bcast"][name](self, val, ax, int(src))
 
     def all_to_all_tiles(self, x: torch.Tensor, axis, *, split_axis: int,
                          concat_axis: int, schedule: Optional[str] = None,
@@ -789,7 +876,9 @@ class CollectiveEngine:
         concatenates the tiles received from indices 0..n-1 along
         ``concat_axis``, so the exchange with the two axes swapped is its
         exact inverse. Every rank passes a tensor of one shape and dtype.
-        On a size-1 axis every schedule returns ``x``."""
+        On a size-1 axis every schedule returns ``x``. Differentiable
+        (:class:`_AllToAllTiles`): the backward is that inverse exchange of
+        the cotangent."""
         ax = self._axis(axis)
         name = self.schedule_for("all_to_all_tiles", schedule,
                                  nbytes=x.numel() * x.element_size(),
@@ -801,8 +890,9 @@ class CollectiveEngine:
                 f"{x.shape[split_axis]} does not split into {ax.size} tiles")
         if ax.size == 1:
             return x
-        return _REGISTRY["all_to_all_tiles"][name](
-            self, x, ax, split_axis=split_axis, concat_axis=concat_axis)
+        with _tagged(callsite):
+            return _AllToAllTiles.apply(x, self, ax, name, split_axis,
+                                        concat_axis, callsite)
 
     def allreduce(self, x: torch.Tensor, axis, *,
                   schedule: Optional[str] = None,
@@ -813,7 +903,8 @@ class CollectiveEngine:
         name = self.schedule_for("allreduce", schedule,
                                  nbytes=x.numel() * x.element_size(),
                                  axis=axis, callsite=callsite)
-        return _REGISTRY["allreduce"][name](self, x, axis)
+        with _tagged(callsite):
+            return _REGISTRY["allreduce"][name](self, x, axis)
 
     def bucket_bytes_for(self, axis) -> int:
         """Model-derived bucket size for :meth:`allreduce_tree` over
@@ -865,12 +956,18 @@ class CollectiveEngine:
                       callsite: Optional[str] = None):
         """Bidirectional neighbour exchange (b_eff pattern): every rank
         sends ``x_fwd`` to index +1 and ``x_bwd`` to index -1 of ``axis``.
-        Returns ``(recv_from_left, recv_from_right)``."""
+        Returns ``(recv_from_left, recv_from_right)``. Differentiable
+        (:class:`_RingExchange`): the cotangents travel back the way the
+        payloads came."""
         ax = self._axis(axis)
         name = self.schedule_for("ring_exchange", schedule,
                                  nbytes=x_fwd.numel() * x_fwd.element_size(),
                                  axis=axis, callsite=callsite)
-        return _REGISTRY["ring_exchange"][name](self, x_fwd, x_bwd, ax)
+        if ax.size == 1:
+            return x_fwd, x_bwd
+        with _tagged(callsite):
+            return _RingExchange.apply(x_fwd, x_bwd, self, ax, name,
+                                       callsite)
 
     def grid_transpose(self, x: torch.Tensor, axes, pg: int, *,
                        schedule: Optional[str] = None,
@@ -884,7 +981,8 @@ class CollectiveEngine:
         name = self.schedule_for("grid_transpose", schedule,
                                  nbytes=x.numel() * x.element_size(),
                                  axis=tuple(axes), callsite=callsite)
-        return _REGISTRY["grid_transpose"][name](self, x, grid, int(pg))
+        with _tagged(callsite):
+            return _REGISTRY["grid_transpose"][name](self, x, grid, int(pg))
 
     # -- pipelined transform ------------------------------------------------
 

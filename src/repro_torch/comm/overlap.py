@@ -20,40 +20,46 @@ from typing import List, Tuple
 DEFAULT_BUCKET_BYTES = 32 * 2**20
 
 
+# The walks below are module-level functions that take their accumulator
+# as an argument: a nested recursive function is a reference cycle (the
+# function's closure holds its own cell), which would keep every leaf it saw
+# alive until the cyclic garbage collector runs, gigabytes of a training
+# state on the card.
+
+
+def _flatten(t, leaves: list):
+    if isinstance(t, dict):
+        keys = sorted(t)
+        return dict, keys, [_flatten(t[k], leaves) for k in keys]
+    if isinstance(t, (list, tuple)):
+        return type(t), None, [_flatten(v, leaves) for v in t]
+    if t is None:
+        return None, None, []
+    leaves.append(t)
+    return None
+
+
 def tree_flatten(tree) -> Tuple[list, object]:
     """(leaves, spec): the leaves in ``jax.tree.flatten`` order (dict keys
     sorted, lists and tuples in order, None holding no leaf)."""
     leaves: list = []
+    return leaves, _flatten(tree, leaves)
 
-    def walk(t):
-        if isinstance(t, dict):
-            keys = sorted(t)
-            return dict, keys, [walk(t[k]) for k in keys]
-        if isinstance(t, (list, tuple)):
-            return type(t), None, [walk(v) for v in t]
-        if t is None:
-            return None, None, []
-        leaves.append(t)
+
+def _build(s, it):
+    if s is None:
+        return next(it)
+    kind, keys, kids = s
+    if kind is dict:
+        return {k: _build(c, it) for k, c in zip(keys, kids)}
+    if kind is None:
         return None
-
-    return leaves, walk(tree)
+    return kind(_build(c, it) for c in kids)
 
 
 def tree_unflatten(spec, leaves) -> object:
     """The tree of ``spec`` with ``leaves`` in flatten order."""
-    it = iter(leaves)
-
-    def build(s):
-        if s is None:
-            return next(it)
-        kind, keys, kids = s
-        if kind is dict:
-            return {k: build(c) for k, c in zip(keys, kids)}
-        if kind is None:
-            return None
-        return kind(build(c) for c in kids)
-
-    return build(spec)
+    return _build(spec, iter(leaves))
 
 
 def tree_bytes(tree) -> int:

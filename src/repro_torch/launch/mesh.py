@@ -100,6 +100,22 @@ def _group(ranks):
     return dist.new_group(list(ranks)) if len(ranks) > 1 else None
 
 
+def sub_ring_mesh(ranks: Sequence[int], name: str = "x"
+                  ) -> Optional[ProcessMesh]:
+    """A ring axis ``name`` over the world ranks ``ranks``, in that order:
+    a mesh on a subset of the world, as the survivors of a rank loss
+    form. ``dist.new_group`` is collective over the whole world, so every
+    process must call this with the same ``ranks``, members and the rest
+    alike; a process outside ``ranks`` gets None."""
+    ranks = tuple(int(r) for r in ranks)
+    group = _group(ranks)
+    rank, _ = world()
+    if rank not in ranks:
+        return None
+    return ProcessMesh(axes=(MeshAxis(name, len(ranks), ranks.index(rank),
+                                      ranks, group),), rank=rank)
+
+
 def make_torus_mesh(pg: Optional[int] = None,
                     names: Tuple[str, str] = ("rows", "cols")) -> ProcessMesh:
     """``pg x pg`` torus over the initialized world (``pg`` defaults to its

@@ -12,8 +12,8 @@ prefilled into the paged KV cache, and decoded as one continuously
 batched stream with slots recycled on EOS / max-new. ``--legacy`` keeps
 the whole-batch ``generate`` loop, which also serves the model families
 the paged cache does not cover (encoder-decoder and SSM layers).
-``--mode explicit`` raises: the engine-routed decode waits for ROADMAP
-A12's second half and A13.
+``--mode explicit`` raises: the engine-routed decode waits for the GSPMD
+placement (the rest of ROADMAP A12's second half) and A13.
 """
 from __future__ import annotations
 

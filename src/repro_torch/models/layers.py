@@ -16,9 +16,10 @@ qk-norm (``cfg.use_qk_norm``, qwen3-moe) normalizes q and k per head after
 the qkv biases and before rope, as the reference does (``layers.py:319``).
 :func:`apply_attention` also takes the reference's cross-attention source
 ``kv_x`` (vlm, whisper), ``causal`` and ``use_rope`` (whisper's encoder)
-and its paged-decode branch (a page pool with a ``page_table``). Not in
-this slice: the explicit ``attn_impl`` hook and tensor-parallel flash
-(ROADMAP A12's second half).
+and its paged-decode branch (a page pool with a ``page_table``), and the
+explicit path's ``attn_impl`` hook (:mod:`repro_torch.models.parallel`).
+Not in this slice: tensor-parallel flash (the GSPMD placement, ROADMAP
+A12's second half).
 """
 from __future__ import annotations
 
@@ -259,7 +260,7 @@ def apply_attention(p, cfg: ModelConfig, x: torch.Tensor, *,
                     kv_x: Optional[torch.Tensor] = None,
                     cache: Optional[dict] = None, pos=None,
                     causal: bool = True, use_rope: bool = True, shard=None,
-                    page_table: Optional[dict] = None):
+                    attn_impl=None, page_table: Optional[dict] = None):
     """Self- or cross-attention; returns (out, cache).
 
     ``kv_x`` (B, Skv, kv_in) is a cross-attention source: k and v are
@@ -276,7 +277,12 @@ def apply_attention(p, cfg: ModelConfig, x: torch.Tensor, *,
     row attends over its gathered pages with its new token at
     ``lengths[b]``; the pool is not written here, and the returned cache
     is the token update ``{'k_upd', 'v_upd'}`` (B, 1, KV, hd) that
-    :func:`repro_torch.models.kvcache.scatter_token` writes into it."""
+    :func:`repro_torch.models.kvcache.scatter_token` writes into it.
+
+    ``attn_impl`` (the explicit path's hook, ``(q, k, v, *, causal,
+    q_offset) -> o``) replaces the core attention call: projections,
+    biases, qk-norm and rope run here first, and the flash path is
+    bypassed."""
     dtype = x.dtype
     src = kv_x if kv_x is not None else x
     q = _project(x, p["wq"])
@@ -333,7 +339,10 @@ def apply_attention(p, cfg: ModelConfig, x: torch.Tensor, *,
             k, v = ck.to(dtype), cv.to(dtype)
 
     o = None
-    if (shard is not None and kv_x is None and causal and cache is not None
+    if attn_impl is not None:
+        o = attn_impl(q, k, v, causal=causal and kv_x is None,
+                      q_offset=q_offset)
+    elif (shard is not None and kv_x is None and causal and cache is not None
             and pos is None):
         o = _flash_sharded(q, k, v, shard=shard, causal=True)
     if o is None:

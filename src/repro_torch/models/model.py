@@ -40,10 +40,11 @@ class Model:
 
 def _decoder_apply(cfg):
     def apply(params, batch, *, cache=None, shard=_noshard, remat="none",
-              page_table=None):
+              attn_impl=None, moe_impl=None, page_table=None):
         return transformer.apply(params, cfg, batch["tokens"], cache=cache,
                                  patch_embeds=batch.get("patch_embeds"),
                                  shard=shard, remat=remat,
+                                 attn_impl=attn_impl, moe_impl=moe_impl,
                                  page_table=page_table)
     return apply
 

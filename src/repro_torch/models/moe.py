@@ -352,8 +352,8 @@ def make_apply_moe_explicit(cfg: ModelConfig, mesh, *, axis: str = "x",
 
 
 # the bare per-rank body, for a whole model whose expert shards ride the
-# parameter tree (the whole-model explicit step and the explicit decode
-# step, ROADMAP A12's second half and A13)
+# parameter tree (the whole-model explicit step, and the explicit decode
+# step of ROADMAP A13); its exchanges are differentiable, so it trains
 make_moe_impl = make_apply_moe_explicit
 
 

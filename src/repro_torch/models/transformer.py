@@ -293,11 +293,13 @@ def rematerialize(fn: Callable, remat: str) -> Callable:
 
 def _apply_layer(lp: LayerParams, cfg: ModelConfig, x, *, kind: str,
                  has_moe: bool, has_cross: bool, cache, pos, cross_kv,
-                 shard: Shard, page_table=None):
+                 shard: Shard, attn_impl=None, moe_impl=None,
+                 page_table=None):
     h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
     if kind == "attn":
         a, new_cache = L.apply_attention(lp["attn"], cfg, h, cache=cache,
                                          pos=pos, shard=shard,
+                                         attn_impl=attn_impl,
                                          page_table=page_table)
     else:
         a, new_cache = SSM.apply_ssm(lp["ssm"], cfg, h, cache=cache, pos=pos)
@@ -310,8 +312,9 @@ def _apply_layer(lp: LayerParams, cfg: ModelConfig, x, *, kind: str,
                   "residual")
     if has_moe:
         h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
-        x = shard(x + MOE.apply_moe(lp["moe"], cfg, h, shard=shard),
-                  "residual")
+        m = (moe_impl(lp["moe"], h) if moe_impl is not None
+             else MOE.apply_moe(lp["moe"], cfg, h, shard=shard))
+        x = shard(x + m, "residual")
     elif cfg.d_ff:
         h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
         x = shard(x + L.apply_mlp(lp["mlp"], h), "residual")
@@ -322,7 +325,8 @@ def apply(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
           cache: Optional[Dict] = None,
           patch_embeds: Optional[torch.Tensor] = None,
           shard: Shard = _noshard, remat: str = "none",
-          collect_aux: bool = False, page_table: Optional[Dict] = None
+          collect_aux: bool = False, attn_impl=None, moe_impl=None,
+          page_table: Optional[Dict] = None
           ) -> Tuple[torch.Tensor, Optional[Dict], Optional[Dict]]:
     """Returns (logits, cache, aux).
 
@@ -342,7 +346,13 @@ def apply(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
 
     ``remat`` (:data:`REMAT_POLICIES`) checkpoints each period of layers,
     the reference's super-block, in train mode (no cache); serving runs
-    without autograd and ignores it."""
+    without autograd and ignores it.
+
+    ``attn_impl`` and ``moe_impl`` are the explicit whole-model path's
+    hooks (:mod:`repro_torch.models.parallel`,
+    :func:`repro_torch.models.moe.make_moe_impl`): the first replaces every
+    self-attention layer's core attention call, the second every MoE layer,
+    called as ``moe_impl(layer_params["moe"], h)``."""
     check_supported(cfg)
     dtype = dtype_of(cfg.dtype)
     kinds, moe_mask = cfg.layer_kinds(), cfg.moe_layer_mask()
@@ -379,6 +389,7 @@ def apply(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
                             has_moe=moe_mask[i], has_cross=cross_mask[i],
                             cache=layer_caches[i], pos=pos,
                             cross_kv=cross_kv, shard=shard,
+                            attn_impl=attn_impl, moe_impl=moe_impl,
                             page_table=page_table)
 
     if cache is None:

@@ -33,8 +33,9 @@ triggered by rank death. A schedule's ``serve.step`` host delay lands
 inside the timed decode window.
 
 ``mode="explicit"`` (the engine-routed tensor-parallel decode) keeps the
-reference's validation, then raises: it needs the parallel model (ROADMAP
-A12's second half) and the explicit decode step (A13).
+reference's validation, then raises: it needs the GSPMD placement on
+several ranks (the rest of ROADMAP A12's second half) and the explicit
+decode step (A13).
 """
 from __future__ import annotations
 
@@ -92,8 +93,8 @@ class ServeEngine:
                     f"{axis!r} axis size {n} for the explicit decode batch")
             raise NotImplementedError(
                 "explicit serve mode (the engine-routed tensor-parallel "
-                "decode) needs the parallel model, ROADMAP A12's second "
-                "half, and "
+                "decode) needs the GSPMD placement on several ranks, the "
+                "rest of ROADMAP A12's second half, and "
                 "make_decode_step_explicit, ROADMAP A13")
         self.model = model
         self.params = T.cast_params(params, T.dtype_of(model.cfg.dtype))

@@ -6,8 +6,11 @@ On a mesh whose every axis has size 1 an activation constraint changes
 nothing, so the shard function is the identity; like the reference's, it
 carries ``.mesh`` and ``.rules``, which is what makes the model choose the
 flash-attention path (``models/layers.py::_flash_sharded``). A mesh with an
-axis of size > 1 raises: the GSPMD activation and parameter specs and the
-tensor- and data-parallel model wait for ROADMAP A12's second half.
+axis of size > 1 raises: the GSPMD activation and parameter specs wait for
+the GSPMD placement on several ranks (the rest of ROADMAP A12's second
+half). The explicit tensor-, sequence- and data-parallel paths do not go
+through here: their exchanges are engine calls
+(:mod:`repro_torch.models.parallel`, :mod:`repro_torch.train.step`).
 """
 from __future__ import annotations
 
@@ -25,8 +28,8 @@ class MeshRules:
 
 def rules_for(mesh) -> MeshRules:
     """The reference's data- and tensor-parallel axis roles for a mesh's
-    axis names (its sequence-shard and FSDP options wait for A12's second
-    half)."""
+    axis names (its sequence-shard and FSDP options wait for the GSPMD
+    placement, the rest of A12's second half)."""
     names = tuple(mesh.shape)
     dp = tuple(a for a in ("pod", "data") if a in names)
     if not dp:
@@ -46,7 +49,8 @@ def make_shard_fn(mesh, rules: MeshRules) -> Callable:
     if wide:
         raise NotImplementedError(
             f"mesh axes {wide}: sharded activations and parameters are not "
-            "ported yet (ROADMAP A12's second half); use a one-rank mesh")
+            "ported yet (the GSPMD placement, the rest of ROADMAP A12's "
+            "second half); use a one-rank mesh")
 
     def shard(x: torch.Tensor, name: str) -> torch.Tensor:
         return x

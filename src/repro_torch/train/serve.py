@@ -27,7 +27,8 @@ recomputes its cross K/V from the patches. Greedy decoding
 ``jax.random.categorical``'s numbers.
 
 The explicit tensor-parallel decode (``make_decode_step_explicit``) waits
-for the parallel model (ROADMAP A12's second half) and A13.
+for the GSPMD placement on several ranks (the rest of ROADMAP A12's second
+half) and A13.
 """
 from __future__ import annotations
 

@@ -21,10 +21,17 @@ the steps update the state in place, leaf by leaf under ``torch.no_grad``
 Training takes the plain ``attention``, as the reference does: its flash
 kernel has no VJP and runs only in prefill.
 
-Not yet ported, with ROADMAP A12's second half (the sharding specs and the
-parallel model): ``state_specs``, ``shard_state``,
-``whole_model_param_specs``, ``make_whole_model_train_step_explicit``, and
-the ``fsdp`` / ZeRO-1 placement of ``make_train_step``.
+* :func:`make_whole_model_train_step_explicit`, the explicit whole-model
+  step: the forward and backward of every rank's rows with every wire hop
+  an engine call, attention through the ``tp`` or ``sp`` hook of
+  :mod:`repro_torch.models.parallel`, MoE through the expert-parallel
+  layer with the experts sharded over the axis
+  (:func:`whole_model_param_specs`, :func:`shard_whole_model_state`), the
+  replicated leaves' gradients through ``allreduce_tree``.
+
+Not yet ported, with the GSPMD placement on several ranks (the rest of
+ROADMAP A12's second half): ``state_specs``, ``shard_state`` and the
+``fsdp`` / ZeRO-1 placement of ``make_train_step``.
 """
 from __future__ import annotations
 
@@ -41,7 +48,10 @@ from repro_torch.comm.overlap import tree_flatten, tree_unflatten
 from repro_torch.comm.types import comm_type
 from repro_torch.configs.base import RunConfig
 from repro_torch.launch.mesh import single_rank_mesh
+from repro_torch.models import moe as MOE
 from repro_torch.models.model import Model, next_token_loss
+from repro_torch.models.parallel import make_attn_impl
+from repro_torch.models.transformer import tree_map
 from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update_,
                                      clip_scale, global_norm,
                                      make_lr_schedule)
@@ -250,6 +260,226 @@ def make_dp_train_step_explicit(model: Model, run_cfg: RunConfig, mesh, *,
         del grads
         loss = engine.allreduce(loss / ndev, axis)
         gnorm, lr = _apply_update(state, red, adamw, schedule)
+        return state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
+
+    train_step.engine = engine
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# the explicit whole-model step
+# ---------------------------------------------------------------------------
+
+# the expert-dimension leaves of a MoE layer's tree (its router and shared
+# expert stay whole on every rank)
+EXPERT_LEAVES = ("w_gate", "w_in", "w_out")
+
+
+@dataclass(frozen=True)
+class LeafSpec:
+    """Where a weight lives under the explicit whole-model step: ``dims``
+    names, per leading dimension, the mesh axis it is split over (None:
+    whole), the entries of a ``PartitionSpec``; empty for a replicated
+    weight."""
+    dims: Tuple[Optional[str], ...] = ()
+
+    @property
+    def replicated(self) -> bool:
+        return not any(self.dims)
+
+
+def whole_model_param_specs(params, axis: str = "x") -> Dict:
+    """The reference's layout of the explicit whole-model step, as a tree
+    shaped like ``params.tree()`` (or like ``params``, a tree already):
+    every leaf a :class:`LeafSpec`, replicated except each MoE layer's
+    expert weights, split over ``axis`` on their expert dimension. The
+    reference's ``moe_param_specs(..., scanned=True)`` puts the expert
+    dimension after the super-block scan dimension that the port's
+    per-layer list replaces, so its ``P(None, axis)`` is ``(axis,)``
+    here."""
+    tree = params.tree() if isinstance(params, torch.nn.Module) else params
+    specs = tree_map(tree, lambda _: LeafSpec())
+    for blk, spec in zip(tree["blocks"], specs["blocks"]):
+        if "moe" in blk:
+            for k in EXPERT_LEAVES:
+                spec["moe"][k] = LeafSpec((axis,))
+    return specs
+
+
+def _cut(tree, specs, mesh):
+    """``tree`` with each leaf split by its :class:`LeafSpec` cut to this
+    rank's contiguous block (a copy, so that the whole leaf can be
+    freed)."""
+    leaves, spec = tree_flatten(tree)
+    out = []
+    for t, s in zip(leaves, tree_flatten(specs)[0]):
+        for dim, name in enumerate(s.dims):
+            if name is not None:
+                ax = mesh.axis(name)
+                MOE._check_divides(t.shape[dim], ax.size, name)
+                n = t.shape[dim] // ax.size
+                t = t.narrow(dim, ax.index * n, n).clone()
+        out.append(t)
+    return tree_unflatten(spec, out)
+
+
+def shard_whole_model_params(params, mesh, axis: str = "x"):
+    """This rank's part of whole weights under
+    :func:`whole_model_param_specs` on ``mesh``: a new weight module, with
+    gradients on if ``params`` had them."""
+    specs = whole_model_param_specs(params, axis)
+    cut = type(params)(params.cfg, _cut(params.tree(), specs, mesh))
+    return cut.requires_grad_(any(p.requires_grad
+                                  for p in params.parameters()))
+
+
+def shard_whole_model_state(state: TrainState, mesh,
+                            axis: str = "x") -> TrainState:
+    """This rank's part of a whole ``state`` under
+    :func:`whole_model_param_specs` on ``mesh``: the weights and both AdamW
+    moments cut alike (the reference's ``shard_map`` in_specs), the
+    counters and the error tree as they are."""
+    specs = whole_model_param_specs(state.params, axis)
+    return TrainState(params=shard_whole_model_params(state.params, mesh,
+                                                      axis),
+                      opt={"mu": _cut(state.opt["mu"], specs, mesh),
+                           "nu": _cut(state.opt["nu"], specs, mesh),
+                           "count": state.opt["count"]},
+                      step=state.step, error=state.error)
+
+
+def gather_whole_model_state(state: TrainState, mesh, axis: str = "x",
+                             engine: Optional[CollectiveEngine] = None
+                             ) -> TrainState:
+    """The whole state from every rank's part, the inverse of
+    :func:`shard_whole_model_state`: each split leaf is gathered over
+    ``axis`` through ``engine.all_to_all_tiles`` (this rank's block repeated
+    once per rank, every copy to one rank, concatenated by source), which
+    moves bytes only, so the result equals the uncut state bit for bit.
+    Every rank of the axis calls it and gets the whole state; the
+    replicated leaves are this rank's own."""
+    engine = engine or CollectiveEngine.for_mesh(mesh, schedule="auto")
+    specs = whole_model_param_specs(state.params, axis)
+
+    def gather(tree):
+        leaves, spec = tree_flatten(tree)
+        out = []
+        for t, s in zip(leaves, tree_flatten(specs)[0]):
+            for dim, name in enumerate(s.dims):
+                if name is not None:
+                    n = mesh.axis(name).size
+                    rep = t.detach().unsqueeze(0).expand(n, *t.shape)
+                    t = engine.all_to_all_tiles(
+                        rep.contiguous(), name, split_axis=0,
+                        concat_axis=dim + 1)[0]
+            out.append(t)
+        return tree_unflatten(spec, out)
+
+    params = state.params
+    with torch.no_grad():
+        whole = type(params)(params.cfg, gather(params.tree()))
+        whole.requires_grad_(any(p.requires_grad
+                                 for p in params.parameters()))
+        return TrainState(params=whole,
+                          opt={"mu": gather(state.opt["mu"]),
+                               "nu": gather(state.opt["nu"]),
+                               "count": state.opt["count"]},
+                          step=state.step, error=state.error)
+
+
+def make_whole_model_train_step_explicit(
+        model: Model, run_cfg: RunConfig, mesh, *, axis: str = "x",
+        attn_mode: str = "tp", adamw: Optional[AdamWConfig] = None,
+        schedule_kind: str = "auto", nchunks=1,
+        bucket_bytes: Optional[int] = None, total_steps: int = 10_000,
+        cost_model=None) -> Callable:
+    """Whole-model engine-routed step, run by every rank of ``mesh``'s
+    ``axis`` on its own process (reference ``train/step.py:292-413``).
+
+    ``(state, batch) -> (state, metrics)`` with ``state`` this rank's part
+    (:func:`shard_whole_model_state`) and ``batch`` the global batch; rank
+    i trains on rows [i * b / n, (i + 1) * b / n). Every wire hop is an
+    engine call under a registered callsite tag:
+
+    * attention through the ``attn_mode`` hook of
+      :mod:`repro_torch.models.parallel`: head-parallel (``tp``,
+      ``tp.qkv`` / ``tp.out``) or sequence-parallel ring attention
+      (``sp``, ``sp.qkv`` / ``sp.kv`` / ``sp.out``);
+    * MoE dispatch and combine under ``moe.dispatch`` / ``moe.combine``
+      with the experts sharded in the state (``nchunks``, ``"auto"`` too,
+      pipelines the capacity strips as in the single-layer path);
+    * the replicated leaves' gradients through ``allreduce_tree`` under
+      ``dp.grads``, the loss through ``allreduce``.
+
+    Gradients: the residual stream is batch-sharded, so the local backward
+    already gives the expert shards' complete gradients (the backward of
+    dispatch and combine brings every rank's terms to the owner); they are
+    only divided by the rank count, never reduced, while the replicated
+    leaves are. The global-norm clip adds the expert shards' sums of
+    squares over the ranks first, so the scale and ``grad_norm`` equal the
+    one-rank step's. AdamW runs in place, leaf by leaf. Against the
+    one-rank :func:`make_train_step` on the global batch the differences
+    are reassociation only."""
+    cfg = model.cfg
+    if cfg.is_encoder_decoder:
+        raise ValueError("whole-model explicit step supports decoder-only "
+                         "models (encoder-decoder has no explicit path)")
+    if run_cfg.grad_compression != "none":
+        raise ValueError(
+            "whole-model explicit step does not support grad_compression="
+            f"{run_cfg.grad_compression!r}: the int8 error-feedback path "
+            "reduces leaf-wise and cannot skip the expert-sharded leaves")
+    adamw = _adamw(run_cfg, adamw)
+    schedule = make_lr_schedule(adamw.lr, run_cfg.warmup_steps, total_steps)
+    engine = CollectiveEngine.for_mesh(mesh, comm_type(run_cfg.comm_type),
+                                       schedule_kind, cost_model=cost_model)
+    ax = mesh.axis(axis)
+    ndev = ax.size
+    # schedule=None: the hooks take the engine-wide resolution (auto through
+    # the cost model, or the engine's explicit schedule_kind)
+    attn_impl = make_attn_impl(attn_mode, cfg, mesh, axis=axis, engine=engine)
+    moe_impl = (MOE.make_moe_impl(cfg, mesh, axis=axis, engine=engine,
+                                  nchunks=nchunks) if cfg.has_moe else None)
+
+    def loss_fn(params, batch):
+        logits, _, _ = model.apply(params, batch, remat=run_cfg.remat,
+                                   attn_impl=attn_impl, moe_impl=moe_impl)
+        return next_token_loss(logits, batch["tokens"])
+
+    def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
+        rows = len(batch["tokens"])
+        if rows % ndev:
+            raise ValueError(f"a global batch of {rows} rows does not split "
+                             f"over {ndev} ranks")
+        b = rows // ndev
+        local = _on(batch, _device(state.params),
+                    slice(ax.index * b, (ax.index + 1) * b))
+        loss, grads = _backward(state.params, loss_fn, local)
+        specs = tree_flatten(whole_model_param_specs(state.params, axis))[0]
+        # in place where the gradient is fp32 already: no second copy of it
+        grads = [g.div_(ndev) if g.dtype == torch.float32
+                 else g.float() / ndev for g in grads]
+        rep = [i for i, s in enumerate(specs) if s.replicated]
+        shard = [i for i, s in enumerate(specs) if not s.replicated]
+        red = engine.allreduce_tree([grads[i] for i in rep], axis,
+                                    bucket_bytes=bucket_bytes,
+                                    callsite=GRADS_CALLSITE)
+        for i, g in zip(rep, red):
+            grads[i] = g
+        del red
+        loss = engine.allreduce(loss / ndev, axis)
+        # the replicated leaves are alike on every rank after the
+        # reduction, so their sum of squares is local; the expert shards'
+        # is summed over the ranks
+        sq = sum(torch.sum(torch.square(grads[i])) for i in rep)
+        if shard:
+            sq = sq + engine.allreduce(
+                sum(torch.sum(torch.square(grads[i])) for i in shard), axis)
+        gnorm = torch.sqrt(sq)
+        lr = schedule(state.step)
+        adamw_update_(grads, state.opt, state.params.tree(data=False), adamw,
+                      lr, scale=clip_scale(gnorm, adamw.max_grad_norm))
+        state.step = state.step + 1
         return state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
 
     train_step.engine = engine

@@ -894,12 +894,15 @@ def test_run_registers_the_benchmarks():
         assert name in bench_run.MODULES and name in bench_run._SCHEDULED
     assert bench_run.ALIASES["failover"] == "failover_bench"
     assert bench_run.ALIASES["resilience"] == "resilience_bench"
-    assert set(failover_bench.NOT_PORTED) == {"rank_loss", "serve_rank_loss"}
+    # the rank-loss section came with train_loop_elastic
+    assert set(failover_bench.NOT_PORTED) == {"serve_rank_loss"}
+    assert callable(failover_bench.rank_loss_section)
     # the train-degradation section came with the training loop: every
     # section of the reference's resilience_bench is ported
     assert not hasattr(resilience_bench, "NOT_PORTED")
     assert callable(resilience_bench.train_degradation_section)
     assert "A12" in failover_bench.NOT_PORTED["serve_rank_loss"]
+    assert "A13" in failover_bench.NOT_PORTED["serve_rank_loss"]
 
 
 def test_benchmarks_without_card_raise(monkeypatch):

@@ -387,13 +387,29 @@ def test_checkpoint_subset_restore_still_allowed(tmp_path):
 
 
 def test_checkpoint_reshard_to_waits_for_the_parallel_model(tmp_path):
+    """``reshard_to`` on a one-rank mesh: a tree that is neither a training
+    state nor a weight module stays whole (replicated), and a training
+    state's one shard is the whole state, bit for bit. Onto meshes of
+    several ranks it runs in tests/test_torch_elastic.py."""
+    from repro_torch.launch.mesh import single_rank_mesh
+
+    mesh = single_rank_mesh(("x",))
     d = str(tmp_path / "ck")
-    ckpt.save(d, 1, {"state": _ck_tree()})
-    with pytest.raises(NotImplementedError, match="A12's second half"):
-        ckpt.restore(d, {"state": _ck_tree()}, reshard_to=object())
-    with pytest.raises(NotImplementedError, match="A12's second half"):
-        ckpt.CheckpointManager(d).restore_latest({"state": _ck_tree()},
-                                                 reshard_to=object())
+    cfg = reduced(get_config("qwen3-moe-235b-a22b"), layers=2, d_model=32)
+    state = init_train_state(build_model(cfg), 3, device="cpu")
+    ckpt.save(d, 1, {"state": _ck_tree(), "train": state})
+    _, plain, _ = ckpt.restore(d, {"state": _ck_tree(5)})
+    _, got, _ = ckpt.restore(d, {"state": _ck_tree(5)}, reshard_to=mesh)
+    for k, v in plain["state"]["params"].items():
+        assert torch.equal(got["state"]["params"][k], v)
+    _, got, _ = ckpt.CheckpointManager(d).restore_latest(
+        {"train": init_train_state(build_model(cfg), 4, device="cpu")},
+        reshard_to=mesh)
+    want = state.params.tree()
+    for i, blk in enumerate(got["train"].params.tree()["blocks"]):
+        for k in ("w_gate", "w_in", "w_out", "router"):
+            assert torch.equal(blk["moe"][k], want["blocks"][i]["moe"][k])
+    assert got["train"].params.embed.requires_grad
 
 
 @pytest.mark.parametrize("compression_on", [False, True])
@@ -419,3 +435,33 @@ def test_checkpoint_train_state_roundtrip(tmp_path, compression_on):
         assert a[0] == b[0]
         assert a[1].dtype == b[1].dtype and torch.equal(a[1], b[1])
     assert (got.error is None) == (not compression_on)
+
+
+def test_adamw_update_in_runs_is_the_whole_leaf_update(monkeypatch):
+    """A leaf longer than ``UPDATE_CHUNK`` is updated in runs of it: the
+    same operations on every element, so the same bits as one pass."""
+    from repro_torch.optim import adamw as port_adamw
+
+    rng = np.random.default_rng(3)
+
+    def tree():
+        return {"w": torch.from_numpy(rng.standard_normal((300, 7))
+                                      .astype(np.float32)),
+                "b": torch.from_numpy(rng.standard_normal(5)
+                                      .astype(np.float32))}
+
+    params, grads = tree(), tree()
+    runs = []
+    for chunk in (port_adamw.UPDATE_CHUNK, 256):
+        monkeypatch.setattr(port_adamw, "UPDATE_CHUNK", chunk)
+        p = {k: v.clone() for k, v in params.items()}
+        st = adamw_init(p)
+        for _ in range(2):
+            adamw_update_(grads, st, p, AdamWConfig(lr=1e-2),
+                          torch.tensor(1e-2), scale=torch.tensor(0.5))
+        runs.append((p, st))
+    (p1, s1), (p2, s2) = runs
+    for k in params:
+        assert torch.equal(p1[k], p2[k])
+        assert torch.equal(s1["mu"][k], s2["mu"][k])
+        assert torch.equal(s1["nu"][k], s2["nu"][k])

@@ -252,17 +252,27 @@ def test_rank_loss_raises_with_partial_history():
 
 @pytest.mark.parametrize("mode", ["explicit_tp", "explicit_sp", "bogus"])
 def test_other_step_modes(mode):
-    err = ValueError if mode == "bogus" else NotImplementedError
-    with pytest.raises(err, match="step_mode" if mode == "bogus"
-                       else "A12's second half"):
+    """An unknown mode is refused; the explicit modes need a mesh (the
+    reference's ValueError; with one they run on four gloo processes in
+    tests/test_torch_parallel.py)."""
+    with pytest.raises(ValueError, match="unknown step_mode" if mode ==
+                       "bogus" else "explicit step_mode requires a mesh"):
         train_loop(*_cfgs_noop(), TrainLoopConfig(steps=1, step_mode=mode),
                    device="cpu")
 
 
 def test_train_loop_elastic_waits_for_the_parallel_model():
-    with pytest.raises(NotImplementedError, match="A12's second half"):
-        train_loop_elastic(*_cfgs_noop(), TrainLoopConfig(steps=1),
-                           mesh=None)
+    """Without a checkpoint directory a rank loss cannot be survived: the
+    reference's RuntimeError, chained to the RankLostError (the elastic
+    resume itself runs on four gloo processes in
+    tests/test_torch_elastic.py)."""
+    schedule = FaultSchedule.rank_loss(FaultInjector(), 1, rank=0)
+    with pytest.raises(RuntimeError, match="needs run_cfg.checkpoint_dir") \
+            as ei:
+        train_loop_elastic(*_cfgs_noop(), TrainLoopConfig(
+            steps=3, fault_schedule=schedule), mesh=None, device="cpu")
+    assert isinstance(ei.value.__cause__, RankLostError)
+    assert ei.value.__cause__.step == 1
 
 
 @pytest.mark.parametrize("survivors,batch", [(3, 8), (4, 8), (3, 9), (7, 4),

@@ -381,11 +381,13 @@ def test_lm_step_bench(monkeypatch):
     assert rec["train_step_s"] > 0 and rec["decode_step_s"] > 0
     assert np.isfinite(rec["loss"])
     assert "lm_step_bench" in bench_run.MODULES
-    assert "lm_step_bench" not in bench_run._SCHEDULED
+    # the whole-model section brought back the schedule parameter
+    assert "lm_step_bench" in bench_run._SCHEDULED
     assert bench_run.ALIASES["lm"] == "lm_step_bench"
-    assert set(lm_step_bench.NOT_PORTED) == {"moe_explicit", "whole_model",
+    assert set(lm_step_bench.NOT_PORTED) == {"moe_explicit",
                                              "production_roofline"}
-    assert "A12's second half" in lm_step_bench.NOT_PORTED["whole_model"]
+    assert "GSPMD placement" in lm_step_bench.NOT_PORTED["moe_explicit"]
+    assert callable(lm_step_bench.whole_model_section)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         lm_step_bench.main(quick=True)
