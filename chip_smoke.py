@@ -244,8 +244,9 @@ Phases, one JSON line each:
                flag inside the delay window, an off-cadence checkpoint).
 23. dp      — four processes sharing the card over gloo run
                ``make_dp_train_step_explicit`` for DP_STEPS steps on
-               llama3.2-3b cut to 2 layers at d_model 1024 and a vocab of
-               32768 (54.5e6 parameters), 8 x 256 tokens a step, for each
+               llama3.2-3b cut to DP_LAYERS layers at d_model 1024 and a
+               vocab of 32768 (44.0e6 parameters), 8 x 256 tokens a step,
+               for each
                of DP_SCHEDULES (``auto`` prints what it resolves): the
                losses agree across schedules and with the one-rank step on
                the global batch within DP_RTOL, every grad norm within
@@ -262,7 +263,7 @@ Phases, one JSON line each:
                ``make_whole_model_train_step_explicit`` (the tp and sp
                attention exchanges through the engine's differentiable
                all_to_all_tiles and ring_exchange) on llama3.2-3b at full
-               width cut to WHOLE_LAYERS layers in fp32 (595e6 parameters),
+               width cut to WHOLE_LAYERS layer in fp32 (495e6 parameters),
                remat "full", WHOLE_STEPS steps of WHOLE_B x WHOLE_S tokens
                for each leg of WHOLE_LEGS, against the one-rank step on the
                global batch within WHOLE_TOL (the weights of the WHOLE_SAVED
@@ -276,10 +277,41 @@ Phases, one JSON line each:
                ``failover_bench``'s rank-loss section with its gate (the
                ring shrinks 4 -> 2, the resumed losses equal the snapshot
                control's bit for bit).
+25. gspmd   — four processes sharing the card over gloo, on a 2x2
+               ``('data', 'model')`` mesh (``launch/mesh.py::make_mesh``):
+               ``make_train_step`` on the GSPMD placement (weights split
+               over ``model`` by name, moments over ``data`` too, the
+               collectives engine calls on ``native``) for llama3.2-3b at
+               full width cut to GSPMD_LAYERS layers in fp32, remat
+               "full", WHOLE_STEPS steps of WHOLE_B x WHOLE_S tokens, with
+               ZeRO-1 and then with ``fsdp``, against the one-rank step on
+               the global batch within WHOLE_TOL (weights back through
+               ``checkpoint.save``, gathered whole by ``gather_params``); no
+               kernel launched. Then an fp32 prefill of GSPMD_PREFILL_B x
+               1024 prompts on the 2x2 mesh through the flash kernel on
+               each rank's 12 q heads and 4 KV heads (``simt_f32``)
+               against the one-rank fp32 prefill of the rank's rows
+               through the plain attention within FP32_PREFILL_ATOL; a
+               bf16 ``generate`` of SERVE_B x SERVE_S prompts and
+               SERVE_NEW tokens on the 2x2 mesh: per rank per prefill one
+               flash launch per layer, all on ``wgmma_bf16``, none in
+               decode, two runs bit-identical, the prompts kept, the
+               prefill's logits against the one-rank bf16 prefill through
+               the plain attention within the bf16 flash limit (atol
+               FLASH_ATOL + rtol FLASH_RTOL |want|), the
+               prefill seconds and decode p50 (bound by the host's
+               loopback); phase kernels holds the flash kernel to its
+               plain version at a rank's shapes there. Then on the ring
+               ``('x',)`` of four the reduced qwen3-moe GSPMD step
+               (``tiny(4, layers=2)``, whole weights, moments over
+               ``x``) against the one-rank step, and
+               ``lm_step_bench``'s ``moe_explicit`` section: the explicit
+               layer within MOE_TOL of the GSPMD one.
 
 Each main-path phase zeroes the launch counts just before it runs and reads
-them just after (the allreduce, dp and whole phases in each rank's process,
-around each ``allreduce_tree``, each schedule's or each leg's steps;
+them just after (the allreduce, dp, whole and gspmd phases in each rank's
+process, around each ``allreduce_tree``, each schedule's or each leg's
+steps;
 ``ring_add_step``'s launches in the summary line add rank 0's dp and whole
 launches to the allreduce phase's). Then the card's ``nvidia-smi`` name and power limit, the
 per-kernel summary line ``{"kernels": [...]}`` (each kernel's launches from
@@ -382,13 +414,13 @@ TRAIN_STEPS, TRAIN_WARMUP, TRAIN_REPEAT, TRAIN_LR = 8, 2, 3, 3e-4
 TRAIN_WITNESS_STEPS, TRAIN_WITNESS_TOL = 2, (1e-5, 3e-5, 1e-3)
 # the explicit data-parallel step on DP_RANKS processes sharing the card:
 # llama3.2-3b cut to DP_LAYERS layers at d_model DP_D and a vocab of
-# DP_VOCAB (54.5e6 parameters, a 0.22 GB fp32 gradient), DP_STEPS steps of
+# DP_VOCAB (44.0e6 parameters, a 0.18 GB fp32 gradient), DP_STEPS steps of
 # DP_B x DP_S tokens per schedule, the loss held at rtol DP_RTOL, the grad
 # norm at rtol DP_GN_RTOL and the weights after DP_STEPS steps at atol
 # DP_WEIGHT_ATOL against the one-rank step on the global batch (the last
 # two as tests/test_torch_dp_step.py holds them)
 DP_RANKS, DP_TIMEOUT = 4, 600.0
-DP_LAYERS, DP_D, DP_VOCAB, DP_B, DP_S, DP_STEPS = 2, 1024, 32768, 8, 256, 2
+DP_LAYERS, DP_D, DP_VOCAB, DP_B, DP_S, DP_STEPS = 1, 1024, 32768, 8, 256, 2
 DP_SCHEDULES = ("native", "chain", "rs_ag", "auto", "int8_ef")
 DP_RTOL = 1e-5  # tests/dist/test_schedules.py:194-217
 DP_GN_RTOL, DP_WEIGHT_ATOL = 3e-5, 1e-3
@@ -400,8 +432,8 @@ DP_INT8_GN_RTOL = 1e-3
 DP_WEIGHTS_OF = ("native", "rs_ag")
 TRAIN_TIMEOUT = 600.0  # phase train's own process
 # the explicit whole-model step on WHOLE_RANKS processes sharing the card:
-# TRAIN_ARCH at full width cut to WHOLE_LAYERS layers, fp32 weights, moments
-# and compute (595e6 parameters), remat "full", WHOLE_STEPS steps of
+# TRAIN_ARCH at full width cut to WHOLE_LAYERS layer, fp32 weights, moments
+# and compute (495e6 parameters), remat "full", WHOLE_STEPS steps of
 # WHOLE_B x WHOLE_S tokens per leg of WHOLE_LEGS (attention mode, engine
 # schedule), each leg from the same state; against the one-rank step on
 # the global batch: the loss at rtol WHOLE_TOL[0], the grad norm at rtol
@@ -412,12 +444,26 @@ TRAIN_TIMEOUT = 600.0  # phase train's own process
 # nchunks of WHOLE_MOE_CHUNKS on rs_ag, WHOLE_MOE_B x WHOLE_MOE_S tokens a
 # step, to the same gates; then failover_bench's rank-loss section
 WHOLE_RANKS, WHOLE_TIMEOUT = 4, 600.0
-WHOLE_LAYERS, WHOLE_B, WHOLE_S, WHOLE_STEPS = 2, 8, 1024, 2
+WHOLE_LAYERS, WHOLE_B, WHOLE_S, WHOLE_STEPS = 1, 8, 1024, 2
 WHOLE_LEGS = (("tp", "native"), ("tp", "rs_ag"), ("sp", "rs_ag"))
 WHOLE_SAVED = (("tp", "rs_ag"), ("sp", "rs_ag"))
 WHOLE_MOE_CHUNKS = (1, "auto")
 WHOLE_MOE_B, WHOLE_MOE_S = 4, 16
 WHOLE_TOL = (1e-5, 1e-4, 1e-3)  # loss rtol, grad-norm rtol, weights atol
+# the GSPMD placement on GSPMD_RANKS processes sharing the card, a 2x2
+# ('data', 'model') mesh: phase whole's model at GSPMD_LAYERS layers, its
+# batches and limits for the train legs of GSPMD_LEGS (name, fsdp; ZeRO-1
+# on in both), an fp32 prefill of GSPMD_PREFILL_B x SERVE_S prompts, and a
+# bf16 generate of SERVE_B x SERVE_S prompts plus SERVE_NEW tokens; then
+# the ring legs
+GSPMD_RANKS, GSPMD_TIMEOUT = 4, 600.0
+GSPMD_MESH = ((2, 2), ("data", "model"))
+GSPMD_LEGS = (("zero1", False), ("fsdp", True))
+GSPMD_LAYERS, GSPMD_PREFILL_B = 2, 4
+# layers, d_model, vocab (None: full width), train rows, tokens, steps,
+# prefill rows, serve rows, prompt tokens, new tokens
+GSPMD_DIMS = (GSPMD_LAYERS, None, None, WHOLE_B, WHOLE_S, WHOLE_STEPS,
+              GSPMD_PREFILL_B, SERVE_B, SERVE_S, SERVE_NEW)
 # fp32 prefill, flash vs plain attention: both are fp32 throughout and
 # differ only in the order of the attention's sums (a few ulps per layer),
 # on logits of rms about 1; one bf16 rounding anywhere moves them by ~1e-2
@@ -1246,7 +1292,8 @@ def kernels_flash(torch, randn, rows):
     dims 64 and 32, non-causal GQA, q_offsets, ragged lengths (Sq = Skv
     = 1000 is no multiple of the bf16 kernel's 128-row tile), and the
     prefill shapes of phases moe (a GQA group of 16), ssm (the reduced
-    jamba's 4 heads of 128) and vlm (64 heads on 8). Every bf16
+    jamba's 4 heads of 128), vlm (64 heads on 8) and gspmd (a rank's 12
+    heads on 4, fp32 and bf16). Every bf16
     call must run on the ``wgmma_bf16`` route and every fp32 call on
     ``simt_f32``."""
     import torch.nn.functional as F
@@ -1370,7 +1417,14 @@ def kernels_flash(torch, randn, rows):
                                                         bf16, True, 0),
         # the vlm prefill (phase vlm): 64 q heads on 8 kv heads
         "vlm GQA 8:1 hd128 bf16 causal": (SERVE_B, SERVE_S, SERVE_S, 64, 8,
-                                          128, bf16, True, 0)}
+                                          128, bf16, True, 0),
+        # a rank's head shard in phase gspmd's tensor-parallel prefills on
+        # the 2x2 mesh: its rows, 12 q heads on 4 kv heads
+        "gspmd rank 12 q on 4 kv heads hd128 causal": (
+            GSPMD_PREFILL_B // 2, SERVE_S, SERVE_S, 12, 4, 128, f32, True,
+            0),
+        "gspmd rank 12 q on 4 kv heads hd128 bf16 causal": (
+            SERVE_B // 2, SERVE_S, SERVE_S, 12, 4, 128, bf16, True, 0)}
     # the plain version keeps the reference's rule that its blocks divide
     # the lengths: 1000 is no multiple of its default 512, so one block
     plain_blocks = {"1000x1000 hd128 bf16 causal": dict(bq=1000, bk=1000)}
@@ -3509,7 +3563,7 @@ def whole_leg(mesh, device, model, batches, mode: str, schedule: str,
     rec.update(buckets=len(buckets), dp_grads_resolved=resolved,
                want_launches=per_step * len(batches) if ring else 0)
     if save_to is not None or hand_back:
-        whole = gather_whole_model_state(state, mesh, engine=engine)
+        whole = gather_whole_model_state(state, mesh)
         if mesh.rank == 0 and save_to is not None:
             ckpt.save(save_to, len(batches), {"params": whole.params})
         if mesh.rank == 0 and hand_back:
@@ -3760,6 +3814,484 @@ def phase_whole(torch, card: str):
     return rec["launches_rank0"], rec["launches_all"]
 
 
+def gspmd_train_leg(mesh, device, model, batches, fsdp: bool,
+                    save_to) -> dict:
+    """One train leg on this rank: ``make_train_step`` on the GSPMD
+    placement from seed 0's whole state cut by ``shard_state`` (ZeRO-1
+    on), with this rank's losses, grad norms, seconds (from a barrier to
+    the drained card), launches, bytes staged by source and peak memory;
+    then the whole weights, gathered (``gather_params``), written by rank 0
+    to ``save_to``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.comm.engine import (reset_staged_bytes,
+                                         staged_bytes_by_callsite)
+    from repro_torch.kernels import ops
+    from repro_torch.train.step import (gather_params, init_train_state,
+                                        make_train_step, shard_state)
+
+    cuda = device == "cuda"
+    state = shard_state(init_train_state(model, 0, device=device), mesh,
+                        zero1=True, fsdp=fsdp)
+    step = make_train_step(model, whole_run(), mesh, zero1=True, fsdp=fsdp)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    reset_staged_bytes()
+    rec = {"loss": [], "grad_norm": [], "seconds": []}
+    for batch in batches:
+        dist.barrier()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        loss = float(m["loss"])
+        if cuda:
+            torch.cuda.synchronize()
+        rec["seconds"].append(time.perf_counter() - t0)
+        rec["loss"].append(loss)
+        rec["grad_norm"].append(float(m["grad_norm"]))
+    rec["launches"] = ops.launch_counts()
+    rec["staged"] = {str(k): v for k, v in staged_bytes_by_callsite().items()}
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if cuda \
+        else None
+    rec["device"] = str(next(state.params.parameters()).device)
+    whole = gather_params(state.params, model, mesh, fsdp=fsdp)
+    if mesh.rank == 0:
+        ckpt.save(save_to, len(batches), {"params": whole})
+    del whole, state, step
+    dist.barrier()  # the writer has renamed its directory
+    if cuda:
+        torch.cuda.empty_cache()
+    return rec
+
+
+def gspmd_prefill(mesh, device, model, rows: int, seq: int) -> dict:
+    """The fp32 prefill of ``rows`` x ``seq`` prompts on ``mesh`` (this
+    rank's rows, heads and KV heads through the flash kernel) against the
+    one-rank fp32 prefill of the same rows through the plain attention
+    (``mesh=None``), as phase serve holds flash to it."""
+    import torch
+
+    from repro_torch import sharding as sh
+    from repro_torch.kernels import attention as kfa
+    from repro_torch.kernels import ops
+    from repro_torch.train.serve import make_prefill_step
+
+    cfg = model.cfg
+    params = model.init(0, device=device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (rows, seq), generator=gen,
+                            device=device, dtype=torch.int32)
+    rules = sh.rules_for(mesh)
+    idx, n = sh.block_of(mesh, rules.dp_spec)
+    mine = prompts[idx * rows // n:(idx + 1) * rows // n]
+    one = make_prefill_step(model, None)(
+        params, {"tokens": mine},
+        model.init_cache(len(mine), seq, torch.float32, device=device))[0]
+    local = type(params)(cfg, sh.cut(params.tree(), sh.param_specs(
+        params, rules, mesh), mesh))
+    del params
+    ops.reset_launch_counts()
+    got = make_prefill_step(model, mesh)(
+        local, {"tokens": mine},
+        model.init_cache(rows, seq, torch.float32, device=device,
+                         mesh=mesh))[0]
+    rec = {"max_abs_vs_one_rank_plain": max_abs(got, one),
+           "finite": bool(torch.isfinite(got).all()),
+           "shape": list(got.shape),
+           "flash_routes": dict(kfa.flash_attention.launches_by_route),
+           "launches": ops.launch_counts()}
+    del got, one, local
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return rec
+
+
+def gspmd_serve(mesh, device, model, rows: int, seq: int, new: int) -> dict:
+    """bf16 ``generate`` of ``rows`` x ``seq`` prompts and ``new`` tokens
+    on ``mesh`` twice, then its prefill and decode steps timed apart, with
+    the flash launches of each; the prefill's logits against the one-rank
+    bf16 prefill of this rank's rows through the plain attention (and, to
+    read beside them, the one-rank prefill through flash against it)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import sharding as sh
+    from repro_torch.kernels import attention as kfa
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import single_rank_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import cast_params
+    from repro_torch.train.serve import (generate, make_decode_step,
+                                         make_prefill_step)
+
+    cuda = device == "cuda"
+    model = build_model(dataclasses.replace(model.cfg, dtype="bfloat16"))
+    cfg = model.cfg
+    params = model.init(0, device=device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (rows, seq), generator=gen,
+                            device=device, dtype=torch.int32)
+    rules = sh.rules_for(mesh)
+    idx, n = sh.block_of(mesh, rules.dp_spec)
+    mine = prompts[idx * rows // n:(idx + 1) * rows // n]
+    bf = cast_params(params, torch.bfloat16)
+    plain, one_flash = (make_prefill_step(model, m)(
+        bf, {"tokens": mine}, model.init_cache(
+            len(mine), seq, torch.bfloat16, device=device))[0].cpu()
+        for m in (None, single_rank_mesh(("x",))))  # kept off the card
+    del bf
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = generate(model, params, prompts, max_new_tokens=new, mesh=mesh)
+    if cuda:
+        torch.cuda.synchronize()
+    rec = {"generate_launches": ops.launch_counts(),
+           "generate_routes": dict(kfa.flash_attention.launches_by_route),
+           "shape": list(out.shape),
+           "prompts_kept": bool(torch.equal(out[:, :seq], mine)),
+           "in_vocab": bool(((out >= 0) & (out < cfg.padded_vocab())).all())}
+    again = generate(model, params, prompts, max_new_tokens=new, mesh=mesh)
+    rec["bitwise_repeat"] = bool(torch.equal(again, out))
+    del again
+    local = type(params)(cfg, sh.cut(params.tree(), sh.param_specs(
+        params, rules, mesh), mesh))
+    del params
+
+    sp = cast_params(local, torch.bfloat16)
+    cache = model.init_cache(rows, seq + new, torch.bfloat16, device=device,
+                             mesh=mesh)
+    prefill = make_prefill_step(model, mesh)
+    decode = make_decode_step(model, mesh)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill(sp, {"tokens": mine}, cache)
+    if cuda:
+        torch.cuda.synchronize()
+    rec["prefill_s"] = time.perf_counter() - t0
+    rec["prefill_flash"] = ops.launch_counts()["flash_attention"]
+    rec["prefill_routes"] = dict(kfa.flash_attention.launches_by_route)
+    rec["prefill_vs_one_rank_plain"] = flash_limit_share(logits, plain)
+    rec["one_rank_flash_vs_plain"] = flash_limit_share(one_flash, plain)
+    tok = torch.argmax(logits[:, -1], dim=-1).to(mine.dtype)[:, None]
+    del logits, plain, one_flash
+    toks, steps = [tok], []
+    ops.reset_launch_counts()
+    for _ in range(new - 1):
+        t0 = time.perf_counter()
+        logits, cache = decode(sp, tok, cache, {})
+        if cuda:
+            torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+        tok = torch.argmax(logits[:, -1], dim=-1).to(mine.dtype)[:, None]
+        toks.append(tok)
+    rec["decode_flash"] = ops.launch_counts()["flash_attention"]
+    rec["steps_match_generate"] = bool(torch.equal(torch.cat(toks, 1),
+                                                   out[:, seq:]))
+    steps.sort()
+    rec["decode_ms_p50"] = steps[len(steps) // 2] * 1e3
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if cuda \
+        else None
+    del cache, sp, local, out
+    if cuda:
+        torch.cuda.empty_cache()
+    return rec
+
+
+def flash_limit_share(got, want) -> dict:
+    """The max |got - want| of two bf16 logit tensors, a row at a time on
+    ``got``'s device, and the largest share of the bf16 flash limit
+    FLASH_ATOL + FLASH_RTOL |want| that any element uses (> 1: beyond)."""
+    err, share = 0.0, 0.0
+    for g, w in zip(got, want):
+        w = w.to(g.device).float()
+        d = (g.float() - w).abs()
+        err = max(err, float(d.max()))
+        share = max(share, float((d / (FLASH_ATOL["bfloat16"]
+                                       + FLASH_RTOL * w.abs())).max()))
+    return {"max_abs": err, "limit_share": share}
+
+
+def gspmd_ring_leg(mesh, device, moe, batches) -> dict:
+    """The reduced qwen3-moe GSPMD step on the ring: whole weights on every
+    rank, moments over ``x``; rank 0 hands the weights back."""
+    import torch
+
+    from repro_torch.comm.overlap import tree_flatten
+    from repro_torch.models.model import build_model
+    from repro_torch.train.step import (init_train_state, make_train_step,
+                                        shard_state)
+
+    model = build_model(moe)
+    state = shard_state(init_train_state(model, 0, device=device), mesh)
+    step = make_train_step(model, whole_run(), mesh)
+    rec = {"loss": [], "grad_norm": []}
+    for batch in batches:
+        state, m = step(state, batch)
+        rec["loss"].append(float(m["loss"]))
+        rec["grad_norm"].append(float(m["grad_norm"]))
+    if mesh.rank == 0:
+        rec["weights"] = [t.detach().cpu().numpy().copy()
+                          for t in tree_flatten(state.params.tree())[0]]
+    del state, step
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return rec
+
+
+def gspmd_rank(mesh, device, dims, root):
+    """Runs on every rank of phase gspmd: the train legs of GSPMD_LEGS on
+    the 2x2 mesh (weights written under ``root``), the fp32 prefill and
+    the bf16 generate there, then the ring legs. ``dims`` is
+    :data:`GSPMD_DIMS` (smaller ones make a probe on the CPU)."""
+    import os
+
+    import torch
+
+    from repro_torch.benchmarks import lm_step_bench
+    from repro_torch.configs.qwen3_moe_235b_a22b import tiny
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import build_model
+
+    if device == "cuda":
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
+        torch.cuda.set_device(0)
+    grid = make_mesh(*GSPMD_MESH)
+    ring = make_mesh((mesh.axis("x").size,), ("x",))
+    cfg = whole_cfg(dims)
+    model = build_model(cfg)
+    batches = whole_batches(cfg.vocab_size, *dims[3:6])
+    out = {"train": {name: gspmd_train_leg(grid, device, model, batches,
+                                           fsdp, os.path.join(root, name))
+                     for name, fsdp in GSPMD_LEGS}}
+    out["prefill"] = gspmd_prefill(grid, device, model, dims[6], dims[8])
+    out["serve"] = gspmd_serve(grid, device, model, dims[7], dims[8],
+                               dims[9])
+    moe = tiny(ring.axis("x").size, layers=2)
+    out["moe"] = gspmd_ring_leg(ring, device, moe, whole_batches(
+        moe.vocab_size, WHOLE_MOE_B, WHOLE_MOE_S, dims[5]))
+    out["moe_explicit"] = lm_step_bench.moe_explicit_rank(ring, "auto", 16,
+                                                          device)
+    return out
+
+
+def run_gspmd(torch, device, dims, timeout=GSPMD_TIMEOUT) -> dict:
+    """Phase gspmd's legs on GSPMD_RANKS gloo processes, then, after they
+    exit, the one-rank comparisons in this process; every gate asserted.
+    Returns the record (``dims`` smaller than GSPMD_DIMS and
+    ``device="cpu"`` make a probe on the CPU)."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.benchmarks import lm_step_bench
+    from repro_torch.comm.overlap import tree_flatten
+    from repro_torch.configs.qwen3_moe_235b_a22b import tiny
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import spawn_mesh
+
+    rtol_loss, rtol_gn, atol_w = WHOLE_TOL
+    # one flash launch per layer per prefill on the card; on the CPU the
+    # wrapper takes its plain version and counts nothing
+    layers = dims[0] if device == "cuda" else 0
+
+    def close(a, b, rtol):
+        return all(abs(x / y - 1) <= rtol for x, y in zip(a, b))
+
+    def max_diff(xs, ys):
+        return max(float((x.to(y.device) - y).abs().max()) if x.numel()
+                   else 0.0 for x, y in zip(xs, ys))
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_gspmd_")
+    try:
+        t0 = time.perf_counter()
+        ranks = spawn_mesh(GSPMD_RANKS, gspmd_rank, device, dims, root,
+                           axes=("x",), timeout=timeout)
+        ranks_s = time.perf_counter() - t0
+        cfg = whole_cfg(dims)
+        one, one_gn, one_params = one_rank_steps(
+            torch, cfg, whole_batches(cfg.vocab_size, *dims[3:6]), device)
+        one_w = tree_flatten(one_params.tree())[0]
+        none = dict.fromkeys(ops.KERNELS, 0)
+        legs = {}
+        for name, _ in GSPMD_LEGS:
+            recs = [r["train"][name] for r in ranks]
+            what = f"gspmd/{name}"
+            check(all(r["device"].startswith(device) for r in recs),
+                  f"{what} ran on {[r['device'] for r in recs]}")
+            check(all(close(r["loss"], one, rtol_loss) for r in recs),
+                  f"{what}: losses {[r['loss'] for r in recs]} vs the "
+                  f"one-rank step's {one} beyond rtol {rtol_loss}")
+            check(all(close(r["grad_norm"], one_gn, rtol_gn) for r in recs),
+                  f"{what}: grad norms {[r['grad_norm'] for r in recs]} vs "
+                  f"{one_gn} beyond rtol {rtol_gn}")
+            check(all(r["launches"] == none for r in recs),
+                  f"{what}: launches {[r['launches'] for r in recs]}, want "
+                  "none (training takes the plain attention; native "
+                  "reduces through the library)")
+            d = os.path.join(root, name)
+            _, got, _ = ckpt.restore(d, {"params": one_params})
+            err = max_diff(tree_flatten(got["params"].tree())[0], one_w)
+            check(err <= atol_w, f"{what}: weights {err} from the one-rank "
+                                 f"step's, beyond {atol_w}")
+            del got
+            shutil.rmtree(d)
+            legs[name] = {
+                "loss": recs[0]["loss"], "grad_norm": recs[0]["grad_norm"],
+                "step_s": [max(r["seconds"][i] for r in recs)
+                           for i in range(len(one))],
+                "staged_bytes_per_rank_by_source": recs[0]["staged"],
+                "peak_gb_per_rank": [r["peak_gb"] for r in recs],
+                "max_abs_weight_diff_vs_one_rank": err}
+        del one_params, one_w
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+        pre = [r["prefill"] for r in ranks]
+        route = "simt_f32"
+        check(all(p["finite"] for p in pre), "gspmd: fp32 prefill logits "
+                                             "not finite")
+        err32 = [p["max_abs_vs_one_rank_plain"] for p in pre]
+        check(all(e <= FP32_PREFILL_ATOL for e in err32),
+              f"gspmd: fp32 prefill {err32} from the one-rank prefill's "
+              f"through the plain attention, beyond {FP32_PREFILL_ATOL}")
+        want_flash = {**none, "flash_attention": layers}
+        check(all(p["launches"] == want_flash for p in pre) and all(
+            p["flash_routes"].get(route, 0) == layers
+            and sum(p["flash_routes"].values()) == layers for p in pre),
+              f"gspmd: fp32 prefill launches {[p['launches'] for p in pre]}"
+              f" routes {[p['flash_routes'] for p in pre]}")
+
+        srv = [r["serve"] for r in ranks]
+        want_routes = {"wgmma_bf16": layers} if layers else {}
+        for r in srv:
+            check(r["generate_launches"] == want_flash,
+                  f"gspmd: generate launched {r['generate_launches']}, "
+                  f"want {layers} flash launches (one prefill) and nothing "
+                  "else")
+            check({k: v for k, v in r["generate_routes"].items() if v}
+                  == want_routes and r["prefill_flash"] == layers
+                  and {k: v for k, v in r["prefill_routes"].items() if v}
+                  == want_routes,
+                  f"gspmd: flash routes {r['generate_routes']}, prefill "
+                  f"{r['prefill_routes']}")
+            check(r["decode_flash"] == 0,
+                  f"gspmd: {r['decode_flash']} flash launches in decode")
+            check(r["bitwise_repeat"] and r["steps_match_generate"],
+                  "gspmd: two greedy runs (or the timed steps) differ")
+            check(r["prompts_kept"] and r["in_vocab"],
+                  "gspmd: generate changed the prompts or left the vocab")
+            check(r["prefill_vs_one_rank_plain"]["limit_share"] <= 1.0,
+                  f"gspmd: bf16 prefill logits vs the one-rank prefill's "
+                  f"through the plain attention "
+                  f"{r['prefill_vs_one_rank_plain']}, beyond atol "
+                  f"{FLASH_ATOL['bfloat16']} + rtol {FLASH_RTOL} |want|")
+        # the two ranks of one data index hold the same rows
+        for a, b in ((0, 1), (2, 3)):
+            check(srv[a]["shape"] == srv[b]["shape"],
+                  "gspmd: the model axis disagrees on the output")
+
+        moe = tiny(GSPMD_RANKS, layers=2)
+        m_one, m_gn, m_params = one_rank_steps(
+            torch, moe, whole_batches(moe.vocab_size, WHOLE_MOE_B,
+                                      WHOLE_MOE_S, dims[5]), device)
+        m_err = max_diff([torch.from_numpy(w) for w in
+                          ranks[0]["moe"]["weights"]],
+                         tree_flatten(m_params.tree())[0])
+        check(all(close(r["moe"]["loss"], m_one, rtol_loss)
+                  and close(r["moe"]["grad_norm"], m_gn, rtol_gn)
+                  for r in ranks) and m_err <= atol_w,
+              f"gspmd/moe ring: losses {ranks[0]['moe']['loss']} vs {m_one}, "
+              f"grad norms {ranks[0]['moe']['grad_norm']} vs {m_gn}, "
+              f"weights {m_err}")
+        mx = lm_step_bench.moe_explicit_record(
+            [r["moe_explicit"] for r in ranks], "auto", 16, device)
+        bad = lm_step_bench.gate_resolved(mx)
+        check(mx["within_tolerance"] and not bad and mx["ranks_agree"],
+              f"gspmd/moe_explicit: max|d| {mx['max_abs_err_vs_gspmd']}, "
+              f"unregistered {bad}, ranks agree {mx['ranks_agree']}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"legs": legs, "one_rank_loss": one, "one_rank_grad_norm": one_gn,
+            "params": cfg.param_count(), "seconds_ranks": ranks_s,
+            "prefill": {"batch": [dims[6], dims[8]], "flash_route": route,
+                        "max_abs_vs_one_rank_plain": max(err32),
+                        "atol": FP32_PREFILL_ATOL},
+            "serve": {"batch": [dims[7], dims[8]], "new_tokens": dims[9],
+                      "flash_launches_per_rank_per_prefill": [
+                          r["prefill_flash"] for r in srv],
+                      "prefill_vs_one_rank_plain": [
+                          r["prefill_vs_one_rank_plain"] for r in srv],
+                      "one_rank_flash_vs_plain": [
+                          r["one_rank_flash_vs_plain"] for r in srv],
+                      "prefill_tol": {"atol": FLASH_ATOL["bfloat16"],
+                                      "rtol": FLASH_RTOL},
+                      "prefill_s": max(r["prefill_s"] for r in srv),
+                      "decode_ms_p50": max(r["decode_ms_p50"] for r in srv),
+                      "peak_gb_per_rank": [r["peak_gb"] for r in srv],
+                      "bitwise_repeat": True},
+            "moe_ring": {"config": "qwen3-moe-235b-a22b tiny(4, layers=2), "
+                                   f"fp32, {WHOLE_MOE_B} x {WHOLE_MOE_S} "
+                                   "tokens, ring ('x',) of 4",
+                         "loss": ranks[0]["moe"]["loss"],
+                         "one_rank_loss": m_one,
+                         "max_abs_weight_diff_vs_one_rank": m_err},
+            "moe_explicit": {k: mx[k] for k in (
+                "max_abs_err_vs_gspmd", "within_tolerance", "t_gspmd_s",
+                "t_explicit_s", "t_dp_step_s", "resolved", "nchunks")}}
+
+
+def phase_gspmd(torch, card: str):
+    """The GSPMD placement on GSPMD_RANKS processes sharing the card over
+    gloo (2x2 train legs, fp32 prefill, bf16 generate, the ring legs), held
+    against the one-rank step and the one-rank plain prefill; returns
+    each rank's flash launches in its timed bf16 prefill."""
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free_gb = torch.cuda.mem_get_info()[0] / 1e9
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = run_gspmd(torch, "cuda", GSPMD_DIMS)
+    check(all(v == 0 for v in ops.launch_counts().values()),
+          "the parent launched kernels during the gspmd phase")
+    emit({"phase": "gspmd", "arch": f"{TRAIN_ARCH} at full width cut to "
+          f"{GSPMD_LAYERS} layers", "card": card, "params": rec["params"],
+          "ranks": GSPMD_RANKS, "mesh": {"shape": GSPMD_MESH[0],
+                                         "names": GSPMD_MESH[1]},
+          "train": {"global_batch": [WHOLE_B, WHOLE_S], "steps": WHOLE_STEPS,
+                    "dtype": "float32", "remat": "full",
+                    "one_rank_loss": rec["one_rank_loss"],
+                    "one_rank_grad_norm": rec["one_rank_grad_norm"],
+                    "tolerances": {"loss_rtol": WHOLE_TOL[0],
+                                   "grad_norm_rtol": WHOLE_TOL[1],
+                                   "weights_atol": WHOLE_TOL[2]},
+                    "legs": rec["legs"]},
+          "prefill_fp32": rec["prefill"], "serve_bf16": rec["serve"],
+          "moe_ring": rec["moe_ring"], "moe_explicit": rec["moe_explicit"],
+          "card_free_gb_at_start": free_gb,
+          "transport": "gloo, staged through host memory; kernels on the "
+                       "card",
+          "staged_bytes_note": "per rank, by source (partition.SOURCES); "
+                               "under remat full the forward's tp "
+                               "reductions run again in the backward",
+          "gates": "ok",
+          "seconds": {"ranks": rec["seconds_ranks"],
+                      "phase": time.perf_counter() - t0},
+          "what_the_time_measures": "the host's loopback (gloo on one "
+                                    "machine), not a link rate"})
+    return rec["serve"]["flash_launches_per_rank_per_prefill"]
+
+
 def main(argv=()) -> int:
     import torch
 
@@ -3812,6 +4344,7 @@ def main(argv=()) -> int:
     check(whole_launches > 0, "phase whole launched no ring_add_step")
     launches["ring_add_step"] += whole_launches
     ring_all_ranks += whole_all_ranks
+    gspmd_flash = phase_gspmd(torch, smi)
 
     check(set(launches) == set(rows) == set(SOURCES),
           f"kernels {sorted(rows)} vs launches {sorted(launches)}")
@@ -3823,6 +4356,9 @@ def main(argv=()) -> int:
             entry["launches_per_factorization"] = per_fact[name]
         if name in ops.ALLREDUCE_KERNELS:
             entry["launches_all_ranks"] = ring_all_ranks
+        if name == "flash_attention":
+            # the tensor-parallel prefill of phase gspmd, per rank
+            entry["launches_gspmd_prefill_per_rank"] = gspmd_flash
         entry.update(r)
         entry["kernel_ms"] = r["ms"]
         kernels.append(entry)

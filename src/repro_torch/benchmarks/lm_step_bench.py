@@ -1,8 +1,10 @@
-"""LM train and decode step timings per architecture, and the explicit
-whole-model train step against the one-rank step.
+"""LM train and decode step timings per architecture, the explicit MoE
+layer against the GSPMD one, and the explicit whole-model train step
+against the one-rank step.
 
 Port of the per-architecture section of ``benchmarks/lm_step_bench.py``
-(``main``, ``:300-350``) and of its whole-model section (``:150-271``):
+(``main``, ``:300-350``), of its ``moe_explicit`` section (``:42-147``)
+and of its whole-model section (``:150-271``):
 
     python -m repro_torch.benchmarks.lm_step_bench [--quick]
         [--schedule NAME] [--device cuda|cpu]
@@ -15,6 +17,17 @@ the serving steps after a prefill; both are timed on the host's clock,
 the device drained. The vlm gets zero patch embeddings and whisper zero
 frames, as in the reference. A ``--schedule`` other than ``auto`` skips
 these timings, which no schedule changes, as in the reference.
+
+The ``moe_explicit`` section runs on a ring of four gloo processes
+(payloads on the device): reduced qwen3-moe (``tiny(4, layers=1)``, one
+expert per rank, 4 rows of 16 tokens with ``--quick``, else 32) through
+the GSPMD ``apply_moe`` on each rank's rows of the batch-split input (the
+ring's ``rules_for`` gives ``dp=('x',)``, no tensor axis: every rank holds
+every expert) and through ``make_apply_moe_explicit`` with ``nchunks=
+"auto"`` (dispatch and combine engine exchanges), with the maximum |Δ|
+between them, both timed; then one explicit data-parallel step
+(``make_dp_train_step_explicit``) so that ``dp.grads`` resolves at real
+bucket payloads, and every callsite's resolved schedule.
 
 The whole-model section runs on four gloo processes (payloads on the
 device): reduced qwen3-moe (``tiny(4, layers=1)``, 4 rows of 16 tokens with
@@ -56,9 +69,6 @@ MOE_ARCH = "qwen3-moe-235b-a22b"
 RANKS = 4               # gloo processes of the whole-model section
 TIMEOUT = 300.0         # seconds its world may take
 NOT_PORTED = {
-    "moe_explicit": "the explicit-vs-GSPMD MoE layer on a multi-rank GSPMD "
-                    "mesh needs the GSPMD placement, the rest of ROADMAP "
-                    "A12's second half (benchmarks/lm_step_bench.py:42-147)",
     "production_roofline": "reads launch/dryrun.py's results, ROADMAP A14 "
                            "(benchmarks/lm_step_bench.py:395-414)",
 }
@@ -116,6 +126,135 @@ def arch_steps(arch: str, device) -> dict:
             time.perf_counter() - t0, "loss": loss}
 
 
+def moe_explicit_rank(mesh, requested: str, seq: int, device) -> dict:
+    """Runs on every rank of a gloo ring: the reduced qwen3-moe layer
+    through the GSPMD ``apply_moe`` on this rank's rows and through the
+    explicit layer, then one explicit data-parallel step; returns this
+    rank's maximum |Δ| between the layers, the seconds and every
+    callsite's resolution."""
+    from repro_torch import sharding as sh
+    from repro_torch.comm.engine import CollectiveEngine
+    from repro_torch.comm.overlap import pack_buckets, tree_flatten
+    from repro_torch.configs.qwen3_moe_235b_a22b import tiny
+    from repro_torch.models import moe as MOE
+    from repro_torch.train.step import (GRADS_CALLSITE,
+                                        make_dp_train_step_explicit)
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(0)
+    n = mesh.axis("x").size
+    cfg = tiny(n, layers=1)
+    engine = CollectiveEngine.for_mesh(mesh, schedule=requested)
+    B, D = n, cfg.d_model
+    gen = torch.Generator(device=device)
+    p = MOE.init_moe(gen.manual_seed(0), cfg, device)
+    x = torch.randn((B, seq, D), generator=gen.manual_seed(1), device=device)
+    r = mesh.axis("x").index
+    rows = x[r * (B // n):(r + 1) * (B // n)]
+
+    def timed(fn, *args, reps=2):
+        out = fn(*args)  # warm-up
+        _sync(device)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn(*args)
+        _sync(device)
+        return out, (time.perf_counter() - t0) / reps
+
+    # GSPMD: the batch-split input; on the ring every rank holds every
+    # expert (no tensor axis), so the layer needs no exchange
+    shard = sh.make_shard_fn(mesh, sh.rules_for(mesh))
+    with torch.no_grad():
+        out_g, t_gspmd = timed(lambda: MOE.apply_moe(p, cfg, rows,
+                                                     shard=shard))
+        explicit = MOE.make_apply_moe_explicit(cfg, mesh, engine=engine,
+                                               nchunks="auto")
+        local = MOE.expert_shard(p, mesh)
+        out_e, t_explicit = timed(lambda: explicit(local, rows))
+    err = float((out_e.float() - out_g.float()).abs().max())
+    # the reference's limit for the explicit layer (tests/dist/test_moe.py)
+    within = bool(torch.allclose(out_e.float(), out_g.float(), rtol=1e-4,
+                                 atol=1e-5))
+
+    data = SyntheticLMDataset(DataConfig(cfg.vocab_size, B, seq))
+    batch = data.batch(0)
+    model = build_model(cfg)
+    state = init_train_state(model, 2, device=device)
+    step = make_dp_train_step_explicit(
+        model, RunConfig(learning_rate=1e-3, warmup_steps=1), mesh,
+        schedule_kind=requested)
+    state, _ = step(state, batch)  # warm-up
+    _sync(device)
+    t0 = time.perf_counter()
+    _, metrics = step(state, batch)
+    _sync(device)
+    t_dp = time.perf_counter() - t0
+
+    C = MOE._capacity(cfg, seq)
+    exchange_bytes = (B // n) * cfg.num_experts * C * D * 4
+    bucket_bytes = engine.bucket_bytes_for("x")
+    leaves = tree_flatten(state.params.tree())[0]
+    payloads = sorted({sum(leaves[i].numel() * 4 for i in b
+                           if leaves[i].numel())
+                       for b in pack_buckets(leaves, bucket_bytes)} - {0})
+    per_bucket = [engine.schedule_for("allreduce", nbytes=nb, axis="x",
+                                      callsite=GRADS_CALLSITE)
+                  for nb in payloads]
+    resolved = {
+        "moe.dispatch": engine.schedule_for(
+            "all_to_all_tiles", nbytes=exchange_bytes, axis="x",
+            callsite=MOE.DISPATCH_CALLSITE),
+        "moe.combine": engine.schedule_for(
+            "all_to_all_tiles", nbytes=exchange_bytes, axis="x",
+            callsite=MOE.COMBINE_CALLSITE),
+        "dp.grads": per_bucket[-1]}
+    return {"max_abs_err_vs_gspmd": err, "within_tolerance": within,
+            "t_gspmd_s": t_gspmd,
+            "t_explicit_s": t_explicit, "t_dp_step_s": t_dp,
+            "dp_loss": float(metrics["loss"]), "resolved": resolved,
+            "nchunks": engine.pipeline_chunks(
+                "all_to_all_tiles", nbytes=exchange_bytes, axis="x",
+                callsite=MOE.DISPATCH_CALLSITE),
+            "dp_grads_bucket_payloads": payloads,
+            "dp_grads_resolved_per_bucket": per_bucket,
+            "exchange_bytes": exchange_bytes, "bucket_bytes": bucket_bytes,
+            "grad_bytes": 4 * sum(t.numel() for t in leaves)}
+
+
+def moe_explicit_record(per_rank, requested: str, seq: int, device) -> dict:
+    """The section's record from every rank's :func:`moe_explicit_rank`:
+    the largest |Δ| and the slowest rank's seconds."""
+    first = per_rank[0]
+    return {"arch": MOE_ARCH, "config": f"tiny({RANKS}, layers=1)",
+            "ranks": len(per_rank), "batch": [len(per_rank), seq],
+            "device": device_name(torch.device(device)),
+            "schedule_requested": requested,
+            "max_abs_err_vs_gspmd": max(r["max_abs_err_vs_gspmd"]
+                                        for r in per_rank),
+            "within_tolerance": all(r["within_tolerance"] for r in per_rank),
+            **{k: max(r[k] for r in per_rank)
+               for k in ("t_gspmd_s", "t_explicit_s", "t_dp_step_s")},
+            "schedule": first["resolved"]["moe.dispatch"],
+            "ranks_agree": all(r["resolved"] == first["resolved"]
+                               for r in per_rank),
+            **{k: first[k] for k in (
+                "dp_loss", "resolved", "nchunks",
+                "dp_grads_bucket_payloads", "dp_grads_resolved_per_bucket",
+                "exchange_bytes", "bucket_bytes", "grad_bytes")}}
+
+
+def moe_explicit_section(quick: bool, schedule, device) -> dict:
+    """The ``moe_explicit`` section on :data:`RANKS` gloo processes."""
+    from repro_torch.launch.mesh import spawn_mesh
+
+    requested = schedule or "auto"
+    seq = 16 if quick else 32
+    per_rank = spawn_mesh(RANKS, moe_explicit_rank, requested, seq,
+                          str(device), axes=("x",), timeout=TIMEOUT)
+    return moe_explicit_record(per_rank, requested, seq, device)
+
+
 def whole_model_rank(mesh, requested: str, seq: int, device) -> dict:
     """Runs on every rank of a gloo ring: one explicit whole-model step per
     attention mode from the same initial state, then a timed second step;
@@ -152,7 +291,7 @@ def whole_model_rank(mesh, requested: str, seq: int, device) -> dict:
             model, run, mesh, attn_mode=mode, schedule_kind=requested,
             nchunks="auto")
         state, metrics = step(state, batch)
-        whole = gather_whole_model_state(state, mesh, engine=step.engine)
+        whole = gather_whole_model_state(state, mesh)
         rec = {"loss": float(metrics["loss"]),
                "grad_norm": float(metrics["grad_norm"])}
         if mesh.rank == 0:
@@ -292,6 +431,17 @@ def main(quick: bool = False, schedule=None, device=None) -> dict:
     if rows:
         print(table(rows, ["arch", "train_step", "decode_step", "loss"]))
 
+    moe = moe_explicit_section(quick, schedule, device)
+    record["moe_explicit"] = moe
+    print(f"\n-- explicit vs GSPMD MoE layer ({moe['ranks']} gloo "
+          f"processes, {moe['config']}) --")
+    print(f"   max|d| {moe['max_abs_err_vs_gspmd']:.2e}  gspmd "
+          f"{moe['t_gspmd_s'] * 1e3:.1f}ms  explicit "
+          f"{moe['t_explicit_s'] * 1e3:.1f}ms  dp step "
+          f"{moe['t_dp_step_s'] * 1e3:.1f}ms  nchunks {moe['nchunks']}")
+    print("   resolved: " + " ".join(
+        f"{cs}={name}" for cs, name in sorted(moe["resolved"].items())))
+
     whole = whole_model_section(quick, schedule, device)
     record["whole_model"] = whole
     print(f"\n-- whole-model explicit train step vs the one-rank step "
@@ -308,10 +458,10 @@ def main(quick: bool = False, schedule=None, device=None) -> dict:
     for name, why in NOT_PORTED.items():
         print(f"-- {name}: not ported yet, {why} --")
     save_result("lm_step_bench", record)
-    bad = gate_resolved(whole)
-    if bad or not whole["ranks_agree"]:
+    bad = gate_resolved(whole) + gate_resolved(moe)
+    if bad or not (whole["ranks_agree"] and moe["ranks_agree"]):
         print("UNREGISTERED explicit-path resolutions:", bad,
-              "ranks agree:", whole["ranks_agree"])
+              "ranks agree:", whole["ranks_agree"], moe["ranks_agree"])
         raise SystemExit(1)
     return record
 

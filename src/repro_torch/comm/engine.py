@@ -20,7 +20,8 @@ library's order). On a size-1 axis every schedule is the identity and
 touches no process group.
 
 Every payload move goes through one transport helper (:func:`_post` for
-point-to-point hops, :func:`_all_gather`, :func:`_all_to_all`,
+point-to-point hops, :func:`_all_gather` (also the engine's one-path
+:meth:`CollectiveEngine.all_gather`), :func:`_all_to_all`,
 :func:`_broadcast` and :func:`_all_reduce` for the library collectives).
 On a gloo group with a CUDA payload it stages the bytes through host
 memory: it copies the payload to the host, sends and receives there, and
@@ -905,6 +906,18 @@ class CollectiveEngine:
                                  axis=axis, callsite=callsite)
         with _tagged(callsite):
             return _REGISTRY["allreduce"][name](self, x, axis)
+
+    def all_gather(self, x: torch.Tensor, axis, *,
+                   callsite: Optional[str] = None) -> list:
+        """Every rank's ``x`` over ``axis`` (a name or a tuple of names),
+        in axis-index order: the library's all-gather, the one (native)
+        path, which no schedule resolves. Every rank passes a tensor of one
+        shape and dtype; on a size-1 axis it returns ``[x]``."""
+        ax = self._axis(axis)
+        if ax.size == 1:
+            return [x]
+        with _tagged(callsite):
+            return _all_gather(x, ax)
 
     def bucket_bytes_for(self, axis) -> int:
         """Model-derived bucket size for :meth:`allreduce_tree` over

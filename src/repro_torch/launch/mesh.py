@@ -13,6 +13,14 @@ axis over every rank in row-major order (global rank ``r*pg + c``), which
 the reference addresses as the tuple axis ``("rows", "cols")`` (PTRANS's
 partner exchange).
 
+:func:`make_mesh` (reference ``launch/mesh.py:21-22``) lays a rectangular
+mesh of any shape over the world in the reference's row-major device
+order: on a ``('data', 'model')`` mesh rank ``g`` sits at ``data = g //
+n_model``, ``model = g % n_model``. Every axis carries its group, and so
+does every run of two or more consecutive axes (:attr:`ProcessMesh.joint`),
+which the reference addresses as a tuple axis (``('pod', 'data')``, the
+data-parallel axes of a three-axis mesh).
+
 Nothing here touches ``torch.distributed`` at import time. The single-rank
 1x1 mesh needs no process group at all: every axis has size 1 and every
 collective over it is the identity.
@@ -58,6 +66,11 @@ class ProcessMesh:
     axes: Tuple[MeshAxis, ...]
     rank: int = 0
     grid: Optional[MeshAxis] = None
+    joint: Tuple[MeshAxis, ...] = ()
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return tuple(a.name for a in self.axes)
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -67,10 +80,15 @@ class ProcessMesh:
         """The axis ``name``; a tuple of both torus axes, in mesh order,
         names the flattened grid."""
         if isinstance(name, (tuple, list)):
-            if self.grid is None or tuple(name) != self.grid.name:
-                raise KeyError(f"axes {tuple(name)!r} do not name the "
-                               f"flattened torus of mesh {list(self.shape)}")
-            return self.grid
+            name = tuple(name)
+            if len(name) == 1:
+                return self.axis(name[0])
+            for ax in ((self.grid,) if self.grid is not None else ()) \
+                    + self.joint:
+                if ax.name == name:
+                    return ax
+            raise KeyError(f"axes {name!r} do not name the flattened torus "
+                           f"or a joint axis of mesh {list(self.shape)}")
         for ax in self.axes:
             if ax.name == name:
                 return ax
@@ -90,9 +108,13 @@ def world() -> Tuple[int, int]:
 
 def single_rank_mesh(names: Sequence[str] = ("rows", "cols")) -> ProcessMesh:
     """The 1 x 1 (or size-1 ring) mesh of one process; no process group."""
-    grid = MeshAxis(tuple(names), 1, 0, (0,)) if len(names) == 2 else None
+    names = tuple(names)
+    grid = MeshAxis(names, 1, 0, (0,)) if len(names) == 2 else None
+    joint = tuple(MeshAxis(names[a:b], 1, 0, (0,))
+                  for a in range(len(names))
+                  for b in range(a + 2, len(names) + 1))
     return ProcessMesh(axes=tuple(MeshAxis(n, 1, 0, (0,)) for n in names),
-                       grid=grid)
+                       grid=grid, joint=joint)
 
 
 def _group(ranks):
@@ -142,6 +164,75 @@ def make_torus_mesh(pg: Optional[int] = None,
         MeshAxis(col_name, pg, c, col_groups[r], col_pg[r])), rank=rank,
         grid=MeshAxis(tuple(names), size, rank, tuple(range(size)),
                       dist.group.WORLD))
+
+
+def make_mesh(shape: Sequence[int], names: Sequence[str]) -> ProcessMesh:
+    """A rectangular mesh of ``shape`` with axes ``names`` over the whole
+    initialized world (``prod(shape)`` ranks), row-major: global rank
+    ``g`` sits at the coordinates of ``g`` in ``shape``, the reference's
+    device order. Every process must call it with the same arguments, in
+    the same order as its other group constructors: it enters
+    ``dist.new_group`` for every group of every axis and of every run of
+    consecutive axes. Without a process group only the all-ones shape
+    exists: the single-rank mesh."""
+    shape, names = tuple(int(n) for n in shape), tuple(names)
+    if len(shape) != len(names):
+        raise ValueError(f"mesh shape {shape} and names {names} differ in "
+                         "length")
+    rank, size = world()
+    if math.prod(shape) != size:
+        raise ValueError(f"a {'x'.join(map(str, shape))} mesh needs "
+                         f"{math.prod(shape)} ranks, the world has {size}")
+    if size == 1:
+        return single_rank_mesh(names)
+    coord = []
+    r = rank
+    for n in reversed(shape):
+        r, c = divmod(r, n)
+        coord.append(c)
+    coord = tuple(reversed(coord))
+
+    def flat(c):
+        g = 0
+        for n, i in zip(shape, c):
+            g = g * n + i
+        return g
+
+    def build(dims):
+        # the groups of the axes ``dims`` (consecutive): one per setting of
+        # the other coordinates, each listing its ranks row-major over dims
+        others = [d for d in range(len(shape)) if d not in dims]
+        mine = None
+        for fixed in _product([shape[d] for d in others]):
+            members = []
+            for var in _product([shape[d] for d in dims]):
+                c = [0] * len(shape)
+                for d, i in zip(others, fixed):
+                    c[d] = i
+                for d, i in zip(dims, var):
+                    c[d] = i
+                members.append(flat(c))
+            group = _group(members) if len(members) < size \
+                else dist.group.WORLD
+            if rank in members:
+                mine = (tuple(members), group)
+        ranks, group = mine
+        name = names[dims[0]] if len(dims) == 1 else \
+            tuple(names[d] for d in dims)
+        return MeshAxis(name, len(ranks), ranks.index(rank), ranks,
+                        group if len(ranks) > 1 else None)
+
+    axes = tuple(build((d,)) for d in range(len(shape)))
+    joint = tuple(build(tuple(range(a, b + 1)))
+                  for a in range(len(shape)) for b in range(a + 1, len(shape)))
+    return ProcessMesh(axes=axes, rank=rank, joint=joint)
+
+
+def _product(sizes):
+    out = [()]
+    for n in sizes:
+        out = [c + (i,) for c in out for i in range(n)]
+    return out
 
 
 def make_ring_mesh(name: str = "x") -> ProcessMesh:

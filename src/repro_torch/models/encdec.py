@@ -25,9 +25,11 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.models.kvcache import attn_cache_spec
+from repro_torch.models.kvcache import attn_cache_spec, local_cache_dims
 from repro_torch.models.transformer import (ParamTree, Shard, _noshard,
+                                            check_tp,
                                             _param, dtype_of, rematerialize)
+from repro_torch.partition import tp_of
 
 
 def _init_enc_layer(gen, cfg: ModelConfig, device) -> Dict:
@@ -82,10 +84,12 @@ class EncDecParams(nn.Module):
                 "final_norm": leaf(self.final_norm)}
 
 
-def init_params(cfg: ModelConfig, gen: torch.Generator) -> EncDecParams:
+def init_params(cfg: ModelConfig, gen: torch.Generator,
+                device=None) -> EncDecParams:
     """Random weights with the reference's shapes and scales, drawn in fp32
-    from ``gen`` on its device."""
-    device = gen.device
+    from ``gen`` on its device (or on ``device``; ``"meta"`` gives the
+    shapes without storage)."""
+    device = gen.device if device is None else device
     V = cfg.padded_vocab()
     return EncDecParams(cfg, {
         "embed": torch.randn((V, cfg.d_model), generator=gen,
@@ -99,9 +103,12 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> EncDecParams:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
-               dtype=torch.bfloat16, device=None) -> Dict:
+               dtype=torch.bfloat16, device=None, mesh=None) -> Dict:
     """``{'pos': 0, 'layers': [per decoder layer {'k', 'v'}],
-    'encoder_out': (batch, audio_ctx, d_model)}``, all in ``dtype``."""
+    'encoder_out': (batch, audio_ctx, d_model)}``, all in ``dtype``; with
+    a ``mesh`` (``batch`` global) this rank's rows."""
+    if mesh is not None:
+        batch = local_cache_dims(cfg, batch, mesh)[0]
     return {"pos": 0,
             "layers": [attn_cache_spec(cfg, batch, max_seq, dtype, device)
                        for _ in range(cfg.num_layers)],
@@ -176,7 +183,11 @@ def apply(params: EncDecParams, cfg: ModelConfig, tokens: torch.Tensor, *,
     """Returns (logits, cache, None). train (no cache) and prefill (S > 1)
     run the encoder on ``frames``; prefill stores its output in the
     cache's dtype. Decode (S == 1) reads it back in the compute dtype.
-    ``remat`` applies to the decoder in train mode (:func:`decode`)."""
+    ``remat`` applies to the decoder in train mode (:func:`decode`). A
+    ``shard`` whose ``tp`` axis is wider than 1 raises
+    ``NotImplementedError`` (ROADMAP A15): on a mesh of several ranks the
+    model runs its rows with whole weights."""
+    check_tp(cfg, tp_of(shard))
     if cache is None:
         enc = encode(params, cfg, frames, shard=shard)
         return decode(params, cfg, tokens, enc, shard=shard,

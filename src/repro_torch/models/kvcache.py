@@ -29,12 +29,33 @@ from repro_torch.models.ssm import ssm_dims
 
 
 def attn_cache_spec(cfg: ModelConfig, batch: int, max_seq: int, dtype,
-                    device=None) -> Dict[str, torch.Tensor]:
-    kv, hd = cfg.num_kv_heads, cfg.head_dim
+                    device=None, kv_heads=None) -> Dict[str, torch.Tensor]:
+    kv, hd = kv_heads or cfg.num_kv_heads, cfg.head_dim
     return {
         "k": torch.zeros((batch, max_seq, kv, hd), dtype=dtype, device=device),
         "v": torch.zeros((batch, max_seq, kv, hd), dtype=dtype, device=device),
     }
+
+
+def local_cache_dims(cfg: ModelConfig, batch: int, mesh):
+    """(rows, KV heads) of this rank's dense attention cache on ``mesh``
+    for a global ``batch``, in :func:`repro_torch.sharding.cache_specs`'
+    layout: the batch over ``dp`` and the KV heads over ``tp`` where they
+    divide. Where they do not divide ``tp`` the reference splits the head
+    dimension (``kv_fallback='hd'``); the port holds instead the whole
+    KV heads its q heads map to (ROADMAP A12, "How the port differs"),
+    and whole heads when ``tp`` does not divide the q heads either."""
+    from repro_torch import partition as P
+    from repro_torch import sharding as sh
+    from repro_torch.models.layers import kv_heads_held
+
+    rules = sh.rules_for(mesh)
+    shape = torch.empty((1, batch, 1, cfg.num_kv_heads, cfg.head_dim),
+                        device="meta")
+    spec = sh.cache_specs({"k": shape}, rules, mesh)["k"]
+    b_n = sh.block_of(mesh, spec.dims[1])[1] if spec.dims[1] else 1
+    part = P.placement(sh.make_shard_fn(mesh, rules))
+    return batch // b_n, kv_heads_held(cfg, part)[1]
 
 
 def ssm_cache_spec(cfg: ModelConfig, batch: int, dtype,

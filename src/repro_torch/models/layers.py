@@ -18,8 +18,18 @@ the qkv biases and before rope, as the reference does (``layers.py:319``).
 ``kv_x`` (vlm, whisper), ``causal`` and ``use_rope`` (whisper's encoder)
 and its paged-decode branch (a page pool with a ``page_table``), and the
 explicit path's ``attn_impl`` hook (:mod:`repro_torch.models.parallel`).
-Not in this slice: tensor-parallel flash (the GSPMD placement, ROADMAP
-A12's second half).
+
+On a mesh whose ``tp`` axis is wider than 1 (a ``shard`` callback from
+:func:`repro_torch.sharding.make_shard_fn`) the attention block and the
+MLP hold this rank's part of their weights (the layout of
+:func:`repro_torch.sharding.param_specs`): the heads of ``wq``/``wo`` and,
+where they divide, the KV heads of ``wk``/``wv``, the columns of
+``w_gate``/``w_in`` and the rows of ``w_out``. The replicated input enters
+through :func:`repro_torch.partition.copy_to` and the partial output sums
+leave through :func:`repro_torch.partition.reduce_from`, where GSPMD puts
+its collectives. When the KV heads do not divide ``tp`` each rank takes
+the contiguous block of KV heads its q heads map to, as the reference's
+``_flash_sharded`` does, in the flash path, the plain one and decode.
 """
 from __future__ import annotations
 
@@ -29,6 +39,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import partition as P
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 
@@ -195,20 +206,46 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 
 
-def _flash_sharded(q, k, v, *, shard, causal: bool):
+def _flash_sharded(q, k, v, *, shard, causal: bool,
+                   num_heads: Optional[int] = None):
     """The flash kernel for prefill when ``shard`` carries a mesh and its
-    rules, as in the reference (``layers.py:202-248``); None when that path
-    does not apply (no mesh, or fewer than 128 queries). ``make_shard_fn``
-    accepts only a one-rank mesh, on which the reference's ``shard_map``
-    body is one call of the kernel over the whole batch."""
+    rules, as in the reference (``layers.py:202-248``): batch over ``dp``,
+    heads over ``tp``; None where the reference returns None (no mesh, a
+    batch the dp axes do not divide, ``num_heads`` (the model's; default
+    ``q``'s, all of them) that the tp axis does not divide, fewer than 128
+    queries). ``q``, ``k`` and
+    ``v`` are this rank's: its rows and its heads, with ``k``/``v``
+    already the KV block its q heads map to (:func:`apply_attention`
+    selects it), so the kernel runs as the reference's ``shard_map`` body
+    does, with ``bq = min(512, S)`` and ``bk = min(512, Skv)``."""
     if getattr(shard, "mesh", None) is None or \
             getattr(shard, "rules", None) is None:
         return None
+    part = P.placement(shard)
+    if part is not None and part.dp_n > 1 and \
+            not getattr(shard, "rows_split", True):
+        return None  # the whole batch on every rank: B % dp_n
+    if part is not None and (num_heads or q.shape[2]) % part.tp_n:
+        return None  # the heads stay whole: H % tp_n
     Sq = q.shape[1]
     if Sq < 128:
         return None
     return ops.flash_attention(q, k, v, causal=causal, bq=min(512, Sq),
                                bk=min(512, k.shape[1]))
+
+
+def kv_heads_held(cfg: ModelConfig, part) -> tuple:
+    """(start, count) of the KV heads a rank holds at placement ``part``:
+    all of them without a ``tp`` axis or when ``tp`` does not divide the
+    heads (attention stays whole), its contiguous share when ``tp``
+    divides them, else the block its q heads map to."""
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    if part is None or part.tp is None or H % part.tp_n:
+        return 0, KV
+    if KV % part.tp_n == 0:
+        n = KV // part.tp_n
+        return part.tp_index * n, n
+    return P.kv_block(H, KV, part)
 
 
 # ---------------------------------------------------------------------------
@@ -284,17 +321,43 @@ def apply_attention(p, cfg: ModelConfig, x: torch.Tensor, *,
     biases, qk-norm and rope run here first, and the flash path is
     bypassed."""
     dtype = x.dtype
+    part = P.tp_of(shard) if attn_impl is None else None
+    if part is not None and cfg.num_heads % part.tp_n:
+        part = None  # heads tp does not divide: the block stays whole
+    wk, wv = p["wk"], p["wv"]
+    bk, bv = (p["bk"], p["bv"]) if cfg.qkv_bias else (None, None)
+    q_norm, k_norm = (p["q_norm"], p["k_norm"]) if cfg.use_qk_norm \
+        else (None, None)
+    if part is not None:
+        if kv_x is not None or (cache is not None and "k_pages" in cache):
+            raise NotImplementedError(
+                "tensor-parallel cross-attention and paged decode are not "
+                "ported (ROADMAP A15, A13)")
+        mesh, tp = part.mesh, part.tp
+        x = P.copy_to(x, mesh, tp)
+        if cfg.num_kv_heads % part.tp_n:
+            # whole KV weights (param_specs keeps them so): this rank's
+            # block, its gradient summed over tp (every rank uses a share)
+            start, n = kv_heads_held(cfg, part)
+            wk = P.copy_to(wk, mesh, tp).narrow(1, start, n)
+            wv = P.copy_to(wv, mesh, tp).narrow(1, start, n)
+            if bk is not None:
+                bk = P.copy_to(bk, mesh, tp).narrow(0, start, n)
+                bv = P.copy_to(bv, mesh, tp).narrow(0, start, n)
+        if q_norm is not None:  # scales of this rank's heads only
+            q_norm = P.copy_to(q_norm, mesh, tp)
+            k_norm = P.copy_to(k_norm, mesh, tp)
     src = kv_x if kv_x is not None else x
     q = _project(x, p["wq"])
-    k = _project(src, p["wk"])
-    v = _project(src, p["wv"])
+    k = _project(src, wk)
+    v = _project(src, wv)
     if cfg.qkv_bias:
         q = q + p["bq"].to(dtype)
-        k = k + p["bk"].to(dtype)
-        v = v + p["bv"].to(dtype)
+        k = k + bk.to(dtype)
+        v = v + bv.to(dtype)
     if cfg.use_qk_norm:
-        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
-        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+        q = rmsnorm(q, q_norm, cfg.norm_eps)
+        k = rmsnorm(k, k_norm, cfg.norm_eps)
 
     per_row = isinstance(pos, torch.Tensor) and pos.dim() == 1
     q_offset = 0 if pos is None else pos
@@ -344,18 +407,23 @@ def apply_attention(p, cfg: ModelConfig, x: torch.Tensor, *,
                       q_offset=q_offset)
     elif (shard is not None and kv_x is None and causal and cache is not None
             and pos is None):
-        o = _flash_sharded(q, k, v, shard=shard, causal=True)
+        o = _flash_sharded(q, k, v, shard=shard, causal=True,
+                           num_heads=cfg.num_heads)
     if o is None:
         o = attention(q, k, v, causal=causal and kv_x is None,
                       q_offset=q_offset)
-    return _out_proj(o, p["wo"]), cache
+    return _out_proj(o, p["wo"], part), cache
 
 
-def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
-    # "bshk,hkd->bsd": one product over the flattened head axes
+def _out_proj(o: torch.Tensor, wo: torch.Tensor, part=None) -> torch.Tensor:
+    # "bshk,hkd->bsd": one product over the flattened head axes; with this
+    # rank's heads a partial sum, reduced over tp
     B, S, H, hd = o.shape
-    return torch.matmul(o.reshape(B, S, H * hd),
-                        wo.to(o.dtype).reshape(H * hd, -1))
+    out = torch.matmul(o.reshape(B, S, H * hd),
+                       wo.to(o.dtype).reshape(H * hd, -1))
+    if part is not None:
+        out = P.reduce_from(out, part.mesh, part.tp)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -374,8 +442,18 @@ def init_mlp(gen: torch.Generator, d: int, d_ff: int, num_layers: int,
     }
 
 
-def apply_mlp(p, x: torch.Tensor) -> torch.Tensor:
+def apply_mlp(p, x: torch.Tensor, shard=None) -> torch.Tensor:
+    """SwiGLU. With a ``shard`` whose ``tp`` axis is wider than 1 the
+    weights are this rank's columns of ``w_gate``/``w_in`` and rows of
+    ``w_out`` (the caller checks that tp divides ``d_ff``): the input
+    enters through ``copy_to`` and the output is reduced over tp."""
+    part = P.tp_of(shard)
+    if part is not None:
+        x = P.copy_to(x, part.mesh, part.tp)
     dtype = x.dtype
     g = torch.matmul(x, p["w_gate"].to(dtype))
     h = torch.matmul(x, p["w_in"].to(dtype))
-    return torch.matmul(F.silu(g) * h, p["w_out"].to(dtype))
+    out = torch.matmul(F.silu(g) * h, p["w_out"].to(dtype))
+    if part is not None:
+        out = P.reduce_from(out, part.mesh, part.tp)
+    return out

@@ -35,7 +35,7 @@ class Model:
     cfg: ModelConfig
     init: Callable        # (seed=0, *, device=None) -> Params / EncDecParams
     apply: Callable       # (params, batch, cache=None, shard=..., remat=...) -> (logits, cache, aux)
-    init_cache: Callable  # (batch, max_seq, dtype=bf16, device=None) -> cache
+    init_cache: Callable  # (batch, max_seq, dtype=bf16, device=None, mesh=None) -> cache
 
 
 def _decoder_apply(cfg):
@@ -61,12 +61,19 @@ def build_model(cfg: ModelConfig) -> Model:
     mod = encdec if cfg.is_encoder_decoder else transformer
 
     def init(seed: int = 0, *, device=None):
-        gen = torch.Generator(device=resolve_device(device))
+        # device="meta": the shapes without storage (a CPU generator drives
+        # nothing there)
+        dev = resolve_device(device)
+        if dev.type == "meta":
+            return mod.init_params(cfg, torch.Generator().manual_seed(seed),
+                                   device=dev)
+        gen = torch.Generator(device=dev)
         return mod.init_params(cfg, gen.manual_seed(seed))
 
-    def init_cache(batch, max_seq, dtype=torch.bfloat16, device=None):
+    def init_cache(batch, max_seq, dtype=torch.bfloat16, device=None,
+                   mesh=None):
         return mod.init_cache(cfg, batch, max_seq, dtype,
-                              resolve_device(device))
+                              resolve_device(device), mesh=mesh)
 
     apply = _encdec_apply(cfg) if cfg.is_encoder_decoder \
         else _decoder_apply(cfg)

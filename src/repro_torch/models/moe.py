@@ -44,6 +44,7 @@ import torch.nn.functional as F
 from repro_torch.comm.callsites import MOE_COMBINE, MOE_DISPATCH
 from repro_torch.comm.engine import CollectiveEngine
 from repro_torch.configs.base import ModelConfig
+from repro_torch.partition import tp_of
 
 # tuning-table callsite tags for the two expert exchanges: they are issued
 # back-to-back around the expert FFN, so measured winners may differ from an
@@ -234,8 +235,16 @@ def apply_moe(p: dict, cfg: ModelConfig, x: torch.Tensor,
               aux: Optional[dict] = None, shard=None) -> torch.Tensor:
     """x: (B, S, D) -> (B, S, D), per-batch-row dispatch groups. ``aux``
     (if given) receives ``moe_frac_tokens`` (E,) and ``moe_dropped``, fp32.
-    ``shard`` is the activation-constraint callback (the identity on the
-    port's one-rank mesh)."""
+    ``shard`` is the activation-constraint callback, the identity on the
+    local tensor: on a mesh of several ranks each rank runs its rows with
+    every expert. A ``tp`` axis wider than 1 (the reference's expert split
+    under GSPMD) raises ``NotImplementedError`` (ROADMAP A15)."""
+    part = tp_of(shard)
+    if part is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the MoE layer over a tp axis of {part.tp_n} ranks "
+            "is not ported (ROADMAP A15); use a mesh whose tp axis has "
+            "size 1, or the explicit expert-parallel layer")
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.num_experts_per_tok
     C = _capacity(cfg, S)

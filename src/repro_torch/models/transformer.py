@@ -17,6 +17,20 @@ pools for paged decode); the reference donates its cache and returns the
 updated one.
 
 Encoder-decoder models are :mod:`repro_torch.models.encdec`.
+
+On a mesh of several ranks (a ``shard`` callback from
+:func:`repro_torch.sharding.make_shard_fn`) each rank runs its rows of
+the batch with its part of the weights (:func:`repro_torch.sharding.
+param_specs`): with a ``tp`` axis wider than 1 the embedding is split over
+the vocabulary (a masked local lookup, then a ``tp`` allreduce), the
+logits are computed for this rank's vocabulary and gathered over ``tp``,
+and the attention and MLP blocks are Megatron's
+(:mod:`repro_torch.models.layers`). The dense cache holds this rank's rows
+and KV heads. The MoE, SSM and vlm layers on such a mesh raise
+``NotImplementedError`` (ROADMAP A15); on a mesh whose ``tp`` axis has
+size 1 every family runs with whole weights on its rows. With FSDP
+(``shard.gather``) each layer's dp-split weights are gathered before its
+forward, and again in remat's recompute.
 """
 from __future__ import annotations
 
@@ -27,11 +41,13 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch import partition as P
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.kvcache import (PagedCacheConfig, attn_cache_spec,
+                                        local_cache_dims,
                                         paged_attn_cache_spec, scatter_token,
                                         ssm_cache_spec, token_slots)
 
@@ -54,6 +70,26 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.is_encoder_decoder:
         raise ValueError(f"{cfg.name}: an encoder-decoder model runs in "
                          "repro_torch.models.encdec")
+
+
+def check_tp(cfg: ModelConfig, part) -> None:
+    """Raise ``NotImplementedError`` for a layer this port does not split
+    over a ``tp`` axis wider than 1 (``part`` from
+    :func:`repro_torch.partition.tp_of`; None passes)."""
+    if part is None:
+        return
+    what = [w for w, has in (
+        ("MoE", cfg.has_moe),
+        ("SSM", any(k != "attn" for k in cfg.layer_kinds())),
+        ("vlm cross-attention", bool(cfg.cross_attn_every)),
+        ("encoder-decoder", cfg.is_encoder_decoder)) if has]
+    if cfg.d_ff and cfg.d_ff % part.tp_n:
+        what.append(f"MLP (d_ff={cfg.d_ff})")
+    if what:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(what)} layers over a tp axis of "
+            f"{part.tp_n} ranks are not ported (ROADMAP A15); use a mesh "
+            "whose tp axis has size 1")
 
 
 def period_of(cfg: ModelConfig) -> int:
@@ -191,15 +227,17 @@ def _init_layer(gen, cfg: ModelConfig, device, kind: str = "attn",
     return p
 
 
-def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
+def init_params(cfg: ModelConfig, gen: torch.Generator,
+                device=None) -> Params:
     """Random weights with the reference's shapes and scales (normal, std
     0.02; output projections 0.02 / sqrt(2 * layers); norms 1; cross gates
-    0), drawn in fp32 from ``gen`` on its device. The reference's
+    0), drawn in fp32 from ``gen`` on its device (or on ``device``:
+    ``"meta"`` gives the shapes without storage). The reference's
     ``jax.random`` draws other numbers: move its weights with
     ``from_reference`` to compare."""
     check_supported(cfg)
     period_of(cfg)
-    device = gen.device
+    device = gen.device if device is None else device
     V = cfg.padded_vocab()
     kinds, moe_mask = cfg.layer_kinds(), cfg.moe_layer_mask()
     cross_mask = cfg.cross_attn_mask()
@@ -218,12 +256,18 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
-               dtype=torch.bfloat16, device=None) -> Dict:
+               dtype=torch.bfloat16, device=None, mesh=None) -> Dict:
     """``{'pos': 0, 'layers': [per layer: {'k', 'v'} (attention) or
-    {'conv_x', 'conv_bc', 'state'} (SSM, the state in fp32)]}``."""
+    {'conv_x', 'conv_bc', 'state'} (SSM, the state in fp32)]}``. With a
+    ``mesh`` (``batch`` the global batch) this rank's part of it
+    (:func:`repro_torch.models.kvcache.local_cache_dims`)."""
     check_supported(cfg)
+    kv = None
+    if mesh is not None:
+        batch, kv = local_cache_dims(cfg, batch, mesh)
     return {"pos": 0,
-            "layers": [attn_cache_spec(cfg, batch, max_seq, dtype, device)
+            "layers": [attn_cache_spec(cfg, batch, max_seq, dtype, device,
+                                       kv_heads=kv)
                        if kind == "attn" else
                        ssm_cache_spec(cfg, batch, dtype, device)
                        for kind in cfg.layer_kinds()]}
@@ -317,7 +361,7 @@ def _apply_layer(lp: LayerParams, cfg: ModelConfig, x, *, kind: str,
         x = shard(x + m, "residual")
     elif cfg.d_ff:
         h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
-        x = shard(x + L.apply_mlp(lp["mlp"], h), "residual")
+        x = shard(x + L.apply_mlp(lp["mlp"], h, shard=shard), "residual")
     return x, new_cache
 
 
@@ -354,15 +398,25 @@ def apply(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     self-attention layer's core attention call, the second every MoE layer,
     called as ``moe_impl(layer_params["moe"], h)``."""
     check_supported(cfg)
+    part = P.tp_of(shard)
+    check_tp(cfg, part)
+    gather = getattr(shard, "gather", None)
     dtype = dtype_of(cfg.dtype)
     kinds, moe_mask = cfg.layer_kinds(), cfg.moe_layer_mask()
     cross_mask = cfg.cross_attn_mask()
-    embed = params.embed.to(dtype)
-    x = shard(embed[tokens], "residual")
+    embed = params.embed if gather is None else gather("embed", params.embed)
+    embed = embed.to(dtype)
+    # param_specs splits the vocabulary over tp where tp divides it
+    vocab_split = part is not None and \
+        cfg.padded_vocab() % part.tp_n == 0
+    if vocab_split:
+        x = shard(P.embed_lookup(embed, tokens, part), "residual")
+    else:
+        x = shard(embed[tokens], "residual")
 
     cross_kv = None
     if cfg.family == "vlm" and patch_embeds is not None:
-        vlm = params.vlm
+        vlm = params.vlm if gather is None else gather("vlm", params.vlm)
         pe = torch.matmul(patch_embeds.to(dtype), vlm["patch_proj"].to(dtype))
         cross_kv = L.rmsnorm(pe, vlm["patch_norm"], cfg.norm_eps)
 
@@ -385,7 +439,10 @@ def apply(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             pos = cache["pos"]
 
     def layer(i, x):
-        return _apply_layer(params.blocks[i], cfg, x, kind=kinds[i],
+        blk = params.blocks[i]
+        if gather is not None:  # inside remat: gathered again in recompute
+            blk = gather(("blocks", i), blk)
+        return _apply_layer(blk, cfg, x, kind=kinds[i],
                             has_moe=moe_mask[i], has_cross=cross_mask[i],
                             cache=layer_caches[i], pos=pos,
                             cross_kv=cross_kv, shard=shard,
@@ -412,8 +469,17 @@ def apply(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
                 # the same
                 scatter_token(layer_caches[i], upd, slots)
 
-    x = shard(L.rmsnorm(x, params.final_norm, cfg.norm_eps), "residual")
-    logits = shard(torch.matmul(x, embed.T), "logits")
+    final_norm = params.final_norm if gather is None \
+        else gather("final_norm", params.final_norm)
+    x = shard(L.rmsnorm(x, final_norm, cfg.norm_eps), "residual")
+    if vocab_split:
+        # this rank's vocabulary, gathered over tp for the loss and
+        # sampling
+        x = P.copy_to(x, part.mesh, part.tp)
+        logits = P.gather(shard(torch.matmul(x, embed.T), "logits"),
+                          part.mesh, part.tp, dim=-1)
+    else:
+        logits = shard(torch.matmul(x, embed.T), "logits")
 
     new_cache = None
     if cache is not None:

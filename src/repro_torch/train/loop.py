@@ -23,12 +23,16 @@ Port of ``repro/train/loop.py`` (``train_loop``, ``largest_divisible``,
   the latest checkpoint resharded onto it and resume.
 
 ``step_mode="gspmd"`` runs :func:`repro_torch.train.step.make_train_step`
-on the one-rank mesh; ``"explicit_tp"`` and ``"explicit_sp"`` run
+on the one-rank mesh, or on every rank of a wide mesh (``launch/mesh.py::
+make_mesh``), each process calling the loop: the state is cut by
+:func:`~repro_torch.train.step.shard_state` at step 0 (its moments over
+dp with ``TrainLoopConfig.zero1``), a restored one into the same layout;
+``"explicit_tp"`` and ``"explicit_sp"`` run
 :func:`~repro_torch.train.step.make_whole_model_train_step_explicit` on
 every rank of a ring :class:`~repro_torch.launch.mesh.ProcessMesh`, each
 process calling the loop, on the card unless ``device="cpu"``. On a mesh of
-several ranks one rank writes the checkpoints (whole arrays, the expert
-shards gathered through the engine), every rank waits at a barrier before
+several ranks one rank writes the checkpoints (whole arrays, every split
+leaf gathered through the engine), every rank waits at a barrier before
 anyone reads or writes the directory again, and the ranks agree on a
 forced checkpoint (any rank's straggler flag).
 """
@@ -50,10 +54,10 @@ from repro_torch.core.hpcc import resolve_device
 from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
 from repro_torch.launch.mesh import sub_ring_mesh
 from repro_torch.models.model import build_model
-from repro_torch.train.step import (gather_whole_model_state,
+from repro_torch.train.step import (gather_state, gather_whole_model_state,
                                     init_train_state, make_train_step,
                                     make_whole_model_train_step_explicit,
-                                    shard_whole_model_state)
+                                    shard_state, shard_whole_model_state)
 from repro_torch.train.straggler import StepTimer, StragglerMonitor
 
 log = logging.getLogger("repro_torch.train")
@@ -66,7 +70,10 @@ class TrainLoopConfig:
     steps: int = 100
     log_every: int = 10
     fail_at_step: Optional[int] = None  # crash injection (tests)
-    # "gspmd" (the one-rank step) | "explicit_tp" | "explicit_sp": the
+    # "gspmd": AdamW's moments split over the dp axes (ZeRO-1) on a mesh
+    # of several ranks
+    zero1: bool = True
+    # "gspmd" (the GSPMD step) | "explicit_tp" | "explicit_sp": the
     # explicit modes run the whole-model step with engine-routed exchanges
     # on every rank of a mesh (make_whole_model_train_step_explicit)
     step_mode: str = "gspmd"
@@ -95,10 +102,16 @@ class _Ranks:
     one answer to "force a checkpoint?" on every rank. On one rank every
     method is the plain call."""
 
-    def __init__(self, mesh, axis: str, explicit: bool):
-        ax = mesh.axis(axis) if explicit else None
+    def __init__(self, mesh, axis: str, explicit: bool, model=None,
+                 zero1: bool = True):
+        ax = None
+        if explicit:
+            ax = mesh.axis(axis)
+        elif mesh is not None:  # every rank of the mesh, one group
+            ax = mesh.axis(tuple(a.name for a in mesh.axes))
         self.ax = ax if ax is not None and ax.size > 1 else None
         self.mesh, self.axis, self.explicit = mesh, axis, explicit
+        self.model, self.zero1 = model, zero1
 
     def barrier(self) -> None:
         if self.ax is not None:
@@ -116,6 +129,9 @@ class _Ranks:
             return
         if self.explicit:
             state = gather_whole_model_state(state, self.mesh, self.axis)
+        elif self.ax is not None:
+            state = gather_state(state, self.model, self.mesh,
+                                 zero1=self.zero1)
         if self.ax is None or self.ax.index == 0:
             manager.save(step, {"state": state}, extra=extra, force=True)
         self.barrier()
@@ -129,8 +145,9 @@ def train_loop(model_cfg: ModelConfig, run_cfg: RunConfig,
     ``straggler`` and, with a controller, ``retune_events``). Resumes from
     ``run_cfg.checkpoint_dir`` if it holds a checkpoint. ``key`` is the
     weights' seed (default ``run_cfg.seed``); ``mesh`` a one-rank mesh for
-    ``"gspmd"``, and for the explicit modes the ring (axis ``axis``) whose
-    every rank calls this loop."""
+    ``"gspmd"`` or a mesh of several ranks whose every rank calls this
+    loop, and for the explicit modes the ring (axis ``axis``) whose every
+    rank calls this loop."""
     if loop_cfg.step_mode not in STEP_MODES:
         raise ValueError(f"unknown step_mode {loop_cfg.step_mode!r}; "
                          "use 'gspmd', 'explicit_tp', or 'explicit_sp'")
@@ -142,7 +159,7 @@ def train_loop(model_cfg: ModelConfig, run_cfg: RunConfig,
     dataset = SyntheticLMDataset(data_cfg)
     state = init_train_state(model, run_cfg.seed if key is None else key,
                              device=device)
-    ranks = _Ranks(mesh, axis, explicit)
+    ranks = _Ranks(mesh, axis, explicit, model, loop_cfg.zero1)
     start_step, resumed = 0, False
 
     manager = None
@@ -162,6 +179,9 @@ def train_loop(model_cfg: ModelConfig, run_cfg: RunConfig,
             log.info("resumed from checkpoint step %d", start_step)
     if explicit and not resumed:
         state = shard_whole_model_state(state, mesh, axis)
+    elif not explicit and ranks.ax is not None:
+        # the GSPMD layout, from step 0's state or the restored whole one
+        state = shard_state(state, mesh, zero1=loop_cfg.zero1)
 
     def build_step():
         if explicit:
@@ -169,7 +189,7 @@ def train_loop(model_cfg: ModelConfig, run_cfg: RunConfig,
                 model, run_cfg, mesh, axis=axis,
                 attn_mode=loop_cfg.step_mode[len("explicit_"):],
                 total_steps=loop_cfg.steps)
-        return make_train_step(model, run_cfg, mesh,
+        return make_train_step(model, run_cfg, mesh, zero1=loop_cfg.zero1,
                                total_steps=loop_cfg.steps)
 
     step_fn = build_step()

@@ -26,16 +26,25 @@ recomputes its cross K/V from the patches. Greedy decoding
 ``torch.multinomial`` with the caller's ``generator`` and cannot match
 ``jax.random.categorical``'s numbers.
 
-The explicit tensor-parallel decode (``make_decode_step_explicit``) waits
-for the GSPMD placement on several ranks (the rest of ROADMAP A12's second
-half) and A13.
+On a mesh of several ranks (``launch/mesh.py::make_mesh``) every rank
+calls the steps and ``generate``: each holds its ``batch_specs`` rows, its
+part of the weights (:func:`repro_torch.sharding.param_specs`; ``generate``
+takes the whole weights and cuts them itself) and of the dense cache
+(``init_cache(..., mesh=)``), and gets whole logits and tokens for its
+rows: the vocab-split logits are gathered over ``tp`` before sampling,
+and prefill runs the flash kernel on this rank's heads. ``generate``
+also runs a batch that the dp axes do not divide, whole on every rank,
+with the plain attention in prefill, as the reference does. The paged decode on such a mesh, like the explicit
+tensor-parallel decode (``make_decode_step_explicit``), waits for A13.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, Optional
 
 import torch
 
+from repro_torch import partition as P
 from repro_torch import sharding as sh
 from repro_torch.models import transformer
 from repro_torch.models.model import Model
@@ -49,9 +58,12 @@ def _shard_fn(mesh):
 
 def make_prefill_step(model: Model, mesh=None) -> Callable:
     """(params, batch, cache) -> (logits, cache). Writes positions
-    [0, S)."""
-    shard = _shard_fn(mesh)
+    [0, S). On a mesh of several ranks ``batch``, ``params`` and ``cache``
+    are this rank's."""
+    return _prefill_step(model, _shard_fn(mesh))
 
+
+def _prefill_step(model: Model, shard) -> Callable:
     @torch.no_grad()
     def prefill(params, batch, cache):
         logits, cache, _ = model.apply(params, batch, cache=cache,
@@ -63,7 +75,7 @@ def make_prefill_step(model: Model, mesh=None) -> Callable:
 
 def make_decode_step(model: Model, mesh=None) -> Callable:
     """(params, tokens (B, 1), cache, extras) -> (logits (B, 1, V),
-    cache)."""
+    cache); on a mesh of several ranks as :func:`make_prefill_step`."""
     shard = _shard_fn(mesh)
 
     @torch.no_grad()
@@ -86,8 +98,13 @@ def make_paged_decode_step(model: Model, mesh=None) -> Callable:
     :class:`~repro_torch.models.kvcache.PageAllocator`. Row b attends to
     its pages' positions ``<= lengths[b]`` (the new token is written at
     ``lengths[b]``); rows with a sentinel block-table row are inactive:
-    their logits are garbage and their cache writes drop."""
+    their logits are garbage and their cache writes drop. A mesh of
+    several ranks raises ``NotImplementedError`` (ROADMAP A13)."""
     shard = _shard_fn(mesh)
+    if P.placement(shard) is not None:
+        raise NotImplementedError(
+            "the paged decode on a mesh of several ranks waits for the "
+            "explicit half of serving (ROADMAP A13)")
 
     @torch.no_grad()
     def decode(params, tokens, pages, block_table, lengths):
@@ -110,18 +127,41 @@ def generate(model: Model, params, prompts, *, max_new_tokens: int = 32,
     """Batched generation. prompts: (B, S0) integers -> (B, S0 + new) in
     the prompts' dtype, on the weights' device. ``extras`` are the model's
     other inputs (``patch_embeds`` for vlm, ``frames`` for whisper), moved
-    to that device."""
+    to that device.
+
+    On a mesh of several ranks every rank calls it with the same global
+    ``prompts``, ``extras`` and whole weights, which it cuts to its part
+    (:func:`repro_torch.sharding.param_specs`), and gets the tokens of its
+    ``batch_specs`` rows (all rows where the dp axes do not divide them).
+    Greedy tokens equal the one-rank ``generate``'s rows."""
     device = params.embed.device
     prompts = torch.as_tensor(prompts).to(device)
     extras = {k: torch.as_tensor(v).to(device)
               for k, v in (extras or {}).items()}
+    B_glob = prompts.shape[0]
+    shard = _shard_fn(mesh)
+    part = P.placement(shard)
+    if part is not None:
+        rules = shard.rules
+        split = sh._maybe(B_glob, rules.dp_spec, mesh) is not None
+        if split:
+            idx, n = sh.block_of(mesh, rules.dp_spec)
+            b = B_glob // n
+            prompts = prompts[idx * b:(idx + 1) * b]
+            extras = {k: v[idx * b:(idx + 1) * b] for k, v in extras.items()}
+        # the whole batch on every rank takes no flash in prefill (B %
+        # dp_n); decode takes none
+        shard = dataclasses.replace(shard, rows_split=split)
+        params = type(params)(params.cfg, sh.cut(
+            params.tree(), sh.param_specs(params, rules, mesh), mesh))
     B, S0 = prompts.shape
     max_seq = max_seq or (S0 + max_new_tokens)
     dtype = transformer.dtype_of(model.cfg.dtype)
     params = transformer.cast_params(params, dtype)
-    cache = model.init_cache(B, max_seq, dtype, device=device)
+    cache = model.init_cache(B_glob, max_seq, dtype, device=device,
+                             mesh=mesh if part is not None else None)
 
-    prefill = make_prefill_step(model, mesh)
+    prefill = _prefill_step(model, shard)
     decode = make_decode_step(model, mesh)
 
     logits, cache = prefill(params, {"tokens": prompts, **extras}, cache)
@@ -158,3 +198,4 @@ def generate(model: Model, params, prompts, *, max_new_tokens: int = 32,
                          device=device)
         res = torch.cat([res, pad], dim=1)
     return res
+

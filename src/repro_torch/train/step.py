@@ -3,11 +3,16 @@
 Port of ``repro/train/step.py``. Two step builders mirror the paper's two
 ``ExecutionImplementation`` s, as in the reference:
 
-* :func:`make_train_step`, the one-rank path (the reference's GSPMD step
-  on a mesh whose every axis has size 1): forward and backward through
-  autograd, gradient accumulation over ``RunConfig.microbatches`` in the
-  reference's batch-major split, the ``RunConfig.remat`` policy, the
-  global-norm clip and AdamW;
+* :func:`make_train_step`, the GSPMD step (reference ``:88-152``):
+  forward and backward through autograd, gradient accumulation over
+  ``RunConfig.microbatches`` in the reference's batch-major split, the
+  ``RunConfig.remat`` policy, the global-norm clip and AdamW. On a mesh of
+  several ranks every rank runs it on its ``batch_specs`` rows with its
+  part of the state (:func:`shard_state`, :func:`state_specs`): the
+  weights split over ``model`` by name, AdamW's moments also over the dp
+  axes (ZeRO-1), and with ``fsdp`` the weights too. The collectives that
+  XLA would insert are engine calls on the ``native`` schedule
+  (:mod:`repro_torch.partition`);
 * :func:`make_dp_train_step_explicit`, the explicit data-parallel step:
   every rank of a :class:`~repro_torch.launch.mesh.ProcessMesh` axis runs
   the step on its rows of the global batch and reduces the gradients by
@@ -28,18 +33,16 @@ kernel has no VJP and runs only in prefill.
   layer with the experts sharded over the axis
   (:func:`whole_model_param_specs`, :func:`shard_whole_model_state`), the
   replicated leaves' gradients through ``allreduce_tree``.
-
-Not yet ported, with the GSPMD placement on several ranks (the rest of
-ROADMAP A12's second half): ``state_specs``, ``shard_state`` and the
-``fsdp`` / ZeRO-1 placement of ``make_train_step``.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import partition as P
 from repro_torch import sharding as sh
 from repro_torch.comm import compression
 from repro_torch.comm.callsites import DP_GRADS
@@ -55,6 +58,7 @@ from repro_torch.models.transformer import tree_map
 from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update_,
                                      clip_scale, global_norm,
                                      make_lr_schedule)
+from repro_torch.sharding import LeafSpec
 
 
 @dataclass
@@ -126,61 +130,320 @@ def _apply_update(state: TrainState, grads: list, adamw: AdamWConfig,
 
 
 # ---------------------------------------------------------------------------
-# the one-rank step
+# the GSPMD step: one rank, or every rank of a mesh on its part of the state
 # ---------------------------------------------------------------------------
 
 
+def _grads(params, loss_fn, batch, nmicro: int):
+    """The loss and the gradients of ``batch`` (on the weights' device),
+    accumulated over ``nmicro`` microbatches in the batch-major split."""
+    device = _device(params)
+    if nmicro == 1:
+        return _backward(params, loss_fn, _on(batch, device))
+    # gradient accumulation over the batch-major split: microbatch k
+    # is rows [k * b / n, (k + 1) * b / n), as the reference's reshape
+    b = len(batch["tokens"])
+    if b % nmicro:
+        raise ValueError(f"a batch of {b} rows does not split into "
+                         f"{nmicro} microbatches")
+    m = b // nmicro
+    acc_loss, acc = None, None
+    for k in range(nmicro):
+        loss, grads = _backward(params, loss_fn,
+                                _on(batch, device, slice(k * m,
+                                                         (k + 1) * m)))
+        if acc is None:
+            acc_loss = torch.zeros((), dtype=torch.float32,
+                                   device=device)
+            acc = [torch.zeros(g.shape, dtype=torch.float32,
+                               device=device) for g in grads]
+        for a, g in zip(acc, grads):
+            a.add_(g.float() / nmicro)
+        acc_loss = acc_loss + loss / nmicro
+        del grads
+    return acc_loss, acc
+
+
 def make_train_step(model: Model, run_cfg: RunConfig, mesh=None, *,
+                    zero1: bool = True, fsdp: bool = False,
                     adamw: Optional[AdamWConfig] = None,
                     total_steps: int = 10_000) -> Callable:
-    """``(state, batch) -> (state, metrics)``, updating ``state`` in place.
-    ``mesh`` (default: the one-rank mesh) must have every axis of size 1;
+    """``(state, batch) -> (state, metrics)``, updating ``state`` in place;
     ``metrics`` holds the fp32 scalars ``loss``, ``grad_norm`` and
-    ``lr``."""
+    ``lr``. ``mesh`` defaults to the one-rank mesh.
+
+    On a mesh with an axis wider than 1 every rank calls the step with
+    the global batch and its part of the state (:func:`shard_state` with
+    the same ``zero1`` and ``fsdp``); see :func:`_make_gspmd_step`."""
     adamw = _adamw(run_cfg, adamw)
     schedule = make_lr_schedule(adamw.lr, run_cfg.warmup_steps, total_steps)
     mesh = mesh if mesh is not None else single_rank_mesh(("x",))
-    shard = sh.make_shard_fn(mesh, sh.rules_for(mesh))
+    rules = sh.rules_for(mesh, fsdp=fsdp)
+    shard = sh.make_shard_fn(mesh, rules)
     nmicro = max(run_cfg.microbatches, 1)
+    if P.placement(shard) is not None:
+        return _make_gspmd_step(model, run_cfg, shard, adamw, schedule,
+                                nmicro, zero1)
 
     def loss_fn(params, batch):
         logits, _, _ = model.apply(params, batch, shard=shard,
                                    remat=run_cfg.remat)
         return next_token_loss(logits, batch["tokens"])
 
-    def compute_grads(params, batch):
-        device = _device(params)
-        if nmicro == 1:
-            return _backward(params, loss_fn, _on(batch, device))
-        # gradient accumulation over the batch-major split: microbatch k
-        # is rows [k * b / n, (k + 1) * b / n), as the reference's reshape
-        b = len(batch["tokens"])
-        if b % nmicro:
-            raise ValueError(f"a batch of {b} rows does not split into "
-                             f"{nmicro} microbatches")
-        m = b // nmicro
-        acc_loss, acc = None, None
-        for k in range(nmicro):
-            loss, grads = _backward(params, loss_fn,
-                                    _on(batch, device, slice(k * m,
-                                                             (k + 1) * m)))
-            if acc is None:
-                acc_loss = torch.zeros((), dtype=torch.float32,
-                                       device=device)
-                acc = [torch.zeros(g.shape, dtype=torch.float32,
-                                   device=device) for g in grads]
-            for a, g in zip(acc, grads):
-                a.add_(g.float() / nmicro)
-            acc_loss = acc_loss + loss / nmicro
-            del grads
-        return acc_loss, acc
-
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
-        loss, grads = compute_grads(state.params, batch)
+        loss, grads = _grads(state.params, loss_fn, batch, nmicro)
         gnorm, lr = _apply_update(state, grads, adamw, schedule)
         return state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
 
     return train_step
+
+
+def state_specs(state: TrainState, rules: sh.MeshRules, mesh, *,
+                zero1: bool = True) -> TrainState:
+    """The :class:`~repro_torch.sharding.LeafSpec` trees of a whole (or
+    ``device="meta"``) ``state`` (reference ``train/step.py:68-81``):
+    the weights by :func:`~repro_torch.sharding.param_specs`, the moments
+    by :func:`~repro_torch.sharding.opt_state_specs`, the counters
+    whole."""
+    ospec = sh.opt_state_specs(state.params, rules, mesh, zero1=zero1)
+    return TrainState(
+        params=sh.param_specs(state.params, rules, mesh),
+        opt={"mu": ospec, "nu": ospec, "count": LeafSpec()},
+        step=LeafSpec(),
+        error=(None if state.error is None
+               else sh.param_specs(state.error, rules, mesh)))
+
+
+def _with_params(params, tree):
+    cut = type(params)(params.cfg, tree)
+    return cut.requires_grad_(any(p.requires_grad
+                                  for p in params.parameters()))
+
+
+def shard_state(state: TrainState, mesh, *, zero1: bool = True,
+                fsdp: bool = False) -> TrainState:
+    """This rank's part of a whole, host-initialized ``state`` under
+    :func:`state_specs` on ``mesh`` (reference ``:155-162``): every leaf
+    cut to its block, a new weight module with gradients on if
+    ``state``'s had them."""
+    rules = sh.rules_for(mesh, fsdp=fsdp)
+    specs = state_specs(state, rules, mesh, zero1=zero1)
+    return TrainState(
+        params=_with_params(state.params, sh.cut(state.params.tree(),
+                                                 specs.params, mesh)),
+        opt={"mu": sh.cut(state.opt["mu"], specs.opt["mu"], mesh),
+             "nu": sh.cut(state.opt["nu"], specs.opt["nu"], mesh),
+             "count": state.opt["count"]},
+        step=state.step,
+        error=(None if state.error is None
+               else sh.cut(state.error, specs.error, mesh)))
+
+
+def _dp_dim(spec: LeafSpec, dp) -> Optional[int]:
+    """The dimension ``spec`` splits over the dp axes, or None."""
+    for d, e in enumerate(spec):
+        if e == dp:
+            return d
+    return None
+
+
+def _gather_leaf(t: torch.Tensor, spec: LeafSpec, mesh) -> torch.Tensor:
+    for d, e in enumerate(spec):
+        if e is not None:
+            t = P.gather(t, mesh, e, d, source=None)
+    return t
+
+
+def _gathered(tree, specs, mesh):
+    leaves, struct = tree_flatten(tree)
+    return tree_unflatten(struct, [_gather_leaf(t.detach(), s, mesh)
+                                   for t, s in zip(leaves, specs)])
+
+
+def _whole_specs(model: Model, mesh, fsdp: bool, zero1: bool = True):
+    rules = sh.rules_for(mesh, fsdp=fsdp)
+    whole = model.init(device="meta")
+    return (tree_flatten(sh.param_specs(whole, rules, mesh))[0],
+            tree_flatten(sh.opt_state_specs(whole, rules, mesh,
+                                            zero1=zero1))[0])
+
+
+@torch.no_grad()
+def gather_params(params, model: Model, mesh, *, fsdp: bool = False):
+    """The whole weights from every rank's part under ``param_specs``
+    (with ``fsdp``): a new weight module; every rank of the mesh calls
+    it."""
+    pspecs = _whole_specs(model, mesh, fsdp)[0]
+    return _with_params(params, _gathered(params.tree(), pspecs, mesh))
+
+
+@torch.no_grad()
+def gather_state(state: TrainState, model: Model, mesh, *,
+                 zero1: bool = True, fsdp: bool = False) -> TrainState:
+    """The whole state from every rank's part (:func:`shard_state`'s
+    inverse with the same ``zero1`` and ``fsdp``, for a checkpoint's whole
+    arrays): each split leaf gathered over its axes through the engine,
+    which moves bytes only, so the result equals the uncut state bit for
+    bit. Every rank of the mesh calls it and gets the whole state."""
+    pspecs, ospecs = _whole_specs(model, mesh, fsdp, zero1)
+    return TrainState(
+        params=gather_params(state.params, model, mesh, fsdp=fsdp),
+        opt={"mu": _gathered(state.opt["mu"], ospecs, mesh),
+             "nu": _gathered(state.opt["nu"], ospecs, mesh),
+             "count": state.opt["count"]},
+        step=state.step,
+        error=(None if state.error is None
+               else _gathered(state.error, pspecs, mesh)))
+
+
+def _fsdp_gather(spec_tree, mesh, dp):
+    """The ``ShardFn.gather`` hook of an FSDP step: ``gather(path, leaf or
+    module)`` returns the weights at ``path`` (``"embed"``,
+    ``"final_norm"``, ``"vlm"`` or ``("blocks", i)``) with every dp-split
+    leaf gathered (backward: summed over dp, this rank's slice)."""
+    def one(t, spec):
+        d = _dp_dim(spec, dp)
+        return t if d is None else P.gather_summed(t, mesh, dp, d)
+
+    def walk(t, spec):
+        if isinstance(spec, dict):
+            return {k: walk(t[k], spec[k]) for k in spec}
+        return one(t, spec)
+
+    def gather(path, sub):
+        spec = spec_tree[path[0]][path[1]] if isinstance(path, tuple) \
+            else spec_tree[path]
+        if isinstance(sub, torch.nn.Module) and not isinstance(
+                sub, torch.nn.Parameter):
+            sub = sub.tree(data=False)
+        return walk(sub, spec)
+    return gather
+
+
+def _make_gspmd_step(model: Model, run_cfg: RunConfig, shard, adamw,
+                     schedule, nmicro: int, zero1: bool) -> Callable:
+    """The GSPMD step on a mesh of several ranks, run by every rank on its
+    own process with the global batch and its part of the state.
+
+    * Rows: this rank's ``batch_specs`` rows (the whole batch where the dp
+      axes do not divide it); the forward and backward run the layers'
+      tensor-parallel blocks (:mod:`repro_torch.partition`).
+    * Gradients: each is divided by the dp size; the leaves whole over dp
+      are summed over dp by ``allreduce_tree`` on the ``native`` schedule
+      (the FSDP leaves' gradients are summed by their gather's backward).
+    * The global norm adds each leaf's squares once: summed over ``tp``
+      for a tp-split leaf, over dp for a dp-split one, once for a whole
+      one; the clip scale and ``grad_norm`` are the one-rank step's.
+    * AdamW in place, leaf by leaf. Under ZeRO-1 (the moments of a leaf
+      whole over dp hold this rank's ``zero1_spec`` block) each dp rank
+      updates its block of the weight from the reduced gradient, then the
+      blocks are gathered over dp into the weight; the per-element
+      operations are the whole update's, so the bits are the same.
+    """
+    cfg = model.cfg
+    mesh, rules = shard.mesh, shard.rules
+    fsdp = rules.fsdp
+    if fsdp and cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: FSDP weights on the encoder-decoder are not "
+            "ported (ROADMAP A15)")
+    part = P.placement(shard)
+    dp, dp_n, tp = rules.dp_spec, part.dp_n, part.tp
+    engine = part.engine
+    whole = model.init(device="meta")
+    spec_tree = sh.param_specs(whole, rules, mesh)
+    pspecs = tree_flatten(spec_tree)[0]
+    on_dp = [_dp_dim(s, dp) is not None for s in pspecs]
+    # the dimension of each weight whose ZeRO-1 block this rank updates
+    ospecs = tree_flatten(sh.opt_state_specs(whole, rules, mesh,
+                                             zero1=zero1))[0]
+    zdims = [None if d else _dp_dim(o, dp) for d, o in zip(on_dp, ospecs)]
+    on_tp = [tp is not None and any(e == tp for e in s) for s in pspecs]
+    gather = _fsdp_gather(spec_tree, mesh, dp) if fsdp else None
+
+    def loss_fn(step_shard):
+        def fn(params, batch):
+            logits, _, _ = model.apply(params, batch, shard=step_shard,
+                                       remat=run_cfg.remat)
+            return next_token_loss(logits, batch["tokens"])
+        return fn
+
+    def reduce(x, axis):
+        return P.allreduce(x, mesh, axis, P.DP)
+
+    def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
+        rows = len(batch["tokens"])
+        split = sh._maybe(rows, dp, mesh) is not None
+        local = batch
+        if split:
+            idx, n = sh.block_of(mesh, dp)
+            b = rows // n
+            local = {k: torch.as_tensor(v)[idx * b:(idx + 1) * b]
+                     for k, v in batch.items()}
+        step_shard = dataclasses.replace(shard, rows_split=split,
+                                         gather=gather)
+        loss, grads = _grads(state.params, loss_fn(step_shard), local,
+                             nmicro)
+        grads = [g.div_(dp_n) if g.dtype == torch.float32
+                 else g.float() / dp_n for g in grads]
+        if dp_n > 1:
+            whole_dp = [i for i, d in enumerate(on_dp) if not d]
+            red = engine.allreduce_tree([grads[i] for i in whole_dp], dp,
+                                        schedule=P.SCHEDULE,
+                                        callsite=P.DP)
+            for i, g in zip(whole_dp, red):
+                grads[i] = g
+            del red
+        loss = reduce(loss / dp_n, dp)
+        # each leaf's sum of squares once: by the axes it is split over
+        sq = {}
+        for g, key in zip(grads, zip(on_tp, on_dp)):
+            sq[key] = sq.get(key, 0) + torch.sum(torch.square(g))
+        total = sq.get((False, False), 0)
+        if (False, True) in sq:
+            total = total + reduce(sq[False, True], dp)
+        if (True, True) in sq or (True, False) in sq:
+            t_sq = sq.get((True, False), 0)
+            if (True, True) in sq:
+                t_sq = t_sq + reduce(sq[True, True], dp)
+            total = total + reduce(t_sq, tp)
+        gnorm = torch.sqrt(total)
+        lr = schedule(state.step)
+        _zero1_update_(state, grads, zdims, adamw, lr,
+                       clip_scale(gnorm, adamw.max_grad_norm), mesh, dp)
+        state.step = state.step + 1
+        return state, {"loss": loss, "grad_norm": gnorm, "lr": lr}
+
+    train_step.engine = engine
+    return train_step
+
+
+@torch.no_grad()
+def _zero1_update_(state: TrainState, grads: list, zdims: list,
+                   adamw: AdamWConfig, lr, scale, mesh, dp) -> None:
+    """AdamW in place, leaf by leaf (``adamw_update_``, with its
+    ``UPDATE_CHUNK`` runs); a leaf with a ZeRO-1 dimension ``d`` in
+    ``zdims`` (its moments hold this rank's block along ``d``) updates
+    that block of the weight, and the blocks are gathered over ``dp``
+    into it."""
+    count = state.opt["count"]
+    after = count
+    for p, m, v, g, d in zip(tree_flatten(state.params.tree(data=False))[0],
+                             tree_flatten(state.opt["mu"])[0],
+                             tree_flatten(state.opt["nu"])[0], grads, zdims):
+        one = {"mu": [m], "nu": [v], "count": count}
+        if d is None:
+            adamw_update_([g], one, [p], adamw, lr, scale=scale)
+        else:
+            idx = sh.block_of(mesh, dp)[0]
+            size = m.shape[d]
+            blk = p.data.narrow(d, idx * size, size).contiguous()
+            adamw_update_([g.narrow(d, idx * size, size)], one, [blk], adamw,
+                          lr, scale=scale)
+            p.data.copy_(P.gather(blk, mesh, dp, d, source=P.ZERO1))
+            del blk
+        after = one["count"]
+    state.opt["count"] = after
 
 
 # ---------------------------------------------------------------------------
@@ -275,19 +538,6 @@ def make_dp_train_step_explicit(model: Model, run_cfg: RunConfig, mesh, *,
 EXPERT_LEAVES = ("w_gate", "w_in", "w_out")
 
 
-@dataclass(frozen=True)
-class LeafSpec:
-    """Where a weight lives under the explicit whole-model step: ``dims``
-    names, per leading dimension, the mesh axis it is split over (None:
-    whole), the entries of a ``PartitionSpec``; empty for a replicated
-    weight."""
-    dims: Tuple[Optional[str], ...] = ()
-
-    @property
-    def replicated(self) -> bool:
-        return not any(self.dims)
-
-
 def whole_model_param_specs(params, axis: str = "x") -> Dict:
     """The reference's layout of the explicit whole-model step, as a tree
     shaped like ``params.tree()`` (or like ``params``, a tree already):
@@ -306,29 +556,12 @@ def whole_model_param_specs(params, axis: str = "x") -> Dict:
     return specs
 
 
-def _cut(tree, specs, mesh):
-    """``tree`` with each leaf split by its :class:`LeafSpec` cut to this
-    rank's contiguous block (a copy, so that the whole leaf can be
-    freed)."""
-    leaves, spec = tree_flatten(tree)
-    out = []
-    for t, s in zip(leaves, tree_flatten(specs)[0]):
-        for dim, name in enumerate(s.dims):
-            if name is not None:
-                ax = mesh.axis(name)
-                MOE._check_divides(t.shape[dim], ax.size, name)
-                n = t.shape[dim] // ax.size
-                t = t.narrow(dim, ax.index * n, n).clone()
-        out.append(t)
-    return tree_unflatten(spec, out)
-
-
 def shard_whole_model_params(params, mesh, axis: str = "x"):
     """This rank's part of whole weights under
     :func:`whole_model_param_specs` on ``mesh``: a new weight module, with
     gradients on if ``params`` had them."""
     specs = whole_model_param_specs(params, axis)
-    cut = type(params)(params.cfg, _cut(params.tree(), specs, mesh))
+    cut = type(params)(params.cfg, sh.cut(params.tree(), specs, mesh))
     return cut.requires_grad_(any(p.requires_grad
                                   for p in params.parameters()))
 
@@ -342,49 +575,29 @@ def shard_whole_model_state(state: TrainState, mesh,
     specs = whole_model_param_specs(state.params, axis)
     return TrainState(params=shard_whole_model_params(state.params, mesh,
                                                       axis),
-                      opt={"mu": _cut(state.opt["mu"], specs, mesh),
-                           "nu": _cut(state.opt["nu"], specs, mesh),
+                      opt={"mu": sh.cut(state.opt["mu"], specs, mesh),
+                           "nu": sh.cut(state.opt["nu"], specs, mesh),
                            "count": state.opt["count"]},
                       step=state.step, error=state.error)
 
 
-def gather_whole_model_state(state: TrainState, mesh, axis: str = "x",
-                             engine: Optional[CollectiveEngine] = None
-                             ) -> TrainState:
+@torch.no_grad()
+def gather_whole_model_state(state: TrainState, mesh,
+                             axis: str = "x") -> TrainState:
     """The whole state from every rank's part, the inverse of
     :func:`shard_whole_model_state`: each split leaf is gathered over
-    ``axis`` through ``engine.all_to_all_tiles`` (this rank's block repeated
-    once per rank, every copy to one rank, concatenated by source), which
-    moves bytes only, so the result equals the uncut state bit for bit.
-    Every rank of the axis calls it and gets the whole state; the
-    replicated leaves are this rank's own."""
-    engine = engine or CollectiveEngine.for_mesh(mesh, schedule="auto")
-    specs = whole_model_param_specs(state.params, axis)
-
-    def gather(tree):
-        leaves, spec = tree_flatten(tree)
-        out = []
-        for t, s in zip(leaves, tree_flatten(specs)[0]):
-            for dim, name in enumerate(s.dims):
-                if name is not None:
-                    n = mesh.axis(name).size
-                    rep = t.detach().unsqueeze(0).expand(n, *t.shape)
-                    t = engine.all_to_all_tiles(
-                        rep.contiguous(), name, split_axis=0,
-                        concat_axis=dim + 1)[0]
-            out.append(t)
-        return tree_unflatten(spec, out)
-
-    params = state.params
-    with torch.no_grad():
-        whole = type(params)(params.cfg, gather(params.tree()))
-        whole.requires_grad_(any(p.requires_grad
-                                 for p in params.parameters()))
-        return TrainState(params=whole,
-                          opt={"mu": gather(state.opt["mu"]),
-                               "nu": gather(state.opt["nu"]),
-                               "count": state.opt["count"]},
-                          step=state.step, error=state.error)
+    ``axis`` as :func:`gather_state` gathers, which moves bytes only, so
+    the result equals the uncut state bit for bit. Every rank of the axis
+    calls it and gets the whole state; the replicated leaves are this
+    rank's own."""
+    specs = tree_flatten(whole_model_param_specs(state.params, axis))[0]
+    return TrainState(
+        params=_with_params(state.params,
+                            _gathered(state.params.tree(), specs, mesh)),
+        opt={"mu": _gathered(state.opt["mu"], specs, mesh),
+             "nu": _gathered(state.opt["nu"], specs, mesh),
+             "count": state.opt["count"]},
+        step=state.step, error=state.error)
 
 
 def make_whole_model_train_step_explicit(

@@ -323,10 +323,19 @@ def test_shard_fn_is_identity_carrying_mesh_and_rules():
 
 
 def test_shard_fn_refuses_a_wide_mesh():
-    class Wide:
-        shape = {"data": 2, "model": 1}
-    with pytest.raises(NotImplementedError, match="A12"):
-        sh.make_shard_fn(Wide(), sh.MeshRules(dp=("data",), tp="model"))
+    """``make_shard_fn`` takes a mesh with axes wider than 1 now; what
+    still refuses it is a MoE layer over a ``tp`` axis wider than 1."""
+    from repro_torch.launch.mesh import MeshAxis, ProcessMesh
+    from repro_torch.models import moe as MOE
+
+    wide = ProcessMesh(axes=(MeshAxis("data", 2, 0, (0, 2)),
+                             MeshAxis("model", 2, 0, (0, 1))))
+    shard = sh.make_shard_fn(wide, sh.rules_for(wide))
+    assert shard.mesh is wide and shard(torch.ones(2), "residual") is not None
+    cfg = reduced(get_config("qwen3-moe-235b-a22b"), layers=2)
+    p = MOE.init_moe(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(NotImplementedError, match="A15"):
+        MOE.apply_moe(p, cfg, torch.zeros((2, 4, cfg.d_model)), shard=shard)
 
 
 @pytest.mark.parametrize("Sq,expect_flash", [(128, True), (64, False)])

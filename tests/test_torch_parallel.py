@@ -225,7 +225,7 @@ def _step_runs(mesh):
                 for batch in batches:
                     state, m = step(state, batch)
                     metrics.append({k: float(v) for k, v in m.items()})
-                whole = gather_whole_model_state(state, mesh, engine=step.engine)
+                whole = gather_whole_model_state(state, mesh)
                 out[mode, name, nchunks] = {
                     "metrics": metrics,
                     "params": (state_to_reference(whole)["params"]
