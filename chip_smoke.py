@@ -307,11 +307,37 @@ Phases, one JSON line each:
                ``x``) against the one-rank step, and
                ``lm_step_bench``'s ``moe_explicit`` section: the explicit
                layer within MOE_TOL of the GSPMD one.
+26. serve_mesh — the explicit half of serving on four processes sharing
+               the card over gloo. This process first runs the one-rank
+               oracles and frees them: qwen3-moe at full width cut to
+               SERVE_MESH_MOE_LAYERS layer in fp32, its paged decode of
+               SERVE_MESH_SLOTS slots (prompts of ENGINE_PROMPT tokens
+               committed from the dense prefill, pages of ENGINE_PAGE)
+               over SERVE_MESH_STEPS steps; and the one-rank fp32
+               ``ServeEngine`` of llama3.2-3b at full width cut to
+               SERVE_MESH_LAYERS layers on phase engine's workload,
+               recording each decode's top-2 logit gap. Then every rank:
+               the explicit decode step (``make_decode_step_explicit``,
+               6 q and 2 KV heads a rank) on every registered
+               ``all_to_all_tiles`` schedule and on auto against the
+               one-rank paged step from identical pages (logits of its
+               rows and its pool's KV share within SERVE_MESH_ATOL; ms a
+               token, bytes staged by callsite); the explicit and the
+               2x2 GSPMD ``ServeEngine`` in fp32, streams token-identical
+               to the one-rank engine's or diverging first at a near-tie
+               (top-2 gap below SERVE_MESH_ATOL, printed); the explicit
+               engine in bf16, timed (informational: the loopback); the
+               MoE step, each rank drawing the layer whole in turn and
+               keeping its 32 experts, against the oracle, with 0 routed
+               slots dropped; no kernel launched in any decode or engine
+               leg. Then ``failover_bench``'s serve rank loss with its
+               gate (GSPMD engine on a ring of four, rank 3 lost at step
+               3: token-identical, 0 lost, >= 1 drained).
 
 Each main-path phase zeroes the launch counts just before it runs and reads
-them just after (the allreduce, dp, whole and gspmd phases in each rank's
-process, around each ``allreduce_tree``, each schedule's or each leg's
-steps;
+them just after (the allreduce, dp, whole, gspmd and serve_mesh phases in
+each rank's process, around each ``allreduce_tree``, each schedule's or
+each leg's steps;
 ``ring_add_step``'s launches in the summary line add rank 0's dp and whole
 launches to the allreduce phase's). Then the card's ``nvidia-smi`` name and power limit, the
 per-kernel summary line ``{"kernels": [...]}`` (each kernel's launches from
@@ -464,6 +490,33 @@ GSPMD_LAYERS, GSPMD_PREFILL_B = 2, 4
 # prefill rows, serve rows, prompt tokens, new tokens
 GSPMD_DIMS = (GSPMD_LAYERS, None, None, WHOLE_B, WHOLE_S, WHOLE_STEPS,
               GSPMD_PREFILL_B, SERVE_B, SERVE_S, SERVE_NEW)
+# the explicit half of serving on SERVE_MESH_RANKS processes sharing the
+# card (phase serve_mesh): SERVE_ARCH at full width cut to
+# SERVE_MESH_LAYERS layers in fp32, SERVE_MESH_SLOTS slots of prompts of
+# ENGINE_PROMPT tokens committed from the dense prefill into pages of
+# ENGINE_PAGE, SERVE_MESH_STEPS decode steps of the explicit step per
+# registered all_to_all_tiles schedule and auto against the one-rank paged
+# step; MOE_ARCH at full width cut to SERVE_MESH_MOE_LAYERS layer the same
+# way (each rank keeping its experts, the one-rank oracle run first in
+# this process); the explicit ServeEngine and the GSPMD one on the 2x2
+# mesh on phase engine's workload (ENGINE_REQUESTS x ENGINE_PROMPT,
+# SERVE_NEW new tokens) against the one-rank engine; the explicit engine
+# again in bf16, timed; then failover_bench's serve rank loss
+SERVE_MESH_RANKS, SERVE_MESH_TIMEOUT = 4, 600.0
+SERVE_MESH_LAYERS, SERVE_MESH_MOE_LAYERS = 2, 1
+SERVE_MESH_SLOTS, SERVE_MESH_STEPS = 8, 8
+# layers, d_model (None: full width), slots, prompt tokens (lo, hi),
+# decode steps, requests, new tokens, moe layers
+SERVE_MESH_DIMS = (SERVE_MESH_LAYERS, None, SERVE_MESH_SLOTS, ENGINE_PROMPT,
+                   SERVE_MESH_STEPS, ENGINE_REQUESTS, SERVE_NEW,
+                   SERVE_MESH_MOE_LAYERS)
+# the explicit step against the one-rank paged step in fp32, logits and
+# pages: the same operations on the same pages, the rows and heads cut
+# differently; the reference holds its CPU test at tiny width to 2e-5, and
+# at this width (logits sum 3072 fp32 products per layer) the engine's
+# paged-vs-dense witness on the card reached 6.56e-5; a head or row on the
+# wrong rank moves the logits by O(1)
+SERVE_MESH_ATOL = 1e-4
 # fp32 prefill, flash vs plain attention: both are fp32 throughout and
 # differ only in the order of the attention's sums (a few ulps per layer),
 # on logits of rms about 1; one bf16 rounding anywhere moves them by ~1e-2
@@ -4292,6 +4345,541 @@ def phase_gspmd(torch, card: str):
     return rec["serve"]["flash_launches_per_rank_per_prefill"]
 
 
+def serve_mesh_cfgs(dims):
+    """(SERVE_ARCH, MOE_ARCH) configs in fp32 for phase serve_mesh's
+    ``dims``: at full width cut in depth, or reduced to ``dims[1]`` (a
+    probe on the CPU)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+
+    out = []
+    for arch, layers in ((SERVE_ARCH, dims[0]), (MOE_ARCH, dims[7])):
+        cfg = get_config(arch)
+        cfg = dataclasses.replace(cfg, num_layers=layers) if dims[1] is None \
+            else reduced(cfg, layers=layers, d_model=dims[1])
+        out.append(dataclasses.replace(cfg, dtype="float32"))
+    return out
+
+
+def serve_mesh_prompts(cfg, dims, n: int, seed: int):
+    """``n`` prompts of ``dims[3]`` tokens (uniform, numpy ``seed``)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lo, hi = dims[3]
+    return [rng.integers(0, cfg.vocab_size, size=(int(k),)).astype(np.int32)
+            for k in rng.integers(lo, hi + 1, size=n)]
+
+
+def serve_mesh_pcfg(dims, slots: int, new: int):
+    from repro_torch.models.kvcache import PagedCacheConfig
+
+    max_seq = dims[3][1] + new
+    return PagedCacheConfig(page_size=ENGINE_PAGE, num_pages=slots * (
+        -(-max_seq // ENGINE_PAGE)), max_slots=slots, max_seq=max_seq)
+
+
+def one_rank_decode(torch, model, params, dims, device, seed: int) -> dict:
+    """The one-rank paged decode from committed prefill pages: the
+    prompts of every slot, the whole pool before and after, and per step
+    the block table, lengths, fed tokens, logits and seconds. Counts the
+    MoE routing's dropped slots (``moe._dispatch_indices``)."""
+    from repro_torch.benchmarks.serve_bench import prefill_pages
+    from repro_torch.models import moe
+    from repro_torch.train.serve import make_paged_decode_step
+
+    slots, steps = dims[2], dims[4]
+    prompts = serve_mesh_prompts(model.cfg, dims, slots, seed)
+    pcfg = serve_mesh_pcfg(dims, slots, steps)
+    pages, alloc, tok = prefill_pages(model, params, pcfg, prompts, steps,
+                                      device)
+    rec = {"pages0": [{k: v.to("cpu", copy=True) for k, v in layer.items()}
+                      for layer in pages["layers"]],
+           "tables": [], "toks": [], "logits": [], "seconds": []}
+    step = make_paged_decode_step(model, None)
+    drops, orig = [0], moe._dispatch_indices
+
+    def counting(*a):
+        got = orig(*a)
+        drops[0] += int((~got[2]).sum())
+        return got
+
+    moe._dispatch_indices = counting
+    try:
+        for _ in range(steps):
+            bt, ln = alloc.device_tables(device)
+            rec["tables"].append((bt.cpu(), ln.cpu()))
+            rec["toks"].append(tok.cpu())
+            if device == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, pages = step(params, tok, pages, bt, ln)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            rec["seconds"].append(time.perf_counter() - t0)
+            rec["logits"].append(lg[:, 0].cpu())
+            for s in range(slots):
+                alloc.append(s)
+            tok = torch.argmax(lg[:, -1], dim=-1).to(torch.int32)[:, None]
+    finally:
+        moe._dispatch_indices = orig
+    rec["pages"] = [{k: v.cpu() for k, v in layer.items()}
+                    for layer in pages["layers"]]
+    rec["dropped"] = drops[0]
+    rec["prompt_tokens"] = [int(p.shape[0]) for p in prompts]
+    return rec
+
+
+def explicit_step_leg(torch, mesh, model, params, oracle, schedule,
+                      device) -> dict:
+    """The explicit step on this rank on ``schedule`` (None: the engine's
+    auto), given this rank's part of the weights ``params``, from the
+    oracle's pages cut to this rank's KV heads, the
+    oracle's tables and its rows of the fed tokens: max |dlogits| over its
+    rows, max |dpages| over its pool, per-step seconds (from a barrier to
+    the drained card), launches, dropped MoE slots and bytes staged by
+    callsite per step."""
+    import torch.distributed as dist
+
+    from repro_torch.comm.callsites import DECODE_QKV
+    from repro_torch.comm.engine import (CollectiveEngine,
+                                         reset_staged_bytes,
+                                         staged_bytes_by_callsite)
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.models.kvcache import pool_heads
+    from repro_torch.train.serve import decode_rows, make_decode_step_explicit
+
+    cfg = model.cfg
+    steps = len(oracle["tables"])
+    slots = oracle["tables"][0][0].shape[0]
+    rows = decode_rows(mesh, slots, "x")
+    start, count = pool_heads(cfg, mesh, "x")
+    pages = {"layers": [{k: v.narrow(2, start, count).contiguous().to(
+        device, copy=True) for k, v in layer.items()}
+                        for layer in oracle["pages0"]]}
+    engine = CollectiveEngine.for_mesh(mesh, schedule=schedule or "auto")
+    step = make_decode_step_explicit(model, mesh, engine=engine,
+                                     schedule=schedule)
+    drops, orig = [0], moe._dispatch_indices
+
+    def counting(*a):
+        got = orig(*a)
+        drops[0] += int((~got[2]).sum())
+        return got
+
+    rec = {"seconds": [], "max_abs_logits": 0.0}
+    moe._dispatch_indices = counting
+    ops.reset_launch_counts()
+    reset_staged_bytes()
+    try:
+        for i in range(steps):
+            bt, ln = (t.to(device) for t in oracle["tables"][i])
+            tok = oracle["toks"][i][rows].to(device)
+            dist.barrier()
+            t0 = time.perf_counter()
+            lg, pages = step(params, tok, pages, bt, ln)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            rec["seconds"].append(time.perf_counter() - t0)
+            rec["max_abs_logits"] = max(rec["max_abs_logits"], max_abs(
+                lg[:, 0], oracle["logits"][i][rows].to(device)))
+            rec["finite"] = bool(torch.isfinite(lg).all())
+    finally:
+        moe._dispatch_indices = orig
+    rec["launches"] = ops.launch_counts()
+    rec["staged_per_step"] = {str(k): v // steps for k, v in
+                              staged_bytes_by_callsite().items()}
+    rec["max_abs_pages"] = max(
+        max_abs(got[k], want[k].narrow(2, start, count).to(device))
+        for got, want in zip(pages["layers"], oracle["pages"]) for k in got)
+    rec["dropped"] = drops[0]
+    qkv = (rows.stop - rows.start) * cfg.num_heads * cfg.head_dim * 4
+    rec["resolved"] = engine.schedule_for(
+        "all_to_all_tiles", schedule, nbytes=qkv, axis="x",
+        callsite=DECODE_QKV)
+    return rec
+
+
+def mesh_engine_leg(torch, mesh, model, params, prompts, pcfg, mode: str,
+                    new: int, device, dtype=None) -> dict:
+    """One ``ServeEngine.run`` on this rank (``mode`` on ``mesh``): the
+    streams, per-step decode and prefill seconds, wall seconds (from a
+    barrier), launches, bytes staged by callsite and peak memory."""
+    import torch.distributed as dist
+
+    from repro_torch.comm.engine import (reset_staged_bytes,
+                                         staged_bytes_by_callsite)
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ServeEngine
+
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    reset_staged_bytes()
+    eng = ServeEngine(model, params, pcfg, mode=mode, mesh=mesh,
+                      dtype=dtype or torch.float32)
+    dist.barrier()
+    t0 = time.perf_counter()
+    out, stats = eng.run(prompts, max_new_tokens=new, collect_stats=True)
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"streams": {r: v.tolist() for r, v in out.items()},
+            "decode_s": [st["decode_s"] for st in stats
+                         if st["decode_tokens"]],
+            "prefill_s": sum(st.get("prefill_s", 0.0) for st in stats),
+            "prefills": sum(st["prefills"] for st in stats),
+            "generated": sum(st["decode_tokens"] + st["prefills"]
+                             for st in stats),
+            "wall_s": wall, "launches": ops.launch_counts(),
+            "staged": {str(k): v for k, v in
+                       staged_bytes_by_callsite().items()},
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda
+            else None}
+
+
+def serve_mesh_rank(mesh, device, dims, root):
+    """Runs on every rank of phase serve_mesh: the explicit step legs of
+    SERVE_ARCH (the one-rank oracle in this process too: every rank holds
+    the whole weights and hands the step views of its part), the explicit
+    and the 2x2 GSPMD engine in fp32, the explicit engine in bf16, then
+    the MoE step leg against the parent's
+    oracle under ``root``, each rank keeping its experts."""
+    import dataclasses
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import sharding as sh
+    from repro_torch.comm.engine import schedules_for
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import cast_params
+    from repro_torch.train.serve import local_params
+    from repro_torch.train.step import whole_model_param_specs
+
+    torch.set_grad_enabled(False)
+    if device == "cuda":
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
+        torch.cuda.set_device(0)
+    grid = make_mesh(*GSPMD_MESH)
+    cfg, moe_cfg = serve_mesh_cfgs(dims)
+    model = build_model(cfg)
+    params = model.init(0, device=device)
+    oracle = one_rank_decode(torch, model, params, dims, device, ENGINE_SEED)
+    out = {"one_rank_step_s": oracle["seconds"], "steps": {}}
+    mine = local_params(params, mesh, "x")
+    for s in sorted(schedules_for("all_to_all_tiles")) + [None]:
+        out["steps"][s or "auto"] = explicit_step_leg(
+            torch, mesh, model, mine, oracle, s, device)
+    del oracle, mine
+    prompts = serve_mesh_prompts(cfg, dims, dims[5], ENGINE_SEED)
+    pcfg = serve_mesh_pcfg(dims, dims[2], dims[6])
+    out["explicit"] = mesh_engine_leg(torch, mesh, model, params, prompts,
+                                      pcfg, "explicit", dims[6], device)
+    out["gspmd"] = mesh_engine_leg(torch, grid, model, params, prompts,
+                                   pcfg, "gspmd", dims[6], device)
+    bf = build_model(dataclasses.replace(cfg, dtype="bfloat16"))
+    params = cast_params(params, torch.bfloat16)  # the fp32 copy goes
+    out["bf16"] = mesh_engine_leg(torch, mesh, bf, params, prompts, pcfg,
+                                  "explicit", dims[6], device,
+                                  dtype=torch.bfloat16)
+    del params
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # the MoE layer: each rank in turn draws it whole and keeps its experts
+    moe = build_model(moe_cfg)
+    ax = mesh.axis("x")
+    for turn in range(ax.size):
+        if turn == ax.index:
+            whole = moe.init(0, device=device)
+            local = type(whole)(moe_cfg, sh.cut(
+                whole.tree(), whole_model_param_specs(whole, "x"), mesh))
+            del whole
+            if device == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+        dist.barrier()
+    oracle = torch.load(os.path.join(root, "moe.pt"))
+    out["moe"] = explicit_step_leg(torch, mesh, moe, local, oracle, None,
+                                   device)
+    out["moe"]["experts_local"] = int(
+        local.blocks[0]["moe"]["w_gate"].shape[0])
+    return out
+
+
+def first_divergence(got, want) -> int:
+    """The first index at which two token lists differ (-1: equal)."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            return i
+    return -1 if len(got) == len(want) else min(len(got), len(want))
+
+
+def one_rank_engine(torch, model, params, prompts, pcfg, new: int,
+                    device) -> dict:
+    """The one-rank fp32 engine on ``prompts``, recording for every decode
+    step's active slot the gap between its two largest logits, keyed by
+    (request, index of the token sampled from them)."""
+    from repro_torch.serve import ServeEngine
+
+    eng = ServeEngine(model, params, pcfg, dtype=torch.float32)
+    decode, gaps = eng._decode, {}
+
+    def recording(p, tokens, pages, bt, lengths):
+        logits, pages = decode(p, tokens, pages, bt, lengths)
+        top = torch.topk(logits[:, 0].float(), 2, dim=-1).values.cpu()
+        at = lengths.cpu().tolist()
+        for slot, req in eng.scheduler.active.items():
+            gaps[req.rid, at[slot] + 1] = float(top[slot, 0] - top[slot, 1])
+        return logits, pages
+
+    eng._decode = recording
+    out = eng.run(prompts, max_new_tokens=new)
+    return {"streams": {r: v.tolist() for r, v in out.items()},
+            "gaps": gaps}
+
+
+def engine_gate(name, recs, want, gaps, atol) -> list:
+    """Each rank's streams against the one-rank engine's: token-identical,
+    or the first divergence at a decode step whose top-2 logit gap in the
+    one-rank engine is below ``atol`` (a near-tie). Returns the near-ties
+    and fails on anything else."""
+    ties = []
+    for r, rec in enumerate(recs):
+        check(set(rec["streams"]) == set(want),
+              f"serve_mesh/{name} rank {r}: requests "
+              f"{sorted(rec['streams'])}")
+        for rid, seq in want.items():
+            d = first_divergence(rec["streams"][rid], seq)
+            if d < 0:
+                continue
+            gap = gaps.get((rid, d))
+            check(gap is not None and gap < atol,
+                  f"serve_mesh/{name} rank {r}: request {rid} diverges at "
+                  f"token {d} where the one-rank engine's top-2 gap is "
+                  f"{gap}, not a near-tie below {atol}")
+            ties.append({"rank": r, "request": rid, "token": d, "gap": gap})
+    return ties
+
+
+def run_serve_mesh(torch, device, dims, timeout=SERVE_MESH_TIMEOUT) -> dict:
+    """Phase serve_mesh's legs: the MoE oracle and the one-rank engine in
+    this process, then SERVE_MESH_RANKS gloo processes, then
+    failover_bench's serve rank loss; every gate asserted. Returns the
+    record (``dims`` smaller than SERVE_MESH_DIMS and ``device="cpu"``
+    make a probe on the CPU)."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.benchmarks import failover_bench
+    from repro_torch.comm.engine import schedules_for
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import spawn_mesh
+    from repro_torch.models.model import build_model
+
+    cuda = device == "cuda"
+    cfg, moe_cfg = serve_mesh_cfgs(dims)
+    none = dict.fromkeys(ops.KERNELS, 0)
+    root = tempfile.mkdtemp(prefix="chip_smoke_serve_mesh_")
+    try:
+        t0 = time.perf_counter()
+        moe = build_model(moe_cfg)
+        with torch.no_grad():
+            params = moe.init(0, device=device)
+            moe_oracle = one_rank_decode(torch, moe, params, dims, device,
+                                         ENGINE_SEED + 1)
+        del params
+        torch.save(moe_oracle, os.path.join(root, "moe.pt"))
+        model = build_model(cfg)
+        prompts = serve_mesh_prompts(cfg, dims, dims[5], ENGINE_SEED)
+        pcfg = serve_mesh_pcfg(dims, dims[2], dims[6])
+        with torch.no_grad():
+            params = model.init(0, device=device)
+            one = one_rank_engine(torch, model, params, prompts, pcfg,
+                                  dims[6], device)
+        del params
+        if cuda:
+            torch.cuda.empty_cache()
+        oracle_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = spawn_mesh(SERVE_MESH_RANKS, serve_mesh_rank, device, dims,
+                           root, axes=("x",), timeout=timeout)
+        ranks_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    atol = SERVE_MESH_ATOL
+    legs = {}
+    for name in sorted(schedules_for("all_to_all_tiles")) + ["auto"]:
+        recs = [r["steps"][name] for r in ranks]
+        for r, rec in enumerate(recs):
+            check(rec["finite"] and rec["max_abs_logits"] <= atol
+                  and rec["max_abs_pages"] <= atol,
+                  f"serve_mesh/step {name} rank {r}: logits "
+                  f"{rec['max_abs_logits']}, pages {rec['max_abs_pages']} "
+                  f"from the one-rank step's, beyond {atol}")
+            check(rec["launches"] == none,
+                  f"serve_mesh/step {name} rank {r}: launches "
+                  f"{rec['launches']}")
+            check(rec["resolved"] in schedules_for("all_to_all_tiles"),
+                  f"serve_mesh/step {name}: resolved {rec['resolved']}")
+        legs[name] = {
+            "max_abs_logits": max(r["max_abs_logits"] for r in recs),
+            "max_abs_pages": max(r["max_abs_pages"] for r in recs),
+            "resolved": recs[0]["resolved"],
+            # steady state: the slowest rank, the first step carrying
+            # the warm-up
+            "step_ms": [max(r["seconds"][i] for r in recs) * 1e3
+                        for i in range(dims[4])],
+            "staged_bytes_per_rank_per_step": recs[0]["staged_per_step"]}
+    one_ms = [max(r["one_rank_step_s"][i] for r in ranks) * 1e3
+              for i in range(dims[4])]
+
+    mrecs = [r["moe"] for r in ranks]
+    for r, rec in enumerate(mrecs):
+        check(rec["finite"] and rec["max_abs_logits"] <= atol
+              and rec["max_abs_pages"] <= atol,
+              f"serve_mesh/moe rank {r}: logits {rec['max_abs_logits']}, "
+              f"pages {rec['max_abs_pages']}, beyond {atol}")
+        check(rec["launches"] == none,
+              f"serve_mesh/moe rank {r}: launches {rec['launches']}")
+        check(rec["dropped"] == 0 and moe_oracle["dropped"] == 0,
+              f"serve_mesh/moe: {rec['dropped']} (rank {r}) and "
+              f"{moe_oracle['dropped']} (one rank) routed slots dropped at "
+              "decode")
+        check(rec["experts_local"] * SERVE_MESH_RANKS == moe_cfg.num_experts,
+              f"serve_mesh/moe rank {r} held {rec['experts_local']} experts")
+
+    want = one["streams"]
+    ties = {}
+    for name in ("explicit", "gspmd", "bf16"):
+        recs = [r[name] for r in ranks]
+        for r, rec in enumerate(recs):
+            check(rec["launches"] == none,
+                  f"serve_mesh/{name} engine rank {r}: launches "
+                  f"{rec['launches']}, want none (decode and the mesh-free "
+                  "prefill take no kernel, C7)")
+            check(rec["generated"] == dims[5] * dims[6],
+                  f"serve_mesh/{name} rank {r}: {rec['generated']} tokens")
+            check(rec["streams"] == recs[0]["streams"],
+                  f"serve_mesh/{name}: rank {r}'s streams differ from rank "
+                  "0's")
+        if name != "bf16":
+            ties[name] = engine_gate(name, recs, want, one["gaps"], atol)
+    for name, found in ties.items():
+        for t in found:
+            print(f"serve_mesh/{name}: near-tie {t}", flush=True)
+
+    b = [r["bf16"] for r in ranks]
+    lat = sorted(max(r["decode_s"][i] for r in b)
+                 for i in range(min(len(r["decode_s"]) for r in b)))
+    bf16 = {"generated_tokens_per_s": dims[5] * dims[6]
+            / max(r["wall_s"] for r in b),
+            "decode_ms_p50": lat[len(lat) // 2] * 1e3,
+            "decode_ms_p99": lat[min(int(len(lat) * 0.99),
+                                     len(lat) - 1)] * 1e3,
+            "prefill_s_per_request": max(r["prefill_s"] / r["prefills"]
+                                         for r in b),
+            "peak_gb_per_rank": [r["peak_gb"] for r in b],
+            "staged_bytes_per_rank": b[0]["staged"]}
+
+    # every kernel's launches in the decode and engine legs, per rank: the
+    # counts each leg read from ops.launch_counts() (all asserted 0 above)
+    legs_by_rank = [[*r["steps"].values(), r["moe"], r["explicit"],
+                     r["gspmd"], r["bf16"]] for r in ranks]
+    launches = {k: [sum(leg["launches"][k] for leg in legs)
+                    for legs in legs_by_rank] for k in ops.KERNELS}
+
+    sr = failover_bench.serve_rank_loss_section(device)
+    bad = failover_bench.gate_serve_rank_loss(sr)
+    check(not bad, f"serve_mesh/serve_rank_loss: {bad}")
+    engines = {name: {
+        "wall_s": max(r[name]["wall_s"] for r in ranks),
+        "decode_ms_p50": sorted(ranks[0][name]["decode_s"])[
+            len(ranks[0][name]["decode_s"]) // 2] * 1e3,
+        "staged_bytes_per_rank": ranks[0][name]["staged"],
+        "peak_gb_per_rank": [r[name]["peak_gb"] for r in ranks],
+        "token_identical": not ties[name], "near_ties": ties[name]}
+        for name in ("explicit", "gspmd")}
+    return {"steps": legs, "one_rank_step_ms": one_ms,
+            "moe": {"max_abs_logits": max(r["max_abs_logits"] for r in mrecs),
+                    "max_abs_pages": max(r["max_abs_pages"] for r in mrecs),
+                    "resolved": mrecs[0]["resolved"],
+                    "dropped": [r["dropped"] for r in mrecs],
+                    "dropped_one_rank": moe_oracle["dropped"],
+                    "experts_per_rank": mrecs[0]["experts_local"],
+                    "step_ms": [max(r["seconds"][i] for r in mrecs) * 1e3
+                                for i in range(dims[4])],
+                    "one_rank_step_ms": [t * 1e3
+                                         for t in moe_oracle["seconds"]],
+                    "staged_bytes_per_rank_per_step":
+                        mrecs[0]["staged_per_step"]},
+            "engines": engines, "bf16": bf16,
+            "serve_rank_loss": {k: sr[k] for k in (
+                "devices", "requests", "drained", "tokens_lost",
+                "token_identical", "ranks_agree", "device")},
+            "params": [cfg.param_count(), moe_cfg.param_count()],
+            "prompt_tokens": [int(p.shape[0]) for p in prompts],
+            "launches": launches, "seconds_oracles": oracle_s,
+            "seconds_ranks": ranks_s, "atol": atol,
+            "finite": bool(np.isfinite(
+                moe_oracle["logits"][-1].numpy()).all())}
+
+
+def phase_serve_mesh(torch, card: str) -> int:
+    """The explicit half of serving on SERVE_MESH_RANKS processes sharing
+    the card, every gate asserted; returns the kernel launches of its
+    decode and engine legs, kernel by kernel and rank by rank, as each leg
+    measured them (0, asserted)."""
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = run_serve_mesh(torch, "cuda", SERVE_MESH_DIMS)
+    check(all(v == 0 for v in ops.launch_counts().values()),
+          "the parent launched kernels during the serve_mesh phase")
+    emit({"phase": "serve_mesh", "card": card,
+          "arch": [f"{SERVE_ARCH} at full width cut to {SERVE_MESH_LAYERS} "
+                   "layers", f"{MOE_ARCH} at full width cut to "
+                   f"{SERVE_MESH_MOE_LAYERS} layer"],
+          "params": rec["params"], "ranks": SERVE_MESH_RANKS,
+          "dtype": "float32", "slots": SERVE_MESH_SLOTS,
+          "decode_steps": SERVE_MESH_STEPS, "page_size": ENGINE_PAGE,
+          "prompt_tokens": ENGINE_PROMPT, "requests": ENGINE_REQUESTS,
+          "new_tokens": SERVE_NEW, "atol_logits_and_pages": rec["atol"],
+          "explicit_step": rec["steps"],
+          "one_rank_step_ms": rec["one_rank_step_ms"],
+          "moe_step": rec["moe"], "engines_fp32": rec["engines"],
+          "explicit_engine_bf16": rec["bf16"],
+          "serve_rank_loss": rec["serve_rank_loss"],
+          "kernel_launches_in_decode_and_engine_legs_per_rank": [
+              sum(v[r] for v in rec["launches"].values())
+              for r in range(SERVE_MESH_RANKS)],
+          "transport": "gloo, staged through host memory; the step's "
+                       "compute on the card",
+          "what_the_time_measures": "the host's loopback (gloo on one "
+                                    "machine), not a link rate",
+          "gates": "ok",
+          "seconds": {"oracles": rec["seconds_oracles"],
+                      "ranks": rec["seconds_ranks"],
+                      "phase": time.perf_counter() - t0}})
+    return rec["launches"]
+
+
 def main(argv=()) -> int:
     import torch
 
@@ -4345,6 +4933,7 @@ def main(argv=()) -> int:
     launches["ring_add_step"] += whole_launches
     ring_all_ranks += whole_all_ranks
     gspmd_flash = phase_gspmd(torch, smi)
+    serve_mesh_launches = phase_serve_mesh(torch, smi)
 
     check(set(launches) == set(rows) == set(SOURCES),
           f"kernels {sorted(rows)} vs launches {sorted(launches)}")
@@ -4359,6 +4948,8 @@ def main(argv=()) -> int:
         if name == "flash_attention":
             # the tensor-parallel prefill of phase gspmd, per rank
             entry["launches_gspmd_prefill_per_rank"] = gspmd_flash
+        # phase serve_mesh's decode and engine legs, per rank (asserted 0)
+        entry["launches_serve_mesh_per_rank"] = serve_mesh_launches[name]
         entry.update(r)
         entry["kernel_ms"] = r["ms"]
         kernels.append(entry)

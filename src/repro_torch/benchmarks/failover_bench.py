@@ -1,8 +1,8 @@
-"""Hard-failure survival: a severed ring hop rerouted and repaired, and a
-lost rank survived by elastic resume.
+"""Hard-failure survival: a severed ring hop rerouted and repaired, a
+lost rank survived by elastic resume, and a lost rank survived mid-serve.
 
-Port of the link-down and rank-loss sections of
-``benchmarks/failover_bench.py`` (``:61-158``, ``:160-241``).
+Port of ``benchmarks/failover_bench.py``: its link-down, rank-loss and
+serve rank-loss sections (``:61-158``, ``:160-241``, ``:251-311``).
 
     python -m repro_torch.benchmarks.failover_bench [--quick]
         [--device cuda|cpu]
@@ -47,8 +47,16 @@ chosen ring of two restores the snapshot. Gate (the reference's): the
 mesh shrank, the resume step is at or before the failure, the resumed run
 reached the last step, and its losses equal the control's bit for bit.
 
-The reference's serve rank loss (``:251``) waits for a later slice and is
-named in the printed record under ``not_ported``.
+**serve rank loss** (gated, reference ``:251-311``): the same four
+processes serve reduced llama3.2-3b (2 layers at d_model 32; three
+4-token prompts, 8 new tokens each) through a GSPMD
+:class:`~repro_torch.serve.ServeEngine` on ``make_mesh((4,), ("x",))``,
+each rank decoding its slot of the four and holding the pages its slot
+writes. A fault schedule loses rank 3 at step 3 with ``preempt=True``:
+every active request with a KV page on it (page ``p`` lives on rank ``p %
+4``) drains, is re-queued with its tokens and re-prefilled on surviving
+pages. Gate (the reference's): token-identical to the fault-free run, 0
+tokens lost, at least one drained request; and every rank agrees.
 
 The rank bodies, :func:`link_down_rank` and :func:`rank_loss_rank`, are
 module-level functions, so that spawned processes can import them. Writes
@@ -89,12 +97,10 @@ PHASES = ("before", "during", "after")
 # the rank-loss section: (steps, failure step), quick and full, as the
 # reference's; the last rank of the ring is lost
 RANK_LOSS_STEPS = {True: (6, 4), False: (10, 6)}
-NOT_PORTED = {
-    "serve_rank_loss": "needs a GSPMD mesh of several ranks (the GSPMD "
-                       "placement, the rest of ROADMAP A12's second half) "
-                       "and the explicit decode of ROADMAP A13 "
-                       "(benchmarks/failover_bench.py:251)",
-}
+# the serve rank loss: (failure step, lost rank), the reference's
+SERVE_FAIL_AT, SERVE_LOST_RANK = 3, 3
+# every section of the reference's failover_bench is ported
+NOT_PORTED: Dict[str, str] = {}
 
 
 def link_down_rank(mesh, hops: Sequence[int], device) -> Dict[int, Dict]:
@@ -334,14 +340,107 @@ def gate_rank_loss(sec) -> list:
     return bad
 
 
+def serve_rank_loss_rank(mesh, device) -> Dict:
+    """Runs on every rank of a gloo ring: the fault-free GSPMD engine on
+    ``make_mesh((n,), ("x",))``, then the same workload losing rank
+    :data:`SERVE_LOST_RANK` at step :data:`SERVE_FAIL_AT` with
+    ``preempt=True`` (reference ``_serve_rank_loss_section``). Weights
+    from seed 0, prompts from numpy seed 11."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.kvcache import PagedCacheConfig
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import ServeEngine
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(0)
+    n = mesh.axis("x").size
+    ring = make_mesh((n,), ("x",))
+    cfg = reduced(get_config("llama3.2-3b"), layers=2, d_model=32)
+    model = build_model(cfg)
+    params = model.init(0, device=device)
+    rng = np.random.default_rng(11)
+    n_req, max_new = 3, 8
+    prompts = [rng.integers(0, cfg.vocab_size, size=(4,)).astype(np.int32)
+               for _ in range(n_req)]
+    pcfg = PagedCacheConfig(page_size=4, num_pages=16, max_slots=4,
+                            max_seq=16)
+
+    ref_eng = ServeEngine(model, params, pcfg, mesh=ring)
+    for p in prompts:
+        ref_eng.submit(p, max_new)
+    ref = ref_eng.run()
+
+    inj = FaultInjector(hw=H100_80GB)
+    fault = FaultSchedule.rank_loss(inj, SERVE_FAIL_AT, rank=SERVE_LOST_RANK)
+    eng = ServeEngine(model, params, pcfg, mesh=ring, preempt=True,
+                      fault_schedule=fault)
+    for p in prompts:
+        eng.submit(p, max_new)
+    out, stats = eng.run(collect_stats=True)
+    return {"ref": {r: v.tolist() for r, v in ref.items()},
+            "out": {r: v.tolist() for r, v in out.items()},
+            "stats": stats, "requests": n_req, "max_new": max_new,
+            "ranks": n, "device": str(params.embed.device)}
+
+
+def serve_rank_loss_record(per_rank) -> Dict:
+    """The section's record (the reference's keys) from every rank's
+    :func:`serve_rank_loss_rank`: rank 0's streams and step stats, and
+    whether every rank served the same streams."""
+    from repro_torch.benchmarks.resilience_bench import _tok_per_s
+
+    first = per_rank[0]
+    ref = {r: np.asarray(v) for r, v in first["ref"].items()}
+    out = {r: np.asarray(v) for r, v in first["out"].items()}
+    stats = first["stats"]
+    fail_at = SERVE_FAIL_AT
+    return {
+        "devices": first["ranks"], "requests": first["requests"],
+        "max_new": first["max_new"], "fail_at": fail_at,
+        "lost_rank": SERVE_LOST_RANK, "device": first["device"],
+        "steps": len(stats), "drained": sum(s["drained"] for s in stats),
+        "tok_per_s_before": _tok_per_s(stats, 1, fail_at),
+        "tok_per_s_during": _tok_per_s(stats, fail_at, fail_at + 2),
+        "tok_per_s_after": _tok_per_s(stats, fail_at + 2, len(stats)),
+        "tokens_lost": sum(int(ref[r].shape[0] - out[r].shape[0])
+                           for r in ref),
+        "token_identical": set(ref) == set(out)
+        and all(np.array_equal(ref[r], out[r]) for r in ref),
+        "ranks_agree": all(r["out"] == first["out"]
+                           and r["ref"] == first["ref"] for r in per_rank),
+        "time": sum(s["decode_s"] for s in stats),
+    }
+
+
+def serve_rank_loss_section(device) -> Dict:
+    """The section on a gloo ring of :data:`RANKS` processes, the weights
+    and pools on ``device``."""
+    per_rank = spawn_mesh(RANKS, serve_rank_loss_rank, str(device),
+                          axes=("x",), timeout=TIMEOUT)
+    return serve_rank_loss_record(per_rank)
+
+
+def gate_serve_rank_loss(sec) -> list:
+    """The reference's gate (``_gate_serve_rank_loss``), plus agreement of
+    the ranks: what fails in ``sec``."""
+    bad = []
+    if not sec["token_identical"] or sec["tokens_lost"]:
+        bad.append(f"rank loss lost tokens (lost={sec['tokens_lost']})")
+    if sec["drained"] < 1:
+        bad.append("the lost rank's pages never drained a request")
+    if not sec["ranks_agree"]:
+        bad.append("the ranks served different streams")
+    return bad
+
+
 def main(quick: bool = False, schedule=None, device=None) -> dict:
     device = resolve_device(device)
     if schedule not in (None, "auto"):
         print(f"[failover: --schedule {schedule} ignored: this module "
               "measures the health-masked auto path]")
     ld = link_down_section(device)
-    record = {"device": device_name(device), "link_down": ld,
-              "not_ported": NOT_PORTED}
+    record = {"device": device_name(device), "link_down": ld}
     print(f"-- reroute around a severed ring hop (hop {DOWN_HOP} "
           f"hard-down; {ld['ranks']} gloo processes, {NBYTES} B per rank, "
           f"{record['device']}) --")
@@ -368,16 +467,33 @@ def main(quick: bool = False, schedule=None, device=None) -> dict:
                   rl["loss_bitwise"]]],
                 ["mesh", "survivors", "fail step", "resume step",
                  "recovery", "loss bitwise"]))
-    for name, why in NOT_PORTED.items():
-        print(f"-- {name}: not ported yet, {why} --")
-    save_result("failover_bench", record)
     bad = gate_rank_loss(rl)
     if bad:
+        save_result("failover_bench", record)
         print("RANK-LOSS GATE FAILED:", bad)
+        raise SystemExit(1)
+
+    sr = serve_rank_loss_section(device)
+    record["serve_rank_loss"] = sr
+    print(f"\n-- serve through losing rank {sr['lost_rank']} at step "
+          f"{sr['fail_at']} (GSPMD engine on a ring of {sr['devices']} gloo "
+          "processes) --")
+    print(table([[sr["requests"], sr["steps"], sr["drained"],
+                  f"{sr['tok_per_s_before']:.1f}",
+                  f"{sr['tok_per_s_during']:.1f}",
+                  f"{sr['tok_per_s_after']:.1f}", sr["tokens_lost"],
+                  sr["token_identical"]]],
+                ["requests", "steps", "drained", "tok/s before",
+                 "tok/s during", "tok/s after", "lost", "identical"]))
+    save_result("failover_bench", record)
+    bad = gate_serve_rank_loss(sr)
+    if bad:
+        print("SERVE-RANK-LOSS GATE FAILED:", bad)
         raise SystemExit(1)
     print("[failover ok: both ops rerouted off the cut and back, "
           "bit-identical on every rank; the rank loss resumed on the "
-          "survivors bit for bit as the control]")
+          "survivors bit for bit as the control; the serve rank loss "
+          "drained and re-prefilled with no token lost]")
     return record
 
 

@@ -19,7 +19,8 @@ in the same invocation; alone it only tunes.
 Module arguments accept short aliases: ``hpl`` -> hpl_scaling, ``ptrans``
 -> ptrans_scaling, ``beff`` -> beff_bandwidth, ``gups`` / ``fftd`` ->
 gups_fft_bench, ``overlap`` -> overlap_bench, ``failover`` ->
-failover_bench, ``resilience`` -> resilience_bench, ``lm`` -> lm_step_bench.
+failover_bench, ``resilience`` -> resilience_bench, ``lm`` -> lm_step_bench,
+``serve`` -> serve_bench.
 
   beff_bandwidth   Fig. 10/11 + Eqs. 1/2/4
   ptrans_scaling   Fig. 12 + Eqs. 5/6
@@ -37,6 +38,9 @@ failover_bench, ``resilience`` -> resilience_bench, ``lm`` -> lm_step_bench.
   lm_step_bench    train and decode step times per architecture (reduced
                    configs), and the explicit whole-model step on a ring
                    of processes against the one-rank step (gated)
+  serve_bench      the explicit paged decode on a ring of processes
+                   against the one-rank step, the continuous-batching
+                   engine's batch sweep and its two modes (gated)
 """
 from __future__ import annotations
 
@@ -48,18 +52,19 @@ from typing import Optional
 
 MODULES = ["beff_bandwidth", "ptrans_scaling", "hpl_matrix_sweep",
            "hpl_scaling", "legacy_suite", "gups_fft_bench", "overlap_bench",
-           "failover_bench", "resilience_bench", "lm_step_bench"]
+           "failover_bench", "resilience_bench", "lm_step_bench",
+           "serve_bench"]
 
 ALIASES = {"hpl": "hpl_scaling", "ptrans": "ptrans_scaling",
            "beff": "beff_bandwidth", "gups": "gups_fft_bench",
            "fftd": "gups_fft_bench", "overlap": "overlap_bench",
            "failover": "failover_bench", "resilience": "resilience_bench",
-           "lm": "lm_step_bench"}
+           "lm": "lm_step_bench", "serve": "serve_bench"}
 
 # the drivers whose main() takes quick= and schedule=
 _SCHEDULED = ("beff_bandwidth", "ptrans_scaling", "hpl_scaling",
               "gups_fft_bench", "failover_bench", "resilience_bench",
-              "lm_step_bench")
+              "lm_step_bench", "serve_bench")
 
 
 def _print_resolved(name: str, record) -> None:

@@ -65,8 +65,10 @@ both exchanges of the layer, and :data:`PAIRED_ALIASES` files its winner
 under ``all_to_all_tiles@moe.combine`` too; the whole-model attention
 patterns ``all_to_all_tiles@tp.qkv`` and ``all_to_all_tiles@sp.qkv`` time
 their hooks' exchanges and file their winners under ``@tp.out`` and
-``@sp.out``. The reference's decode pattern comes with the explicit decode
-step (ROADMAP A13).
+``@sp.out``; the serving decode's pattern ``all_to_all_tiles@decode.qkv``
+times one decode step's six exchanges on its own ladder of decode-sized
+payloads (:data:`DECODE_SIZES`) and files its winner under
+``@decode.out`` and ``@decode.moe`` too.
 """
 from __future__ import annotations
 
@@ -793,6 +795,32 @@ def _op_body(engine, mesh, op: str, nbytes: int, device) -> Callable:
                                            concat_axis=1)
         return body
 
+    if op == "all_to_all_tiles@decode.qkv":
+        # one serving decode step: q and the token's k/v ride three tiny
+        # head-gathering exchanges, a stand-in paged attention reads the
+        # pool between them, the inverse exchange restores the batch
+        # layout, and the MoE dispatch / expert / combine pair follows: six
+        # back-to-back latency-bound exchanges, sized by DECODE_SIZES
+        L = max(elems // nranks, 1)
+        x = torch.ones(1, nranks, L, **f32)
+        pool = torch.ones(1, 8, L, **f32)
+
+        def gather(a):  # heads split out, batch gathered
+            return engine.all_to_all_tiles(a, names[0], split_axis=1,
+                                           concat_axis=0)
+
+        def body():
+            q, k, v = gather(x), gather(x * 0.5), gather(x * 0.25)
+            att = torch.softmax(q * pool[:, :1] + k, dim=-1)
+            o = engine.all_to_all_tiles(att * v, names[0], split_axis=0,
+                                        concat_axis=1)
+            buf = engine.all_to_all_tiles(o, names[0], split_axis=1,
+                                          concat_axis=0)  # moe dispatch
+            buf = torch.nn.functional.silu(buf) * buf
+            return engine.all_to_all_tiles(buf, names[0], split_axis=0,
+                                           concat_axis=1)  # moe combine
+        return body
+
     if op == "all_to_all_tiles@fft.transpose":
         # pencil-FFT global transpose on the ring: the signal-gathering
         # exchange, the local full-signal FFT, and the inverse scatter
@@ -880,7 +908,8 @@ MEASURED_OPS = ("bcast", "allreduce", "all_to_all_tiles", "ring_exchange",
                 "all_to_all_tiles@fft.transpose",
                 "all_to_all_tiles@moe.dispatch",
                 "all_to_all_tiles@tp.qkv",
-                "all_to_all_tiles@sp.qkv")
+                "all_to_all_tiles@sp.qkv",
+                "all_to_all_tiles@decode.qkv")
 
 # callsite patterns that time both directions of a paired exchange: the
 # measured winner is filed under every tag of the pair
@@ -888,7 +917,33 @@ PAIRED_ALIASES: Dict[str, Tuple[str, ...]] = {
     "all_to_all_tiles@moe.dispatch": ("all_to_all_tiles@moe.combine",),
     "all_to_all_tiles@tp.qkv": ("all_to_all_tiles@tp.out",),
     "all_to_all_tiles@sp.qkv": ("all_to_all_tiles@sp.out",),
+    "all_to_all_tiles@decode.qkv": ("all_to_all_tiles@decode.out",
+                                    "all_to_all_tiles@decode.moe"),
 }
+
+# the measured mode's default ladders of message sizes
+DEFAULT_SIZES = (1 << 10, 1 << 14, 1 << 18, 1 << 22)
+DEFAULT_SIZES_QUICK = (1 << 10, 1 << 16)
+
+# the per-token decode pattern is measured at decode-sized payloads (one
+# token's q/k/v across the whole batch is a few KiB) instead of the
+# training-sized default ladder: serving lives in the latency band
+DECODE_SIZES = (1 << 8, 1 << 11, 1 << 14)
+DECODE_SIZES_QUICK = (1 << 8, 1 << 12)
+
+
+def op_sizes(op: str, sizes: Sequence[int]) -> Tuple[int, ...]:
+    """The ladder ``op`` is measured at in a run on ``sizes``: the decode
+    pattern's own (:data:`DECODE_SIZES`, :data:`DECODE_SIZES_QUICK`) where
+    ``sizes`` is the default ladder (or the quick one), as the reference
+    switches ladders only for its default sizes; ``sizes`` otherwise."""
+    sizes = tuple(int(S) for S in sizes)
+    if op.endswith("@decode.qkv"):
+        if sizes == DEFAULT_SIZES:
+            return DECODE_SIZES
+        if sizes == DEFAULT_SIZES_QUICK:
+            return DECODE_SIZES_QUICK
+    return sizes
 
 
 def table_keys(ops: Sequence[str] = MEASURED_OPS) -> List[str]:
@@ -908,16 +963,17 @@ def exact_schedules(op: str) -> List[str]:
 
 def untimed(record: Dict, sizes: Sequence[int],
             ops: Sequence[str] = MEASURED_OPS) -> List[str]:
-    """Each ``op/schedule@size`` of ``ops`` x ``sizes`` x
-    :func:`exact_schedules` that :func:`autotune_mesh`'s ``record`` holds
-    no time for, with the error it raised where it raised one."""
+    """Each ``op/schedule@size`` of ``ops`` x their :func:`op_sizes` of
+    ``sizes`` x :func:`exact_schedules` that :func:`autotune_mesh`'s
+    ``record`` holds no time for, with the error it raised where it
+    raised one."""
     by_job = {}
     for key, rec in record.items():
         op, _, size = key.split("/")
         by_job[op, int(size)] = rec
     out = []
     for op in ops:
-        for size in sizes:
+        for size in op_sizes(op, sizes):
             rec = by_job.get((op, int(size)), {})
             for name in exact_schedules(op):
                 if name not in rec.get("times_s", {}):
@@ -943,7 +999,7 @@ def _add_fault_delays(times: Dict, ops: Sequence[str],
     for op in ops:
         topo_axes = worlds["torus" if op in _TORUS_OPS else "ring"][2]
         axes = topo_axes[:1] if "@" in op else topo_axes
-        for S in sizes:
+        for S in op_sizes(op, sizes):
             for name in exact_schedules(op):
                 if (op, S, name) in times:
                     times[op, S, name] += faults.measured_extra_time(
@@ -973,8 +1029,12 @@ def autotune_mesh(*, ops: Sequence[str] = MEASURED_OPS,
     combine, ``"all_to_all_tiles@tp.qkv"`` the head-parallel hook's q/k/v
     gathers and inverse exchange, and ``"all_to_all_tiles@sp.qkv"`` the
     ring-attention hook's gathers interleaved with its kv hops (the hops
-    themselves take the untagged ``ring_exchange`` entry); each of the
-    three files its winner also under its :data:`PAIRED_ALIASES`.
+    themselves take the untagged ``ring_exchange`` entry), and
+    ``"all_to_all_tiles@decode.qkv"`` one serving decode step's six
+    exchanges (q/k/v head gathers, paged attention, inverse, MoE dispatch
+    and combine) on its own ladder of decode-sized payloads
+    (:func:`op_sizes`); each of the four files its winner also under its
+    :data:`PAIRED_ALIASES`.
     Payloads live on ``device`` (the
     card unless ``"cpu"`` is given); gloo stages a card's payloads through
     host memory. A time is the slowest rank's, best of ``reps``, plus the
@@ -990,8 +1050,7 @@ def autotune_mesh(*, ops: Sequence[str] = MEASURED_OPS,
 
     device = resolve_device(device)
     if sizes is None:
-        sizes = ((1 << 10, 1 << 16) if quick
-                 else (1 << 10, 1 << 14, 1 << 18, 1 << 22))
+        sizes = DEFAULT_SIZES_QUICK if quick else DEFAULT_SIZES
     reps = 2 if quick else reps
     pg = math.isqrt(RANKS)
     worlds = {"ring": (RANKS, ("x",), (Ax("x", RANKS, "ring"),)),
@@ -1004,7 +1063,7 @@ def autotune_mesh(*, ops: Sequence[str] = MEASURED_OPS,
     for world, (nprocs, axes, _) in worlds.items():
         jobs = [(op, S, name) for op in ops
                 if (op in _TORUS_OPS) == (world == "torus")
-                for S in sizes for name in exact_schedules(op)]
+                for S in op_sizes(op, sizes) for name in exact_schedules(op)]
         if not jobs:
             continue
         per_rank = spawn_mesh(nprocs, measure_world, jobs, reps, device,
@@ -1034,7 +1093,7 @@ def autotune_mesh(*, ops: Sequence[str] = MEASURED_OPS,
         else:
             sigs = [axis_signature(topo_axes)]
         winners, measured_sizes = [], []
-        for S in sizes:
+        for S in op_sizes(op, sizes):
             names = exact_schedules(op)
             got = {n: times[op, S, n] for n in names if (op, S, n) in times}
             best = min(sorted(got), key=got.get) if got else None

@@ -58,6 +58,32 @@ def local_cache_dims(cfg: ModelConfig, batch: int, mesh):
     return batch // b_n, kv_heads_held(cfg, part)[1]
 
 
+def pool_heads(cfg: ModelConfig, mesh, axis=None):
+    """(start, count) of the KV heads this rank's page pool holds on
+    ``mesh``. With ``axis`` (the explicit decode) the KV heads split
+    contiguously over it, the reference's ``pages_spec`` ``P(None, None,
+    None, axis, None)``; without it (the GSPMD decode) they follow
+    :func:`repro_torch.models.layers.kv_heads_held` on the mesh's
+    placement: split over ``tp`` where it divides them, else the block this
+    rank's q heads map to, and all of them on a mesh without a ``tp``
+    axis."""
+    from repro_torch import partition as P
+    from repro_torch import sharding as sh
+    from repro_torch.models.layers import kv_heads_held
+
+    KV = cfg.num_kv_heads
+    if axis is not None:
+        ax = mesh.axis(axis)
+        if KV % ax.size:
+            raise ValueError(
+                f"num_kv_heads={KV} must be divisible by the {axis!r} axis "
+                f"size {ax.size} for the paged decode exchange")
+        n = KV // ax.size
+        return ax.index * n, n
+    part = P.placement(sh.make_shard_fn(mesh, sh.rules_for(mesh)))
+    return kv_heads_held(cfg, part)
+
+
 def ssm_cache_spec(cfg: ModelConfig, batch: int, dtype,
                    device=None) -> Dict[str, torch.Tensor]:
     """The last K - 1 conv inputs in ``dtype`` and the SSD state in fp32."""
@@ -109,10 +135,12 @@ class PagedCacheConfig:
 
 
 def paged_attn_cache_spec(cfg: ModelConfig, pcfg: PagedCacheConfig, dtype,
-                          device=None) -> Dict[str, torch.Tensor]:
+                          device=None,
+                          kv_heads=None) -> Dict[str, torch.Tensor]:
     """One layer's page pool: k/v pages of (num_pages, page_size, KV,
-    hd)."""
-    shape = (pcfg.num_pages, pcfg.page_size, cfg.num_kv_heads, cfg.head_dim)
+    hd), ``KV`` being ``kv_heads`` where given (a rank's share)."""
+    shape = (pcfg.num_pages, pcfg.page_size, kv_heads or cfg.num_kv_heads,
+             cfg.head_dim)
     return {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
             "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -234,7 +262,8 @@ def _real(page_idx: torch.Tensor, off: torch.Tensor, num_pages: int):
 
 
 def commit_prefill(pages_layers: List[Dict], dense_layers: List[Dict],
-                   block_row, length, *, page_size: int) -> List[Dict]:
+                   block_row, length, *, page_size: int,
+                   kv_heads=None) -> List[Dict]:
     """Scatter one request's dense prefill cache into its reserved pages,
     in place.
 
@@ -242,7 +271,10 @@ def commit_prefill(pages_layers: List[Dict], dense_layers: List[Dict],
     hd); ``dense_layers``: per layer ``{'k', 'v'}`` (1, S, KV, hd) (a
     batch-1 prefill, possibly padded past ``length``: pad positions drop,
     as do positions whose block-table entry is the sentinel).
-    ``block_row``: (pmax,) integers. Returns ``pages_layers``."""
+    ``block_row``: (pmax,) integers. ``kv_heads`` (start, count) commits
+    that slice of the dense cache's KV heads, a rank's share of a pool
+    split over ranks (:func:`pool_heads`); None commits them all. Returns
+    ``pages_layers``."""
     S = dense_layers[0]["k"].shape[1]
     device = pages_layers[0]["k_pages"].device
     num_pages = pages_layers[0]["k_pages"].shape[0]
@@ -254,7 +286,10 @@ def commit_prefill(pages_layers: List[Dict], dense_layers: List[Dict],
     for pages, dense in zip(pages_layers, dense_layers):
         for pooled, flat in (("k_pages", "k"), ("v_pages", "v")):
             pool = pages[pooled]
-            pool[page, off] = dense[flat][0, keep].to(pool.dtype)
+            src = dense[flat][0, keep]
+            if kv_heads is not None:
+                src = src.narrow(1, *kv_heads)
+            pool[page, off] = src.to(pool.dtype)
     return pages_layers
 
 

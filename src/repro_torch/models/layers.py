@@ -201,6 +201,27 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o.reshape(B, Sq, H, hd).to(q.dtype)
 
 
+def paged_decode_attention(q, k_upd, v_upd, pages_k, pages_v, block_table,
+                           lengths) -> torch.Tensor:
+    """:func:`decode_attention` of q (B, 1, H, hd) over each row's pages
+    (``block_table`` (B, pmax)) with the new token ``k_upd``/``v_upd`` (B,
+    1, KV, hd) at ``lengths[b]``; a row whose length lies past the
+    gathered width keeps what it gathered (the reference's drop). The
+    pools are read, not written."""
+    # local: kvcache imports ssm, which imports this module
+    from repro_torch.models.kvcache import gather_pages
+
+    gk, gv = gather_pages(pages_k, block_table), gather_pages(pages_v,
+                                                              block_table)
+    rows = torch.arange(q.shape[0], device=q.device)
+    at = lengths.long().clamp(max=gk.shape[1] - 1)
+    inside = (lengths < gk.shape[1])[:, None, None]
+    gk[rows, at] = torch.where(inside, k_upd[:, 0], gk[rows, at])
+    gv[rows, at] = torch.where(inside, v_upd[:, 0], gv[rows, at])
+    return decode_attention(q, gk.to(q.dtype), gv.to(q.dtype),
+                            lengths=lengths)
+
+
 # ---------------------------------------------------------------------------
 # Flash-attention path (prefill, forward only)
 # ---------------------------------------------------------------------------
@@ -314,7 +335,14 @@ def apply_attention(p, cfg: ModelConfig, x: torch.Tensor, *,
     row attends over its gathered pages with its new token at
     ``lengths[b]``; the pool is not written here, and the returned cache
     is the token update ``{'k_upd', 'v_upd'}`` (B, 1, KV, hd) that
-    :func:`repro_torch.models.kvcache.scatter_token` writes into it.
+    :func:`repro_torch.models.kvcache.scatter_token` writes into it. A hook
+    with a truthy ``paged`` attribute
+    (:func:`repro_torch.models.parallel.make_paged_decode_attention`)
+    takes over the exchange, the gather and the attention there, called as
+    ``attn_impl(q, k_upd, v_upd, pages_k=, pages_v=, block_table=,
+    lengths=) -> (o, k_full, v_full)``; the k/v it returns are the
+    update. Under a ``tp`` axis the pool holds this rank's KV heads
+    (:func:`kv_heads_held`).
 
     ``attn_impl`` (the explicit path's hook, ``(q, k, v, *, causal,
     q_offset) -> o``) replaces the core attention call: projections,
@@ -329,10 +357,10 @@ def apply_attention(p, cfg: ModelConfig, x: torch.Tensor, *,
     q_norm, k_norm = (p["q_norm"], p["k_norm"]) if cfg.use_qk_norm \
         else (None, None)
     if part is not None:
-        if kv_x is not None or (cache is not None and "k_pages" in cache):
+        if kv_x is not None:
             raise NotImplementedError(
-                "tensor-parallel cross-attention and paged decode are not "
-                "ported (ROADMAP A15, A13)")
+                "tensor-parallel cross-attention is not ported (ROADMAP "
+                "A15)")
         mesh, tp = part.mesh, part.tp
         x = P.copy_to(x, mesh, tp)
         if cfg.num_kv_heads % part.tp_n:
@@ -374,21 +402,16 @@ def apply_attention(p, cfg: ModelConfig, x: torch.Tensor, *,
     if cache is not None and "k_pages" in cache:
         if page_table is None:
             raise ValueError("paged cache requires page_table=")
-        # local: kvcache imports ssm, which imports this module
-        from repro_torch.models.kvcache import gather_pages
         kp, vp = cache["k_pages"], cache["v_pages"]
         k_upd, v_upd = k.to(kp.dtype), v.to(vp.dtype)
         bt, lengths = page_table["block_table"], page_table["lengths"]
-        gk, gv = gather_pages(kp, bt), gather_pages(vp, bt)
-        # the new token at lengths[b]; a row whose length lies past the
-        # gathered width keeps what it gathered (the reference's drop)
-        rows = torch.arange(q.shape[0], device=q.device)
-        at = lengths.long().clamp(max=gk.shape[1] - 1)
-        inside = (lengths < gk.shape[1])[:, None, None]
-        gk[rows, at] = torch.where(inside, k_upd[:, 0], gk[rows, at])
-        gv[rows, at] = torch.where(inside, v_upd[:, 0], gv[rows, at])
-        o = decode_attention(q, gk.to(dtype), gv.to(dtype), lengths=lengths)
-        return _out_proj(o, p["wo"]), {"k_upd": k_upd, "v_upd": v_upd}
+        if attn_impl is not None and getattr(attn_impl, "paged", False):
+            o, k_upd, v_upd = attn_impl(q, k_upd, v_upd, pages_k=kp,
+                                        pages_v=vp, block_table=bt,
+                                        lengths=lengths)
+        else:
+            o = paged_decode_attention(q, k_upd, v_upd, kp, vp, bt, lengths)
+        return _out_proj(o, p["wo"], part), {"k_upd": k_upd, "v_upd": v_upd}
 
     if cache is not None:
         ck, cv = cache["k"], cache["v"]

@@ -152,6 +152,29 @@ def to_reference(params) -> Dict:
                                for p in range(period)}}
 
 
+def pages_from_reference(cfg: ModelConfig, pages_np: Dict, *, device=None,
+                         kv_heads=None) -> Dict:
+    """The port's page pools (``{'layers': [per layer {'k_pages',
+    'v_pages'}]}``) from the reference's ``init_paged_cache`` layout, whose
+    ``layers/p{i % period}`` leaves stack ``(n_super, P, ps, KV, hd)``:
+    layer ``i`` takes index ``i // period``. ``kv_heads`` (start, count)
+    keeps that slice of the KV heads, a rank's pool
+    (:func:`repro_torch.models.kvcache.pool_heads`). A copy."""
+    dev = resolve_device(device)
+    period = transformer.period_of(cfg)
+
+    def pool(a):
+        a = np.asarray(a)
+        if kv_heads is not None:
+            a = a[:, :, kv_heads[0]:kv_heads[0] + kv_heads[1]]
+        return torch.from_numpy(np.array(a, copy=True)).to(dev)
+
+    return {"layers": [
+        {k: pool(v[i // period])
+         for k, v in pages_np["layers"][f"p{i % period}"].items()}
+        for i in range(cfg.num_layers)]}
+
+
 def _stack(trees):
     first = trees[0]
     if isinstance(first, dict):

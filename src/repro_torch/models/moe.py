@@ -303,11 +303,14 @@ def expert_shard(p: dict, mesh, axis: str = "x") -> dict:
 
 def _explicit_body(p: dict, cfg: ModelConfig, x: torch.Tensor, *, axis: str,
                    engine: CollectiveEngine, schedule: Optional[str] = None,
-                   nchunks=1) -> torch.Tensor:
+                   nchunks=1, dispatch_callsite: str = DISPATCH_CALLSITE,
+                   combine_callsite: str = COMBINE_CALLSITE) -> torch.Tensor:
     """The per-rank MoE layer. ``x`` is the local batch shard (B_loc, S, D);
     ``p`` holds the local experts (:func:`expert_shard`). Routing uses
     global expert ids, so the exchanges and the capacity bookkeeping match
-    :func:`apply_moe` exactly."""
+    :func:`apply_moe` exactly. The two exchanges carry
+    ``dispatch_callsite`` / ``combine_callsite`` (the serving decode tags
+    both ``decode.moe``)."""
     E, K = cfg.num_experts, cfg.num_experts_per_tok
     B_loc, S, D = x.shape
     C = _capacity(cfg, S)
@@ -316,8 +319,8 @@ def _explicit_body(p: dict, cfg: ModelConfig, x: torch.Tensor, *, axis: str,
     e_idx, c_idx, keep, _ = _dispatch_indices(ids, E, C)
     buf = _scatter_dispatch(_tokens(x, K).to(dtype), e_idx, c_idx, E, C)
     buf = exchange_dispatch(buf.contiguous(), axis, engine,
-                            schedule=schedule,
-                            nchunks=nchunks)  # (B, E_loc, C, D)
+                            schedule=schedule, nchunks=nchunks,
+                            callsite=dispatch_callsite)  # (B, E_loc, C, D)
     y = _expert_ffn(p, buf, dtype).contiguous()
     del buf
     w_buf = _combine_weights(probs, keep, e_idx, c_idx, E, C)
@@ -327,7 +330,8 @@ def _explicit_body(p: dict, cfg: ModelConfig, x: torch.Tensor, *, axis: str,
         return strip.float() * w_buf.narrow(2, start, strip.shape[2])[..., None]
 
     y_w = exchange_combine(y, axis, engine, schedule=schedule,
-                           nchunks=nchunks, consume=weigh)
+                           nchunks=nchunks, consume=weigh,
+                           callsite=combine_callsite)
     out = _combine_scatter(y_w, e_idx, c_idx, keep, S, K).to(dtype)
     if cfg.shared_expert:
         out = out + _shared_expert(p["shared"], x, dtype)
@@ -336,7 +340,9 @@ def _explicit_body(p: dict, cfg: ModelConfig, x: torch.Tensor, *, axis: str,
 
 def make_apply_moe_explicit(cfg: ModelConfig, mesh, *, axis: str = "x",
                             engine: Optional[CollectiveEngine] = None,
-                            schedule: Optional[str] = None, nchunks=1):
+                            schedule: Optional[str] = None, nchunks=1,
+                            dispatch_callsite: str = DISPATCH_CALLSITE,
+                            combine_callsite: str = COMBINE_CALLSITE):
     """``(p_local, x_local) -> (B_loc, S, D)``: the expert-parallel MoE
     layer on this rank, its exchanges through the collective engine.
 
@@ -349,20 +355,23 @@ def make_apply_moe_explicit(cfg: ModelConfig, mesh, *, axis: str = "x",
     weighted per landed capacity strip. Routing, drops and the combine's
     order of additions are :func:`apply_moe`'s, so each rank's rows equal
     the single-process layer's for every ``all_to_all_tiles`` schedule and
-    chunk count."""
+    chunk count. ``dispatch_callsite`` / ``combine_callsite`` retag the
+    two exchanges (reference ``make_moe_impl``)."""
     _check_divides(cfg.num_experts, mesh.axis(axis).size, axis)
     engine = engine or CollectiveEngine.for_mesh(mesh, schedule="auto")
 
     def apply(p, x):
         return _explicit_body(p, cfg, x, axis=axis, engine=engine,
-                              schedule=schedule, nchunks=nchunks)
+                              schedule=schedule, nchunks=nchunks,
+                              dispatch_callsite=dispatch_callsite,
+                              combine_callsite=combine_callsite)
 
     return apply
 
 
 # the bare per-rank body, for a whole model whose expert shards ride the
 # parameter tree (the whole-model explicit step, and the explicit decode
-# step of ROADMAP A13); its exchanges are differentiable, so it trains
+# step under decode.moe); its exchanges are differentiable, so it trains
 make_moe_impl = make_apply_moe_explicit
 
 

@@ -1,7 +1,8 @@
 """Engine-routed attention exchanges for the explicit whole-model path.
 
 Port of ``repro/models/parallel.py`` (``ATTN_MODES``, ``make_tp_attention``
-:60-88, ``make_sp_attention`` :142-226, ``make_attn_impl`` :229-239). Inside
+:60-88, ``make_paged_decode_attention`` :91-139, ``make_sp_attention``
+:142-226, ``make_attn_impl`` :229-239). Inside
 the whole-model step (:func:`repro_torch.train.step.
 make_whole_model_train_step_explicit`) every rank of a
 :class:`~repro_torch.launch.mesh.ProcessMesh` axis holds its rows of the
@@ -42,10 +43,12 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.comm.callsites import SP_KV, SP_OUT, SP_QKV, TP_OUT, TP_QKV
+from repro_torch.comm.callsites import (DECODE_OUT, DECODE_QKV, SP_KV, SP_OUT,
+                                        SP_QKV, TP_OUT, TP_QKV)
 from repro_torch.comm.engine import CollectiveEngine, schedules_for
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import _gqa_out, _gqa_scores, attention
+from repro_torch.models.layers import (_gqa_out, _gqa_scores, attention,
+                                       paged_decode_attention)
 
 ATTN_MODES = ("tp", "sp")
 
@@ -80,6 +83,55 @@ def make_tp_attention(cfg: ModelConfig, mesh, *, axis: str = "x",
         return engine.all_to_all_tiles(o, axis, split_axis=0, concat_axis=2,
                                        schedule=schedule, callsite=TP_OUT)
 
+    return attn_impl
+
+
+def make_paged_decode_attention(cfg: ModelConfig, mesh, *, axis: str = "x",
+                                engine: Optional[CollectiveEngine] = None,
+                                schedule: Optional[str] = None) -> Callable:
+    """Head-parallel paged-decode hook for the explicit serving path
+    (reference ``:91-139``).
+
+    Per-token exchanges are tiny, the latency band of the alpha-beta
+    model, so they carry their own ``decode.*`` tags and resolve apart
+    from the training-sized ``tp.*`` entries. The layout mirrors
+    :func:`make_tp_attention`: q and the token's k/v go from (B_loc, 1,
+    heads, hd) to (B, 1, heads_loc, hd) (three exchanges under
+    ``decode.qkv``), the rank-local page pool (its KV heads, split over
+    ``axis``) is gathered for the whole batch and the new token written at
+    ``lengths[b]`` with the reference's drop rule, the plain
+    :func:`~repro_torch.models.layers.decode_attention` runs on the whole
+    batch with the local heads, and the inverse exchange (``decode.out``)
+    restores the batch layout. Every wire hop is an engine call.
+
+    Returns the hook ``(q, k_upd, v_upd, *, pages_k, pages_v, block_table,
+    lengths) -> (o, k_full, v_full)`` with ``paged = True``:
+    ``block_table`` and ``lengths`` are the whole batch's, and the
+    exchanged whole-batch k/v go back to the layer loop, which scatters
+    them into the local pool."""
+    n = mesh.shape[axis]
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    if H % n or KV % n:
+        raise ValueError(
+            f"num_heads={H} and num_kv_heads={KV} must be divisible by the "
+            f"{axis!r} axis size {n} for the paged decode exchange")
+    engine = _engine_for(mesh, engine)
+
+    def attn_impl(q, k_upd, v_upd, *, pages_k, pages_v, block_table,
+                  lengths):
+        def gather_heads(t):  # (B_loc, 1, heads, hd) -> (B, 1, heads_loc, hd)
+            return engine.all_to_all_tiles(t.contiguous(), axis,
+                                           split_axis=2, concat_axis=0,
+                                           schedule=schedule,
+                                           callsite=DECODE_QKV)
+        qh, kh, vh = gather_heads(q), gather_heads(k_upd), gather_heads(v_upd)
+        o = paged_decode_attention(qh, kh, vh, pages_k, pages_v, block_table,
+                                   lengths)
+        o = engine.all_to_all_tiles(o, axis, split_axis=0, concat_axis=2,
+                                    schedule=schedule, callsite=DECODE_OUT)
+        return o, kh, vh
+
+    attn_impl.paged = True
     return attn_impl
 
 

@@ -48,8 +48,9 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.kvcache import (PagedCacheConfig, attn_cache_spec,
                                         local_cache_dims,
-                                        paged_attn_cache_spec, scatter_token,
-                                        ssm_cache_spec, token_slots)
+                                        paged_attn_cache_spec, pool_heads,
+                                        scatter_token, ssm_cache_spec,
+                                        token_slots)
 
 Shard = Callable[[torch.Tensor, str], torch.Tensor]
 
@@ -274,11 +275,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 
 def init_paged_cache(cfg: ModelConfig, pcfg: PagedCacheConfig,
-                     dtype=torch.bfloat16, device=None) -> Dict:
+                     dtype=torch.bfloat16, device=None, mesh=None,
+                     axis=None) -> Dict:
     """Page pools for every layer: ``{'layers': [{'k_pages', 'v_pages'}]}``
     and no ``'pos'``: the paged decode step supplies each slot's length as
     its position. Attention-only architectures (an SSM state is per slot
-    and recurrent, not paged), as in the reference."""
+    and recurrent, not paged), as in the reference.
+
+    With a ``mesh`` this rank's pool: every page, with the KV heads of
+    :func:`repro_torch.models.kvcache.pool_heads` (split over ``axis`` for
+    the explicit decode, the GSPMD placement's otherwise)."""
     check_supported(cfg)
     period_of(cfg)
     kinds = cfg.layer_kinds()
@@ -286,7 +292,8 @@ def init_paged_cache(cfg: ModelConfig, pcfg: PagedCacheConfig,
         raise ValueError(
             f"paged cache supports attention-only models; {cfg.name} has "
             f"layer kinds {sorted(set(kinds))}")
-    return {"layers": [paged_attn_cache_spec(cfg, pcfg, dtype, device)
+    kv = pool_heads(cfg, mesh, axis)[1] if mesh is not None else None
+    return {"layers": [paged_attn_cache_spec(cfg, pcfg, dtype, device, kv)
                        for _ in kinds]}
 
 

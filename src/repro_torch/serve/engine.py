@@ -1,8 +1,8 @@
 """Continuous-batching serving engine over the paged KV cache.
 
-Port of ``repro/serve/engine.py`` (``:54-310``) in its ``"gspmd"`` mode.
-One :class:`ServeEngine` owns the device state (page pools and a serving
-copy of the weights, cast once to the compute dtype), the host
+Port of ``repro/serve/engine.py`` (``:54-310``). One :class:`ServeEngine`
+owns the device state (page pools and a serving copy of the weights, cast
+once to the compute dtype), the host
 :class:`~repro_torch.serve.scheduler.Scheduler`, and the three steps of
 the serving loop:
 
@@ -13,9 +13,13 @@ the serving loop:
   into the request's reserved pages. The prefill has no mesh, so it never
   takes the flash kernel, as in the reference (ROADMAP C7);
 * **decode**: ONE batched step over all ``max_slots`` slots per loop
-  iteration (:func:`repro_torch.train.serve.make_paged_decode_step`),
-  inactive slots riding along: their logits are discarded and their cache
-  writes drop on the sentinel block-table rows;
+  iteration, inactive slots riding along: their logits are discarded and
+  their cache writes drop on the sentinel block-table rows. Either the
+  GSPMD program (:func:`repro_torch.train.serve.make_paged_decode_step`)
+  or the engine-routed explicit tensor-parallel one
+  (:func:`repro_torch.train.serve.make_decode_step_explicit`, ``mode=
+  "explicit"``), whose per-token collectives carry the ``decode.*``
+  callsite tags;
 * **sampling**: on the host (numpy), greedy or temperature, so the
   scheduler can branch on EOS without another device round trip.
 
@@ -32,10 +36,19 @@ on surviving pages: the zero-loss contract of page-pool preemption,
 triggered by rank death. A schedule's ``serve.step`` host delay lands
 inside the timed decode window.
 
-``mode="explicit"`` (the engine-routed tensor-parallel decode) keeps the
-reference's validation, then raises: it needs the GSPMD placement on
-several ranks (the rest of ROADMAP A12's second half) and the explicit
-decode step (A13).
+On a mesh of several ranks the port runs SPMD: every rank runs the same
+engine, its scheduler and :class:`PageAllocator` taking the same
+decisions. The prefill stays the one-device dense step on a batch of one
+with no mesh, so every rank holds the whole weights once (the decode
+takes views of them, never a second copy), and each rank commits its part
+of the prefill cache into its pool: its share of the KV heads for every
+slot in explicit mode (the heads split over ``axis``), the KV heads of its
+placement for its own rows in GSPMD mode. Before sampling the decode's
+last-token logits, each rank's rows, are gathered over the batch axes
+into ``(max_slots, V)`` on every rank through the collective engine's
+``all_gather`` (its staged bytes counted under :data:`LOGITS_CALLSITE`),
+so host sampling with the same ``seed`` draws the same tokens everywhere
+and the streams are the one-rank engine's.
 """
 from __future__ import annotations
 
@@ -45,14 +58,23 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import partition as P
+from repro_torch import sharding as sh
 from repro_torch.models import transformer as T
 from repro_torch.models.kvcache import (OutOfPagesError, PagedCacheConfig,
-                                        PageAllocator, commit_prefill)
+                                        PageAllocator, commit_prefill,
+                                        pool_heads)
 from repro_torch.models.model import Model
 from repro_torch.serve.scheduler import Request, Scheduler
-from repro_torch.train.serve import make_paged_decode_step, make_prefill_step
+from repro_torch.train.serve import (decode_rows, local_params,
+                                     make_decode_step_explicit,
+                                     make_paged_decode_step,
+                                     make_prefill_step)
 
 SERVE_MODES = ("gspmd", "explicit")
+# the accounting label of the logits' gather before sampling on a mesh of
+# several ranks (staged_bytes_by_callsite)
+LOGITS_CALLSITE = "serve.logits"
 
 
 def _bucket(n: int, lo: int = 8, hi: Optional[int] = None) -> int:
@@ -72,14 +94,19 @@ def _bucket(n: int, lo: int = 8, hi: Optional[int] = None) -> int:
 
 class ServeEngine:
     """Continuous-batching server for one model + page-pool geometry.
-    ``dtype`` is the page pool's and the prefill cache's."""
+    ``dtype`` is the page pool's and the prefill cache's. ``params`` are
+    the whole weights on every rank. ``engine``, ``schedule`` and
+    ``nchunks`` configure the explicit decode's exchanges (its engine
+    also gathers the logits), as in the reference."""
 
     def __init__(self, model: Model, params, pcfg: PagedCacheConfig, *,
                  mode: str = "gspmd", mesh=None, axis: str = "x",
+                 schedule: Optional[str] = None, nchunks=1,
                  prefill_token_budget: int = 512,
                  eos_id: Optional[int] = None, temperature: float = 0.0,
-                 seed: int = 0, dtype=torch.float32, preempt: bool = False,
-                 admission_retries: int = 256, fault_schedule=None):
+                 seed: int = 0, dtype=torch.float32, engine=None,
+                 preempt: bool = False, admission_retries: int = 256,
+                 fault_schedule=None):
         if mode not in SERVE_MODES:
             raise ValueError(f"unknown serve mode {mode!r}; modes: "
                              f"{SERVE_MODES}")
@@ -91,11 +118,6 @@ class ServeEngine:
                 raise ValueError(
                     f"max_slots={pcfg.max_slots} must be divisible by the "
                     f"{axis!r} axis size {n} for the explicit decode batch")
-            raise NotImplementedError(
-                "explicit serve mode (the engine-routed tensor-parallel "
-                "decode) needs the GSPMD placement on several ranks, the "
-                "rest of ROADMAP A12's second half, and "
-                "make_decode_step_explicit, ROADMAP A13")
         self.model = model
         self.params = T.cast_params(params, T.dtype_of(model.cfg.dtype))
         self.device = params.embed.device
@@ -110,19 +132,48 @@ class ServeEngine:
         self.admission_retries = admission_retries
         self._fault_schedule = fault_schedule
         self._steps = 0
-        self._nranks = int(mesh.shape[axis]) if mesh is not None else 1
+        self._nranks = 1
+        if mesh is not None:
+            shape = dict(mesh.shape)
+            self._nranks = int(shape[axis]) if axis in shape \
+                else int(np.prod(list(shape.values())))
         self._drained_ranks: set = set()
 
         self.alloc = PageAllocator(pcfg)
         self.scheduler = Scheduler(self.alloc,
                                    prefill_token_budget=prefill_token_budget,
                                    preempt=preempt)
-        self.pages = T.init_paged_cache(model.cfg, pcfg, dtype, self.device)
         self._dtype = dtype
         self._last_tok = np.zeros((pcfg.max_slots,), np.int32)
 
         self._prefill = make_prefill_step(model, None)
-        self._decode = make_paged_decode_step(model, mesh)
+        # this rank's rows of the slot batch, the KV heads of its pool, the
+        # weights its decode reads, and the axes its rows' logits gather
+        # over (None: every rank holds every row)
+        B = pcfg.max_slots
+        self._rows, self._kv, self._gather_axes = slice(0, B), None, None
+        self._decode_params = self.params
+        if mode == "explicit":
+            self._decode = make_decode_step_explicit(
+                model, mesh, axis=axis, engine=engine, schedule=schedule,
+                nchunks=nchunks)
+            self._rows = decode_rows(mesh, B, axis)
+            self._kv = pool_heads(model.cfg, mesh, axis)
+            self._gather_axes = axis
+            self._comm = self._decode.engine
+            self._decode_params = local_params(self.params, mesh, axis)
+        else:
+            self._decode = make_paged_decode_step(model, mesh)
+            if mesh is not None:
+                self._rows = decode_rows(mesh, B)
+                self._kv = pool_heads(model.cfg, mesh)
+                self._decode_params = local_params(self.params, mesh)
+                if self._rows.stop - self._rows.start < B:
+                    self._gather_axes = sh.rules_for(mesh).dp_spec
+                    self._comm = P.engine_for(mesh)
+        self.pages = T.init_paged_cache(
+            model.cfg, pcfg, dtype, self.device, mesh=mesh,
+            axis=axis if mode == "explicit" else None)
 
     # -- request API ------------------------------------------------------
 
@@ -184,9 +235,13 @@ class ServeEngine:
         logits, cache = self._prefill(
             self.params, {"tokens": torch.from_numpy(toks).to(self.device)},
             cache)
-        commit_prefill(self.pages["layers"], cache["layers"],
-                       self.alloc.block_table[req.slot], S0,
-                       page_size=self.pcfg.page_size)
+        if self.mode == "explicit" or \
+                self._rows.start <= req.slot < self._rows.stop:
+            # every slot's KV share in explicit mode; only its own rows'
+            # pages in GSPMD mode
+            commit_prefill(self.pages["layers"], cache["layers"],
+                           self.alloc.block_table[req.slot], S0,
+                           page_size=self.pcfg.page_size, kv_heads=self._kv)
         self.alloc.commit(req.slot, S0)
         self._advance(req, self._sample(_host(logits[0, S0 - 1])))
 
@@ -263,12 +318,7 @@ class ServeEngine:
                 # the injected host delay lands inside the timed decode
                 # window: tok/s during the fault degrades accordingly
                 self._fault_schedule.injector.sleep("serve.step")
-            bt, lengths = self.alloc.device_tables(self.device)
-            tokens = torch.from_numpy(self._last_tok[:, None].copy()).to(
-                self.device)
-            logits, self.pages = self._decode(self.params, tokens,
-                                              self.pages, bt, lengths)
-            rows = _host(logits[:, 0])  # sync: (max_slots, V)
+            rows = _host(self._decode_step())  # sync: (max_slots, V)
             decode_s = time.perf_counter() - t0
             for slot, req in list(self.scheduler.active.items()):
                 self.alloc.append(slot)
@@ -281,6 +331,28 @@ class ServeEngine:
                 "prefill_s": prefill_s, "decode_s": decode_s,
                 "preempted": preempted, "timeouts": len(expired),
                 "rejected": rejected, "drained": drained}
+
+    def _decode_step(self) -> torch.Tensor:
+        """One decode over every slot: this rank's rows through the decode
+        step, then every rank's last-token logits gathered into
+        (max_slots, V)."""
+        bt, lengths = self.alloc.device_tables(self.device)
+        tokens = torch.from_numpy(self._last_tok[:, None].copy()).to(
+            self.device)
+        mine = self._rows
+        if self.mode == "explicit":
+            logits, self.pages = self._decode(
+                self._decode_params, tokens[mine], self.pages, bt, lengths)
+        else:
+            logits, self.pages = self._decode(
+                self._decode_params, tokens[mine], self.pages, bt[mine],
+                lengths[mine])
+        last = logits[:, 0]
+        if self._gather_axes is None:
+            return last
+        return torch.cat(self._comm.all_gather(
+            last.contiguous(), self._gather_axes,
+            callsite=LOGITS_CALLSITE), dim=0)
 
     def run(self, requests=None, *, max_new_tokens: int = 16,
             collect_stats: bool = False):

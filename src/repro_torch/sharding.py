@@ -356,9 +356,12 @@ def block_of(mesh, entry) -> Tuple[int, int]:
     return idx, n
 
 
-def cut_leaf(t: torch.Tensor, spec: LeafSpec, mesh) -> torch.Tensor:
-    """This rank's contiguous block of ``t`` under ``spec`` (a copy where
-    anything is cut, so that the whole leaf can be freed)."""
+def cut_leaf(t: torch.Tensor, spec: LeafSpec, mesh, *,
+             copy: bool = True) -> torch.Tensor:
+    """This rank's contiguous block of ``t`` under ``spec``: a copy where
+    anything is cut, so that the whole leaf can be freed, or with
+    ``copy=False`` a view of ``t`` (a serving engine that keeps the whole
+    weights cuts them so, holding no second copy)."""
     for dim, entry in enumerate(spec):
         if entry is None:
             continue
@@ -367,13 +370,17 @@ def cut_leaf(t: torch.Tensor, spec: LeafSpec, mesh) -> torch.Tensor:
             raise ValueError(f"dimension {dim} of size {t.shape[dim]} does "
                              f"not split over {entry!r} ({n} ranks)")
         size = t.shape[dim] // n
-        t = t.narrow(dim, idx * size, size).clone()
+        t = t.narrow(dim, idx * size, size)
+        if copy:
+            t = t.clone()
     return t
 
 
-def cut(tree, specs, mesh):
+def cut(tree, specs, mesh, *, copy: bool = True):
     """``tree`` with every leaf cut to this rank's block by its
-    :class:`LeafSpec` in ``specs`` (a tree of the same structure)."""
+    :class:`LeafSpec` in ``specs`` (a tree of the same structure); views
+    of the leaves with ``copy=False`` (:func:`cut_leaf`)."""
     leaves, struct = tree_flatten(tree)
     return tree_unflatten(struct, [
-        cut_leaf(t, s, mesh) for t, s in zip(leaves, tree_flatten(specs)[0])])
+        cut_leaf(t, s, mesh, copy=copy)
+        for t, s in zip(leaves, tree_flatten(specs)[0])])

@@ -3,9 +3,10 @@ layers' conv and state cache), the paged decode step, and batched
 generation.
 
 Port of ``repro/train/serve.py`` (``make_prefill_step`` :33,
-``make_decode_step`` :46, ``make_paged_decode_step`` :63-87, ``generate``
-:149-198): the reference's "batched requests" server, and the decode step
-of the continuous-batching engine (:mod:`repro_torch.serve`). With a
+``make_decode_step`` :46, ``make_paged_decode_step`` :63-87,
+``make_decode_step_explicit`` :90-146, ``generate`` :149-198): the
+reference's "batched requests" server, and the decode steps of the
+continuous-batching engine (:mod:`repro_torch.serve`). With a
 one-rank mesh (``launch/mesh.py::single_rank_mesh(("x",))``) the prefill
 takes the hand-written flash kernel (``ops.flash_attention``, one launch
 per self-attention layer of the decoder) for prompts of 128 tokens or
@@ -34,8 +35,19 @@ takes the whole weights and cuts them itself) and of the dense cache
 rows: the vocab-split logits are gathered over ``tp`` before sampling,
 and prefill runs the flash kernel on this rank's heads. ``generate``
 also runs a batch that the dp axes do not divide, whole on every rank,
-with the plain attention in prefill, as the reference does. The paged decode on such a mesh, like the explicit
-tensor-parallel decode (``make_decode_step_explicit``), waits for A13.
+with the plain attention in prefill, as the reference does.
+
+The paged decode steps back the continuous-batching engine (reference
+``:63-146``): :func:`make_paged_decode_step` is the GSPMD program, on one
+rank or on such a mesh (each rank its :func:`decode_rows` of the slot
+batch, its weights (:func:`local_params`) and its pool's KV heads), and
+:func:`make_decode_step_explicit` runs the same token forward with every
+wire hop an engine call: head-parallel attention under ``decode.qkv`` /
+``decode.out`` and the MoE dispatch and combine under ``decode.moe``
+(:mod:`repro_torch.comm.callsites`). Per-token payloads are tiny, so these
+callsites resolve in the latency band of the cost model, apart from the
+training-sized ``tp.*`` / ``moe.*`` entries. Neither takes the flash
+kernel.
 """
 from __future__ import annotations
 
@@ -88,6 +100,47 @@ def make_decode_step(model: Model, mesh=None) -> Callable:
     return decode
 
 
+def decode_rows(mesh, batch: int, axis=None) -> slice:
+    """This rank's rows of a decode batch of ``batch`` slots: its block
+    of ``axis`` for the explicit decode (which needs ``axis`` to divide
+    ``batch``); for the GSPMD decode its ``batch_specs`` block over the dp
+    axes, or every row where they do not divide ``batch`` (the whole batch
+    on every rank, as ``generate`` runs it). All rows without a mesh."""
+    if mesh is None:
+        return slice(0, batch)
+    if axis is not None:
+        ax = mesh.axis(axis)
+        if batch % ax.size:
+            raise ValueError(
+                f"a decode batch of {batch} slots does not split over the "
+                f"{axis!r} axis of {ax.size} ranks")
+        b = batch // ax.size
+        return slice(ax.index * b, (ax.index + 1) * b)
+    rules = sh.rules_for(mesh)
+    if sh._maybe(batch, rules.dp_spec, mesh) is None:
+        return slice(0, batch)
+    idx, n = sh.block_of(mesh, rules.dp_spec)
+    b = batch // n
+    return slice(idx * b, (idx + 1) * b)
+
+
+def local_params(params, mesh, axis=None):
+    """Views of this rank's part of the whole weights ``params``, no
+    copy: :func:`repro_torch.train.step.whole_model_param_specs` over
+    ``axis`` (the explicit decode: the experts split, the rest whole) or
+    :func:`repro_torch.sharding.param_specs` (the GSPMD placement).
+    ``params`` itself on a one-rank mesh."""
+    if axis is not None:
+        from repro_torch.train.step import whole_model_param_specs
+        specs = whole_model_param_specs(params, axis)
+    else:
+        if P.placement(_shard_fn(mesh)) is None:
+            return params
+        specs = sh.param_specs(params, sh.rules_for(mesh), mesh)
+    return type(params)(params.cfg, sh.cut(params.tree(), specs, mesh,
+                                           copy=False))
+
+
 def make_paged_decode_step(model: Model, mesh=None) -> Callable:
     """``(params, tokens (B, 1), pages, block_table, lengths) -> (logits
     (B, 1, V), pages)``.
@@ -98,13 +151,17 @@ def make_paged_decode_step(model: Model, mesh=None) -> Callable:
     :class:`~repro_torch.models.kvcache.PageAllocator`. Row b attends to
     its pages' positions ``<= lengths[b]`` (the new token is written at
     ``lengths[b]``); rows with a sentinel block-table row are inactive:
-    their logits are garbage and their cache writes drop. A mesh of
-    several ranks raises ``NotImplementedError`` (ROADMAP A13)."""
+    their logits are garbage and their cache writes drop.
+
+    On a mesh of several ranks every rank calls it with its part:
+    ``params`` from :func:`local_params`, the rows :func:`decode_rows`
+    names of ``tokens``, ``block_table`` and ``lengths``, and its pool
+    (``init_paged_cache(..., mesh=mesh)``), which only those rows write
+    and read. With a ``tp`` axis wider than 1 the heads split as in
+    prefill and the pool holds this rank's KV heads; the logits come back
+    whole for the rank's rows, gathered over ``tp``."""
     shard = _shard_fn(mesh)
-    if P.placement(shard) is not None:
-        raise NotImplementedError(
-            "the paged decode on a mesh of several ranks waits for the "
-            "explicit half of serving (ROADMAP A13)")
+    transformer.check_tp(model.cfg, P.tp_of(shard))
 
     @torch.no_grad()
     def decode(params, tokens, pages, block_table, lengths):
@@ -115,6 +172,66 @@ def make_paged_decode_step(model: Model, mesh=None) -> Callable:
             page_table=page_table)
         return logits, {"layers": new_cache["layers"]}
 
+    return decode
+
+
+def make_decode_step_explicit(model: Model, mesh, *, axis: str = "x",
+                              engine=None, schedule: Optional[str] = None,
+                              nchunks=1) -> Callable:
+    """Engine-routed paged decode (reference ``:90-146``), run by every
+    rank of ``mesh``'s ``axis``: ``(params, tokens (B/n, 1), pages,
+    block_table (B, pmax), lengths (B,)) -> (logits (B/n, 1, V), pages)``.
+
+    ``params`` are this rank's part of the weights, as the GSPMD step
+    takes them: ``local_params(params, mesh, axis)`` (views of the whole
+    weights, no copy; each MoE layer's experts over ``axis``, the rest
+    whole) or the same cut made by the caller (a rank that cannot hold
+    every expert draws only its shard). ``tokens`` are this rank's rows
+    (:func:`decode_rows`), ``block_table`` and ``lengths`` the whole
+    batch's, and ``pages`` this rank's pool (``init_paged_cache(...,
+    mesh=mesh, axis=axis)``: every page, its share of the KV heads),
+    written in place. The residual
+    stream stays batch-split; per layer the hook of
+    :func:`~repro_torch.models.parallel.make_paged_decode_attention`
+    exchanges q and the token's k/v head-parallel (``decode.qkv``), runs
+    the plain decode attention against the local pool and restores the
+    layout (``decode.out``); MoE layers dispatch and combine under
+    ``decode.moe``. Requires the slot count, the heads, the KV heads and
+    the experts, where present, divisible by the axis size (the hooks
+    raise ``ValueError`` when built). Matches
+    :func:`make_paged_decode_step`'s logits and pages for every
+    registered ``all_to_all_tiles`` schedule."""
+    from repro_torch.comm.callsites import DECODE_MOE
+    from repro_torch.comm.engine import CollectiveEngine
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.parallel import make_paged_decode_attention
+
+    cfg = model.cfg
+    engine = engine or CollectiveEngine.for_mesh(mesh, schedule="auto")
+    attn_impl = make_paged_decode_attention(cfg, mesh, axis=axis,
+                                            engine=engine, schedule=schedule)
+    moe_impl = None
+    if cfg.has_moe:
+        moe_impl = MOE.make_moe_impl(cfg, mesh, axis=axis, engine=engine,
+                                     schedule=schedule, nchunks=nchunks,
+                                     dispatch_callsite=DECODE_MOE,
+                                     combine_callsite=DECODE_MOE)
+
+    @torch.no_grad()
+    def decode(params, tokens, pages, block_table, lengths):
+        rows = decode_rows(mesh, block_table.shape[0], axis)
+        if tokens.shape[0] != rows.stop - rows.start:
+            raise ValueError(
+                f"tokens hold {tokens.shape[0]} rows; this rank decodes "
+                f"rows {rows.start}:{rows.stop} of {block_table.shape[0]}")
+        cache = {"pos": lengths[rows], "layers": pages["layers"]}
+        page_table = {"block_table": block_table, "lengths": lengths}
+        logits, new_cache, _ = model.apply(
+            params, {"tokens": tokens}, cache=cache, page_table=page_table,
+            attn_impl=attn_impl, moe_impl=moe_impl)
+        return logits, {"layers": new_cache["layers"]}
+
+    decode.engine = engine
     return decode
 
 

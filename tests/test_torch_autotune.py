@@ -550,7 +550,7 @@ def _full_record(sizes):
     record = {}
     for op in autotune.MEASURED_OPS:
         names = autotune.exact_schedules(op)
-        for S in sizes:
+        for S in autotune.op_sizes(op, sizes):
             record[f"{op}/sig/{S}"] = {
                 "winner": names[0], "failed": {},
                 "times_s": {n: 1e-3 * (i + 1) for i, n in enumerate(names)}}

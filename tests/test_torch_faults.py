@@ -809,7 +809,7 @@ def test_hook_adds_measured_extra_time_in_reference_order(monkeypatch):
         names = [s for s in jengine.schedules_for(base)
                  if s not in jautotune.LOSSY_SCHEDULES]
         assert names == autotune.exact_schedules(op)
-        for S in sizes:
+        for S in autotune.op_sizes(op, sizes):
             key = f"{op}/{autotune.axis_signature(_axes(port, spec[:1] if '@' in op else spec))}/{S}"
             got, base_t = rec[key]["times_s"], clean_rec[key]["times_s"]
             for name in names:
@@ -894,15 +894,18 @@ def test_run_registers_the_benchmarks():
         assert name in bench_run.MODULES and name in bench_run._SCHEDULED
     assert bench_run.ALIASES["failover"] == "failover_bench"
     assert bench_run.ALIASES["resilience"] == "resilience_bench"
-    # the rank-loss section came with train_loop_elastic
-    assert set(failover_bench.NOT_PORTED) == {"serve_rank_loss"}
+    # the rank-loss section came with train_loop_elastic, the serve rank
+    # loss with the paged decode on a mesh: every section is ported
+    assert failover_bench.NOT_PORTED == {}
     assert callable(failover_bench.rank_loss_section)
+    assert callable(failover_bench.serve_rank_loss_section)
     # the train-degradation section came with the training loop: every
     # section of the reference's resilience_bench is ported
     assert not hasattr(resilience_bench, "NOT_PORTED")
     assert callable(resilience_bench.train_degradation_section)
-    assert "A12" in failover_bench.NOT_PORTED["serve_rank_loss"]
-    assert "A13" in failover_bench.NOT_PORTED["serve_rank_loss"]
+    assert "serve_bench" in bench_run.MODULES
+    assert "serve_bench" in bench_run._SCHEDULED
+    assert bench_run.ALIASES["serve"] == "serve_bench"
 
 
 def test_benchmarks_without_card_raise(monkeypatch):

@@ -481,11 +481,8 @@ def test_one_rank_explicit_path_is_the_layer():
 
 
 def test_paired_aliases_are_the_references_moe_entry():
-    # every paired pattern the port measures is the reference's; the
-    # decode pattern comes with the explicit decode step (ROADMAP A13)
-    assert autotune.PAIRED_ALIASES == {
-        k: v for k, v in jautotune.PAIRED_ALIASES.items()
-        if "@decode." not in k}
+    # every paired pattern of the reference, the decode one too
+    assert autotune.PAIRED_ALIASES == jautotune.PAIRED_ALIASES
     assert autotune.PAIRED_ALIASES["all_to_all_tiles@moe.dispatch"] == \
         jautotune.PAIRED_ALIASES["all_to_all_tiles@moe.dispatch"]
     assert "all_to_all_tiles@moe.dispatch" in autotune.MEASURED_OPS

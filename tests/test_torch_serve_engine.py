@@ -154,8 +154,10 @@ def test_serve_engine_mode_validation(setup):
 
 
 def test_serve_engine_explicit_mode_raises_naming_a12_a13(setup):
-    """The reference's validation first (slots divisible by the axis),
-    then the explicit decode is refused: it waits for A12 and A13."""
+    """The reference's validation first (slots divisible by the axis);
+    past it the explicit engine builds (the name is kept from when it
+    raised naming A12 and A13) and, on a one-rank axis, serves the GSPMD
+    engine's streams token for token."""
     cfg, model, params, _, _ = setup
     pcfg = PagedCacheConfig(page_size=4, num_pages=8, max_slots=3,
                             max_seq=16)
@@ -165,9 +167,16 @@ def test_serve_engine_explicit_mode_raises_naming_a12_a13(setup):
 
     with pytest.raises(ValueError, match="divisible"):
         ServeEngine(model, params, pcfg, mode="explicit", mesh=Wide())
-    with pytest.raises(NotImplementedError, match="A12.*A13"):
-        ServeEngine(model, params, pcfg, mode="explicit",
-                    mesh=single_rank_mesh(("x",)))
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, size=(n,)).astype(np.int32)
+               for n in (3, 5, 4)]
+    want = ServeEngine(model, params, pcfg).run(prompts, max_new_tokens=4)
+    got = ServeEngine(model, params, pcfg, mode="explicit",
+                      mesh=single_rank_mesh(("x",))).run(prompts,
+                                                         max_new_tokens=4)
+    assert set(got) == set(want)
+    for rid in want:
+        np.testing.assert_array_equal(got[rid], want[rid])
 
 
 @pytest.mark.parametrize("n,hi", [(5, None), (12, 16), (12, 20), (17, 20),
