@@ -333,6 +333,24 @@ Phases, one JSON line each:
                leg. Then ``failover_bench``'s serve rank loss with its
                gate (GSPMD engine on a ring of four, rank 3 lost at step
                3: token-identical, 0 lost, >= 1 drained).
+27. launch   — the entry points a user starts, each a process of its own
+               on the card: ``python -m repro_torch.launch.train`` with
+               LAUNCH_ARGS (llama3.2-3b at full size, phase train's
+               geometry, 3 steps): losses finite and falling, the
+               parameter count LAUNCH_PARAMS, no kernel launched, and its
+               losses within LAUNCH_LOSS_RTOL of a direct ``train_loop`` on
+               configs written out from the flags by hand, while a run at
+               twice the rate lies outside that limit (the gate can fail);
+               median step, tokens/s, peak memory and MFU against the bf16
+               peak. Then ``examples.hpcc_suite`` (every row's gate; each
+               row's kernel launches equal to what its sizes imply, the
+               sums printed on the ``kernels`` line as
+               ``launches_hpcc_suite``), ``quickstart``, ``serve_lm`` twice
+               (the same greedy tokens) and ``train_lm`` for
+               LAUNCH_TRAIN_LM_STEPS steps, side by side; and from the
+               phase's start ``launch.dryrun`` of LAUNCH_DRYRUN (status
+               ok, fits 80 GB, its record on a line; counts, not
+               measurements).
 
 Each main-path phase zeroes the launch counts just before it runs and reads
 them just after (the allreduce, dp, whole, gspmd and serve_mesh phases in
@@ -517,6 +535,23 @@ SERVE_MESH_DIMS = (SERVE_MESH_LAYERS, None, SERVE_MESH_SLOTS, ENGINE_PROMPT,
 # paged-vs-dense witness on the card reached 6.56e-5; a head or row on the
 # wrong rank moves the logits by O(1)
 SERVE_MESH_ATOL = 1e-4
+# phase launch: the training launcher at phase train's full-size geometry,
+# the examples, one dry-run cell; subprocesses of the repository's own
+# entry points
+LAUNCH_STEPS, LAUNCH_LR = 3, 1e-3     # --steps 3, the launcher's --lr default
+LAUNCH_ARGS = ("--arch", TRAIN_ARCH, "--full", "--batch", str(TRAIN_B),
+               "--seq", str(TRAIN_S), "--remat", "full", "--steps",
+               str(LAUNCH_STEPS))
+LAUNCH_PARAMS = 3_212_835_840          # llama3.2-3b's param_count()
+# the launcher's losses against a direct train_loop on the flags' configs:
+# the same program on the same card, so they agree to cuBLAS's run-to-run
+# rounding; a run whose learning rate is the flags' doubled differs by
+# far more at the last step, which the phase checks the limit rejects
+LAUNCH_LOSS_RTOL = 1e-4
+LAUNCH_TRAIN_LM_STEPS = 20
+LAUNCH_DRYRUN = ("--arch", TRAIN_ARCH, "--shape", "train_4k", "--mesh",
+                 "single")
+LAUNCH_TIMEOUT = 600.0
 # fp32 prefill, flash vs plain attention: both are fp32 throughout and
 # differ only in the order of the attention's sums (a few ulps per layer),
 # on logits of rms about 1; one bf16 rounding anywhere moves them by ~1e-2
@@ -3253,7 +3288,9 @@ def train_phase(torch, card: str):
     VJP). Then the reduced fp32 step on the card against the CPU, and
     ``resilience_bench``'s train-degradation section with its gate."""
     from repro_torch.benchmarks import resilience_bench
+    from repro_torch.configs import get_config
     from repro_torch.kernels import ops
+    from repro_torch.roofline import H100_BF16_PEAK_FLOPS, model_flops_for
 
     t0 = time.perf_counter()
     tf32 = torch.backends.cuda.matmul.allow_tf32
@@ -3287,6 +3324,9 @@ def train_phase(torch, card: str):
     check(not bad, f"train-degradation gate: {bad}")
     tokens = TRAIN_B * TRAIN_S
     median_s = statistics.median(first["seconds"][1:])
+    # the step's share of the bf16 tensor-core peak: informational, no gate
+    mflops = model_flops_for(get_config(TRAIN_ARCH), "train", TRAIN_B,
+                             TRAIN_S)
     emit({"phase": "train", "arch": TRAIN_ARCH, "card": card,
           "params": first["params"], "batch": [TRAIN_B, TRAIN_S],
           "dtype": "bfloat16 compute, fp32 weights and moments",
@@ -3295,6 +3335,10 @@ def train_phase(torch, card: str):
           "lrs": first["lr"], "step_s": first["seconds"],
           "median_step_s_after_first": median_s,
           "tokens_per_s": tokens / median_s,
+          "model_flops": mflops,
+          "mfu": mflops / median_s / H100_BF16_PEAK_FLOPS,
+          "mfu_peak": "bf16 dense tensor-core peak, "
+                      f"{H100_BF16_PEAK_FLOPS:.4g} FLOP/s",
           "peak_memory_gb": first["peak"] / 1e9,
           "bitwise_repeat_steps": TRAIN_REPEAT,
           "determinism": "torch.use_deterministic_algorithms(True), "
@@ -4880,6 +4924,210 @@ def phase_serve_mesh(torch, card: str) -> int:
     return rec["launches"]
 
 
+def launch_env() -> dict:
+    import os
+
+    return dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+
+def launch_proc(args, out_dir: Path, name: str):
+    """``python -m <args>`` from the repository's root, its output into
+    ``out_dir/logs/name.log``."""
+    (out_dir / "logs").mkdir(exist_ok=True)
+    log = open(out_dir / "logs" / f"{name}.log", "w")
+    return subprocess.Popen([sys.executable, "-m", *args], cwd=ROOT,
+                            env=launch_env(), stdout=log,
+                            stderr=subprocess.STDOUT), log
+
+
+def launch_wait(procs, timeout: float) -> dict:
+    """Wait for every ``name -> (proc, log)`` of ``procs``; kill the ones
+    past ``timeout`` seconds. Each one's exit code and output."""
+    deadline = time.monotonic() + timeout
+    out = {}
+    try:
+        for name, (proc, log) in procs.items():
+            try:
+                rc = proc.wait(timeout=max(deadline - time.monotonic(), 1))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                rc = proc.wait()
+            log.close()
+            out[name] = (rc, Path(log.name).read_text())
+    finally:
+        for proc, log in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    return out
+
+
+def launch_direct(torch, lr: float) -> list:
+    """TRAIN_ARCH at full size, LAUNCH_STEPS steps of ``train_loop`` on the
+    card from configs written out from LAUNCH_ARGS by hand (not through
+    the launcher's parser): the losses."""
+    from repro_torch.configs import RunConfig, get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.train.loop import TrainLoopConfig, train_loop
+
+    cfg = get_config(TRAIN_ARCH)
+    run = RunConfig(comm_type="ici_direct", microbatches=1, remat="full",
+                    learning_rate=lr,
+                    warmup_steps=max(LAUNCH_STEPS // 10, 1),
+                    checkpoint_dir=None, checkpoint_every=50)
+    data = DataConfig(vocab_size=cfg.vocab_size, global_batch=TRAIN_B,
+                      seq_len=TRAIN_S)
+    hist = train_loop(cfg, run, data, TrainLoopConfig(steps=LAUNCH_STEPS),
+                      device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return hist["loss"]
+
+
+def rel_err(got, want) -> float:
+    return max(abs(a / b - 1) for a, b in zip(got, want))
+
+
+def phase_launch(torch, card: str) -> dict:
+    """The entry points a user starts the port through, each a process of
+    its own on the card: the training launcher at full size (gated
+    against a direct ``train_loop``), ``examples.hpcc_suite`` (every
+    row's gate, its kernels' launches equal to what its sizes imply),
+    ``quickstart``, ``serve_lm`` twice (the same greedy tokens),
+    ``train_lm``, and the dry run of one production cell, run alongside
+    the others from the start (its host time is the phase's longest).
+    Returns the hpcc_suite's launches by kernel."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.roofline import H100_BF16_PEAK_FLOPS, model_flops_for
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_launch_"))
+    dry = {"dryrun": launch_proc(("repro_torch.launch.dryrun",
+                                  *LAUNCH_DRYRUN, "--out",
+                                  str(tmp / "dryrun")), tmp, "dryrun")}
+    try:
+        # the launcher alone on the card: its step time is phase train's
+        got = launch_wait({"train": launch_proc(
+            ("repro_torch.launch.train", *LAUNCH_ARGS), tmp, "train")},
+            LAUNCH_TIMEOUT)
+        rc, text = got["train"]
+        check(rc == 0, f"launch.train exited with {rc}:\n{text[-3000:]}")
+        rec = json.loads(next(line[len("record: "):]
+                              for line in text.splitlines()
+                              if line.startswith("record: ")))
+        losses = rec["losses"]
+        check(len(losses) == LAUNCH_STEPS
+              and all(math.isfinite(x) for x in losses),
+              f"launch.train: losses {losses}")
+        check(losses[-1] < losses[0], f"launch.train: the last loss "
+              f"{losses[-1]} is not below the first {losses[0]}")
+        params = get_config(TRAIN_ARCH).param_count()
+        check(rec["params"] == params == LAUNCH_PARAMS,
+              f"launch.train trained {rec['params']} parameters; "
+              f"{TRAIN_ARCH} has {params}, expected {LAUNCH_PARAMS}")
+        check(all(v == 0 for v in rec["kernel_launches"].values()),
+              f"launch.train launched kernels: {rec['kernel_launches']}")
+        t_direct = time.perf_counter()
+        direct = launch_direct(torch, LAUNCH_LR)
+        doubled = launch_direct(torch, 2 * LAUNCH_LR)
+        t_direct = time.perf_counter() - t_direct
+        err, err_doubled = rel_err(losses, direct), rel_err(losses, doubled)
+        check(err <= LAUNCH_LOSS_RTOL,
+              f"launch.train's losses {losses} differ from a direct "
+              f"train_loop's {direct} by {err} > {LAUNCH_LOSS_RTOL}")
+        check(err_doubled > LAUNCH_LOSS_RTOL,
+              f"the limit {LAUNCH_LOSS_RTOL} does not reject a run at twice "
+              f"the learning rate: {doubled} vs {losses} ({err_doubled})")
+
+        # the examples share the card
+        ckpt = tmp / "train_lm"
+        examples = {
+            "hpcc_suite": ("repro_torch.examples.hpcc_suite",),
+            "quickstart": ("repro_torch.examples.quickstart",),
+            "serve_lm_1": ("repro_torch.examples.serve_lm",),
+            "serve_lm_2": ("repro_torch.examples.serve_lm",),
+            "train_lm": ("repro_torch.examples.train_lm", "--steps",
+                         str(LAUNCH_TRAIN_LM_STEPS), "--ckpt", str(ckpt))}
+        ran = launch_wait({k: launch_proc(v, tmp, k)
+                           for k, v in examples.items()}, LAUNCH_TIMEOUT)
+        for name, (rc, text) in ran.items():
+            check(rc == 0, f"{name} exited with {rc}:\n{text[-3000:]}")
+        suite = json.loads(next(line for line in
+                                ran["hpcc_suite"][1].splitlines()
+                                if line.startswith('{"hpcc_suite"')))
+        rows = suite["hpcc_suite"]
+        check(all(r["ok"] for r in rows),
+              f"hpcc_suite gates: {[r for r in rows if not r['ok']]}")
+        for r in rows:
+            exp = r["expected_launches"]
+            check(r["launches"] == exp and all(v > 0 for v in exp.values()),
+                  f"hpcc_suite {r['benchmark']}/{r['backend']} launched "
+                  f"{r['launches']}, its sizes imply {exp}")
+        hpcc = {k: sum(r["launches"].get(k, 0) for r in rows)
+                for k in ops.KERNELS}
+        for k in ops.KERNELS:
+            if k not in ("flash_attention", "ring_add_step"):
+                check(hpcc[k] > 0, f"hpcc_suite launched no {k}")
+        greedy = [[line for line in ran[k][1].splitlines()
+                   if line.startswith("  first row:")][0]
+                  for k in ("serve_lm_1", "serve_lm_2")]
+        check(greedy[0] == greedy[1],
+              f"serve_lm's greedy tokens differ between runs: {greedy}")
+
+        rc, text = launch_wait(dry, LAUNCH_TIMEOUT)["dryrun"]
+        check(rc == 0, f"launch.dryrun exited with {rc}:\n{text[-3000:]}")
+        cell = json.loads(next(line for line in text.splitlines()
+                               if line.startswith('{"arch"')))
+        check(cell["status"] == "ok" and cell["fits"],
+              f"dry run of {LAUNCH_DRYRUN}: status {cell['status']}, fits "
+              f"{cell.get('fits')}")
+    finally:
+        for proc, log in dry.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    mflops = model_flops_for(get_config(TRAIN_ARCH), "train", TRAIN_B,
+                             TRAIN_S)
+    step_s = rec["median_step_s_after_first"]
+    emit({"phase": "launch", "card": card,
+          "launcher": {"argv": " ".join(LAUNCH_ARGS),
+                       "params": rec["params"], "losses": losses,
+                       "step_s": rec["step_s"],
+                       "median_step_s_after_first": step_s,
+                       "tokens_per_s": TRAIN_B * TRAIN_S / step_s,
+                       "peak_memory_gb": rec["peak_memory_bytes"] / 1e9,
+                       "model_flops": mflops,
+                       "mfu_bf16": mflops / step_s / H100_BF16_PEAK_FLOPS,
+                       "direct_losses": direct,
+                       "loss_rel_err": err, "limit": LAUNCH_LOSS_RTOL,
+                       "doubled_lr_losses": doubled,
+                       "doubled_lr_rel_err": err_doubled,
+                       "direct_runs_s": t_direct,
+                       "wall_s": rec["wall_s"]},
+          "hpcc_suite": [{k: r[k] for k in ("benchmark", "backend",
+                                            "metric", "error", "gate",
+                                            "launches")} for r in rows],
+          "launches_hpcc_suite": hpcc,
+          "examples_ok": sorted(ran), "serve_lm_greedy_repeat": True,
+          "dryrun": {k: cell[k] for k in (
+              "arch", "shape", "mesh", "chips", "status", "fits",
+              "flops_per_device", "hbm_bytes_per_device",
+              "collective_wire_bytes", "peak_bytes_per_device",
+              "state_bytes_per_device", "dominant", "useful_ratio",
+              "compile_s", "links", "figures")},
+          "gates": "ok", "seconds": time.perf_counter() - t0})
+    return hpcc
+
+
 def main(argv=()) -> int:
     import torch
 
@@ -4934,6 +5182,7 @@ def main(argv=()) -> int:
     ring_all_ranks += whole_all_ranks
     gspmd_flash = phase_gspmd(torch, smi)
     serve_mesh_launches = phase_serve_mesh(torch, smi)
+    hpcc_launches = phase_launch(torch, smi)
 
     check(set(launches) == set(rows) == set(SOURCES),
           f"kernels {sorted(rows)} vs launches {sorted(launches)}")
@@ -4950,6 +5199,8 @@ def main(argv=()) -> int:
             entry["launches_gspmd_prefill_per_rank"] = gspmd_flash
         # phase serve_mesh's decode and engine legs, per rank (asserted 0)
         entry["launches_serve_mesh_per_rank"] = serve_mesh_launches[name]
+        # examples.hpcc_suite at its own sizes, one rank (phase launch)
+        entry["launches_hpcc_suite"] = hpcc_launches[name]
         entry.update(r)
         entry["kernel_ms"] = r["ms"]
         kernels.append(entry)

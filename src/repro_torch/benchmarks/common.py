@@ -1,7 +1,7 @@
 """Shared helpers of the port's benchmark scripts: tables, units, results.
 
-The port's own copy of ``benchmarks/common.py``'s ``table``, ``fmt_bw`` and
-``save_result``. Results go to ``results/bench/torch_<name>.json`` at the
+The port's own copy of ``benchmarks/common.py``'s ``table``, ``fmt_bw``,
+``fmt_bytes`` and ``save_result``. Results go to ``results/bench/torch_<name>.json`` at the
 root of the checkout.
 """
 from __future__ import annotations
@@ -37,3 +37,11 @@ def fmt_bw(b: float) -> str:
             return f"{b:.2f}{unit}"
         b /= 1000
     return f"{b:.2f}PB/s"
+
+
+def fmt_bytes(b: float) -> str:
+    for unit in ("B", "KiB", "MiB", "GiB", "TiB"):
+        if abs(b) < 1024:
+            return f"{b:.2f}{unit}"
+        b /= 1024
+    return f"{b:.2f}PiB"

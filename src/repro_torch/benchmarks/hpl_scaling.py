@@ -39,22 +39,33 @@ B = 64
 DEVICES = (1, 4, 9, 16, 25)
 
 
-def main(quick: bool = False, schedule=None, device=None) -> dict:
+def main(quick: bool = False, schedule=None, device=None,
+         pipeline=None) -> dict:
+    """``pipeline`` is the lookahead depth of a ``run.py
+    --sweep-schedules`` pass (reference ``:18-30``): an int, or ``"auto"``
+    for the cost model's; such a pass runs only the ICI_DIRECT lookahead
+    row at that depth, and skips the eager rows, the host-staged backend
+    and the extrapolation curve, which would re-measure the same work."""
     device = resolve_device(device)
     n_base = 1024 if quick else 16384
     curve_sizes = (256, 512, 1024) if quick else (2048, 4096, 8192, 16384)
+    pipeline_only = pipeline is not None
+    depth = "auto" if pipeline in (None, "auto") else int(pipeline)
     # HOST_STAGED forces `staged`: another explicit schedule would rerun
     # byte-identical host-staged configurations
-    comms = ((CT.ICI_DIRECT,) if schedule not in (None, "auto", "staged")
+    comms = ((CT.ICI_DIRECT,)
+             if pipeline_only or schedule not in (None, "auto", "staged")
              else (CT.ICI_DIRECT, CT.HOST_STAGED))
 
     print(f"== HPL scaling (paper Figs. 14/15), 1x1 grid on "
           f"{device_name(device)} ==")
     record = {"device": device_name(device)}
     rows, base = [], {}
-    for label in ("strong", "weak"):
+    # on the 1x1 grid weak scaling runs strong's n: a pipeline pass runs it
+    # once
+    for label in ("strong",) if pipeline_only else ("strong", "weak"):
         for ct in comms:
-            for lookahead in (False, "auto"):
+            for lookahead in (depth,) if pipeline_only else (False, depth):
                 eager = lookahead is False
                 res = run_hpl(single_rank_mesh(), ct, n=n_base, b=B,
                               schedule=schedule or "auto", reps=1,
@@ -64,7 +75,9 @@ def main(quick: bool = False, schedule=None, device=None) -> dict:
                 base.setdefault(key, res.metric)
                 d = res.details["lookahead_depth"]
                 rows.append([label, ct.value, "1x1", n_base,
-                             "eager" if eager else f"lookahead(d={d}, auto)",
+                             "eager" if eager else
+                             f"lookahead(d={d}"
+                             + (", auto)" if lookahead == "auto" else ")"),
                              f"{res.metric:.3f}",
                              f"{res.metric / base[key]:.2f}x",
                              f"{res.error:.2e}" if eager else "= eager"])
@@ -78,6 +91,9 @@ def main(quick: bool = False, schedule=None, device=None) -> dict:
                     "schedule_panel": res.details["schedule_panel"]}
     print(table(rows, ["scaling", "backend", "grid", "n", "mode", "GFLOP/s",
                        "speedup", "resid"]))
+    if pipeline_only:
+        save_result("hpl_scaling", record)
+        return record
 
     print("\n-- strong-scaling extrapolation from the single-device curve "
           "(paper Fig. 15 model) --")

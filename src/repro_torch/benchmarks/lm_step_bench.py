@@ -45,13 +45,19 @@ its per-rank payload (``tp.qkv``, ``tp.out``, ``sp.qkv``, ``sp.out``,
 bucket of the replicated leaves); exits 1 if any names an unregistered
 schedule. Writes ``results/bench/torch_lm_step_bench.json``.
 
-The reference's other sections are named under ``not_ported`` in the
-record (:data:`NOT_PORTED`).
+The production roofline (reference ``benchmarks/lm_step_bench.py:
+393-414``): per architecture, the three roofline terms of its
+``train_4k`` cell on the single pod, from the meta-device dry run's
+records in ``results/dryrun_torch/`` (:mod:`repro_torch.launch.dryrun`;
+counts, not measurements). Every section of the reference is ported
+(:data:`NOT_PORTED` is empty).
 """
 from __future__ import annotations
 
 import argparse
+import json
 import time
+from pathlib import Path
 
 import torch
 
@@ -68,10 +74,7 @@ B, S = 4, 64
 MOE_ARCH = "qwen3-moe-235b-a22b"
 RANKS = 4               # gloo processes of the whole-model section
 TIMEOUT = 300.0         # seconds its world may take
-NOT_PORTED = {
-    "production_roofline": "reads launch/dryrun.py's results, ROADMAP A14 "
-                           "(benchmarks/lm_step_bench.py:395-414)",
-}
+NOT_PORTED: dict = {}
 # callsite tag -> engine op, for the resolution gate
 GATE_OPS = {
     "moe.dispatch": "all_to_all_tiles", "moe.combine": "all_to_all_tiles",
@@ -409,6 +412,26 @@ def gate_resolved(section) -> list:
             if name == "auto" or name not in schedules_for(GATE_OPS[cs])]
 
 
+def production_roofline_section(archs, d=None) -> list:
+    """Per arch with an ``ok`` ``train_4k`` single-pod dry-run record in
+    ``d`` (default ``results/dryrun_torch``): its roofline terms."""
+    from repro_torch.launch.dryrun import RESULTS_DIR
+
+    d = Path(d) if d is not None else RESULTS_DIR
+    rows = []
+    for arch in archs:
+        path = d / f"{arch}__train_4k__single.json"
+        if not path.exists():
+            continue
+        rec = json.loads(path.read_text())
+        if rec.get("status") != "ok":
+            continue
+        rows.append({k: rec[k] for k in (
+            "arch", "compute_s", "memory_s", "collective_s", "dominant",
+            "useful_ratio", "chips")})
+    return rows
+
+
 def main(quick: bool = False, schedule=None, device=None) -> dict:
     device = resolve_device(device)
     archs = QUICK_ARCHS if quick else list_archs()
@@ -455,8 +478,18 @@ def main(quick: bool = False, schedule=None, device=None) -> dict:
         ["mode", "step", "loss", "|dloss|", "|dgnorm|", "max|dparam|"]))
     print("   resolved: " + " ".join(
         f"{cs}={name}" for cs, name in sorted(whole["resolved"].items())))
-    for name, why in NOT_PORTED.items():
-        print(f"-- {name}: not ported yet, {why} --")
+    # production roofline per arch (train_4k, single pod) from the dry run
+    prod = production_roofline_section(archs or list_archs())
+    record["production_roofline"] = prod
+    if prod:
+        print(f"\n-- production mesh (train_4k, {prod[0]['chips']} ranks) "
+              "roofline, dry-run counts --")
+        print(table([[r["arch"], f"{r['compute_s']:.3g}",
+                      f"{r['memory_s']:.3g}", f"{r['collective_s']:.3g}",
+                      r["dominant"], f"{r['useful_ratio']:.1%}"]
+                     for r in prod],
+                    ["arch", "compute_s", "memory_s", "coll_s", "dominant",
+                     "useful"]))
     save_result("lm_step_bench", record)
     bad = gate_resolved(whole) + gate_resolved(moe)
     if bad or not (whole["ranks_agree"] and moe["ranks_agree"]):

@@ -23,8 +23,12 @@ from repro_torch.launch.mesh import make_torus_mesh, single_rank_mesh, world
 
 
 def main(quick: bool = False, schedule=None, nchunks="auto",
-         device=None) -> dict:
+         device=None, pipeline=None) -> dict:
+    """``pipeline`` (a ``run.py --sweep-schedules`` pass's depth S, an int
+    or ``"auto"``) is the chunk count: it overrides ``nchunks``."""
     device = resolve_device(device)
+    if pipeline is not None:
+        nchunks = pipeline
     _, size = world()
     grids = [g for g in (1, 2, 3) if g == 1 or g * g == size]
     n_base = 256 if quick else 512

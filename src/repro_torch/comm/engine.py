@@ -29,6 +29,10 @@ copies what arrived back to the card, counting the bytes it copies
 (:func:`staged_bytes`). Only the bytes
 move: every schedule's arithmetic stays on the payload's device. On any
 other group (NCCL, one rank per card) device tensors move as they are.
+On an axis of a dry mesh (:func:`repro_torch.launch.mesh.dry_mesh`,
+whose axes carry :data:`repro_torch.comm.dry.DRY` in place of a group)
+each helper moves nothing: it returns meta tensors of its output shape
+and logs the op and its wire bytes (:mod:`repro_torch.comm.dry`).
 
 Every op of the reference is ported: ``bcast`` with ``chain``,
 ``native``, ``staged``, ``ring2d`` and ``chain_rooted``;
@@ -54,6 +58,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.comm import autotune
+from repro_torch.comm import dry as _dry
 from repro_torch.comm.compression import dequantize_ef, quantize_ef
 from repro_torch.comm.overlap import (DEFAULT_BUCKET_BYTES, pack_buckets,
                                       tree_flatten, tree_unflatten)
@@ -173,6 +178,11 @@ def _post(ax, sends, recvs):
     wait for all, and return the received tensors (shaped and typed as
     their templates, on their device). Per peer, sends and receives match
     in posting order."""
+    if _dry.is_dry(ax):
+        for t, _ in sends:
+            _dry.record("collective-permute", ax,
+                        t.numel() * t.element_size(), _CALLSITE[0])
+        return [_dry.meta_like(t) for t, _ in recvs]
     stage = _staged(ax, sends[0][0])
     bufs = [_to_host(t) if stage else t.contiguous() for t, _ in sends]
     got = [torch.empty(t.shape, dtype=t.dtype,
@@ -209,6 +219,10 @@ def _swap(x: torch.Tensor, ax, peer: int) -> torch.Tensor:
 
 def _all_gather(x: torch.Tensor, ax) -> list:
     """Every rank's ``x`` along ``ax``, in axis-index order."""
+    if _dry.is_dry(ax):
+        _dry.record("all-gather", ax, x.numel() * x.element_size(),
+                    _CALLSITE[0])
+        return [_dry.meta_like(x) for _ in range(ax.size)]
     stage = _staged(ax, x)
     buf = _to_host(x) if stage else x.contiguous()
     out = [torch.empty_like(buf) for _ in range(ax.size)]
@@ -222,6 +236,10 @@ def _all_to_all(tiles, ax) -> list:
     shape and dtype. One ``all_to_all_single`` over the stacked tiles:
     gloo has no list ``all_to_all`` before torch 2.13."""
     stacked = torch.stack(tiles)
+    if _dry.is_dry(ax):
+        _dry.record("all-to-all", ax,
+                    stacked.numel() * stacked.element_size(), _CALLSITE[0])
+        return list(_dry.meta_like(stacked).unbind(0))
     stage = _staged(ax, stacked)
     buf = _to_host(stacked) if stage else stacked
     out = torch.empty_like(buf)
@@ -233,6 +251,10 @@ def _all_to_all(tiles, ax) -> list:
 
 def _broadcast(x: torch.Tensor, ax, src: int) -> torch.Tensor:
     """Index ``src``'s ``x`` on every rank of ``ax``."""
+    if _dry.is_dry(ax):
+        _dry.record("collective-broadcast", ax,
+                    x.numel() * x.element_size(), _CALLSITE[0])
+        return _dry.meta_like(x)
     stage = _staged(ax, x)
     buf = _to_host(x) if stage else x.contiguous().clone()
     dist.broadcast(buf, src=ax.global_rank(src), group=ax.group)
@@ -242,6 +264,10 @@ def _broadcast(x: torch.Tensor, ax, src: int) -> torch.Tensor:
 def _all_reduce(x: torch.Tensor, ax) -> torch.Tensor:
     """The library's sum of ``x`` over ``ax`` (gloo sums on the host, NCCL
     on the cards)."""
+    if _dry.is_dry(ax):
+        _dry.record("all-reduce", ax, x.numel() * x.element_size(),
+                    _CALLSITE[0])
+        return _dry.meta_like(x)
     stage = _staged(ax, x)
     buf = _to_host(x) if stage else x.contiguous().clone()
     dist.all_reduce(buf, group=ax.group)

@@ -104,6 +104,8 @@ def fused_chunk_add(acc: torch.Tensor, recv: torch.Tensor,
     n = acc.numel()
     if n == 0:
         return torch.add(acc, recv, out=out)
+    if ops._meta(acc):
+        return ops.dry_ring_add_step(acc, out)
     if ops._on_card(acc):
         return ring_add_step(acc, recv, out=out)
     if n % LANES:

@@ -1,10 +1,12 @@
 """Process meshes: the port's stand-in for a JAX ``Mesh``.
 
-Port of ``repro/launch/mesh.py:36-42``. Where the reference names the axes of
-a device mesh and runs one program over it with ``shard_map``, the port runs
-one process per rank under ``torch.distributed`` and gives each process a
-:class:`ProcessMesh`: the named axes, each with its size, this rank's index
-on it and the process group of the ranks along it. Global rank ``g`` sits at
+Port of ``repro/launch/mesh.py`` (``make_local_mesh`` ``:24-33``, the
+ring and torus ``:36-42``; ``make_production_mesh`` becomes
+:func:`dry_mesh`, which has no processes). Where the reference names the
+axes of a device mesh and runs one program over it with ``shard_map``, the
+port runs one process per rank under ``torch.distributed`` and gives each
+process a :class:`ProcessMesh`: the named axes, each with its size, this
+rank's index on it and the process group of the ranks along it. Global rank ``g`` sits at
 grid coordinate ``(g // pg, g % pg)`` of a ``pg x pg`` torus, the row-major
 flattening the reference's ``P(("rows", "cols"))`` stack uses.
 
@@ -175,16 +177,31 @@ def make_mesh(shape: Sequence[int], names: Sequence[str]) -> ProcessMesh:
     ``dist.new_group`` for every group of every axis and of every run of
     consecutive axes. Without a process group only the all-ones shape
     exists: the single-rank mesh."""
-    shape, names = tuple(int(n) for n in shape), tuple(names)
-    if len(shape) != len(names):
-        raise ValueError(f"mesh shape {shape} and names {names} differ in "
-                         "length")
+    shape, names = _checked(shape, names)
     rank, size = world()
     if math.prod(shape) != size:
         raise ValueError(f"a {'x'.join(map(str, shape))} mesh needs "
                          f"{math.prod(shape)} ranks, the world has {size}")
     if size == 1:
         return single_rank_mesh(names)
+
+    def group(members):
+        return _group(members) if len(members) < size else dist.group.WORLD
+    return _rect_mesh(shape, names, rank, group)
+
+
+def _checked(shape, names):
+    shape, names = tuple(int(n) for n in shape), tuple(names)
+    if len(shape) != len(names):
+        raise ValueError(f"mesh shape {shape} and names {names} differ in "
+                         "length")
+    return shape, names
+
+
+def _rect_mesh(shape, names, rank: int, group) -> ProcessMesh:
+    """Rank ``rank``'s view of the row-major ``shape`` mesh; ``group(
+    members)`` gives each axis's (and each run of axes') group, and is
+    called for every group of the mesh, in one order on every rank."""
     coord = []
     r = rank
     for n in reversed(shape):
@@ -212,20 +229,55 @@ def make_mesh(shape: Sequence[int], names: Sequence[str]) -> ProcessMesh:
                 for d, i in zip(dims, var):
                     c[d] = i
                 members.append(flat(c))
-            group = _group(members) if len(members) < size \
-                else dist.group.WORLD
+            g = group(members) if len(members) > 1 else None
             if rank in members:
-                mine = (tuple(members), group)
-        ranks, group = mine
+                mine = (tuple(members), g)
+        ranks, g = mine
         name = names[dims[0]] if len(dims) == 1 else \
             tuple(names[d] for d in dims)
         return MeshAxis(name, len(ranks), ranks.index(rank), ranks,
-                        group if len(ranks) > 1 else None)
+                        g if len(ranks) > 1 else None)
 
     axes = tuple(build((d,)) for d in range(len(shape)))
     joint = tuple(build(tuple(range(a, b + 1)))
                   for a in range(len(shape)) for b in range(a + 1, len(shape)))
     return ProcessMesh(axes=axes, rank=rank, joint=joint)
+
+
+def make_local_mesh(axes: Sequence[str] = ("data", "model")) -> ProcessMesh:
+    """A mesh over the whole initialized world (reference
+    ``launch/mesh.py:24-33``): one axis gives the ring, two the squarest
+    factorization ``(n // a, a)``, ``a`` the largest divisor of ``n`` at
+    most ``floor(sqrt(n))``, built by :func:`make_mesh`. Without a process
+    group it is ``single_rank_mesh(axes)``."""
+    axes = tuple(axes)
+    _, n = world()
+    if n == 1:
+        return single_rank_mesh(axes)
+    if len(axes) == 1:
+        return make_mesh((n,), axes)
+    a = math.isqrt(n)
+    while n % a:
+        a -= 1
+    return make_mesh((n // a, a), axes)
+
+
+def dry_mesh(shape: Sequence[int] = (16, 16),
+             names: Sequence[str] = ("data", "model"), *,
+             rank: int = 0) -> ProcessMesh:
+    """Rank ``rank``'s view (rank 0's by default) of a mesh that has no
+    processes: the counterpart of the reference's
+    ``make_production_mesh`` (``launch/mesh.py:11-17``:
+    ``(16, 16)`` over ``('data', 'model')``, or ``(2, 16, 16)`` over
+    ``('pod', 'data', 'model')``) for the meta-device dry run. Every axis
+    wider than 1 carries :data:`repro_torch.comm.dry.DRY` in place of a
+    process group, so the engine's transport takes its dry branch there
+    (:mod:`repro_torch.comm.dry`). It starts no process and needs no
+    process group."""
+    from repro_torch.comm.dry import DRY
+
+    shape, names = _checked(shape, names)
+    return _rect_mesh(shape, names, rank, lambda members: DRY)
 
 
 def _product(sizes):

@@ -243,9 +243,22 @@ def test_cuda_tensor_never_reaches_plain_version(monkeypatch, name):
 
 
 def test_unknown_device_raises():
-    meta = torch.empty((8, 8), device="meta")
+    # a device with neither a kernel nor a plain version (the meta device
+    # now takes the dry run's counting path, below)
+    class OnXpu:
+        device = torch.device("xpu")
+        shape = (8, 8)
     with pytest.raises(ValueError, match="no kernel or plain version"):
-        ops.lu_factor_block(meta)
+        ops.lu_factor_block(OnXpu())
+    meta = torch.empty((8, 8), device="meta")
+    before = ops.launch_counts()
+    ops.reset_dry_counts()
+    out = ops.lu_factor_block(meta)
+    assert out.device.type == "meta" and out.shape == meta.shape
+    assert ops.launch_counts() == before
+    assert ops.dry_counts() == {"lu_factor_block": {
+        "calls": 1, "flops": float(ops.lu_flops(8)), "bytes": 512.0}}
+    ops.reset_dry_counts()
 
 
 @pytest.mark.parametrize("name", ops.KERNELS)

@@ -388,9 +388,10 @@ def test_lm_step_bench(monkeypatch):
     assert "lm_step_bench" in bench_run._SCHEDULED
     assert bench_run.ALIASES["lm"] == "lm_step_bench"
     # the moe_explicit section came with the GSPMD placement on several
-    # ranks (tests/test_torch_gspmd.py runs it)
-    assert set(lm_step_bench.NOT_PORTED) == {"production_roofline"}
-    assert "A14" in lm_step_bench.NOT_PORTED["production_roofline"]
+    # ranks (tests/test_torch_gspmd.py runs it), the production roofline
+    # with the dry run (tests/test_torch_dryrun.py reads it)
+    assert lm_step_bench.NOT_PORTED == {}
+    assert callable(lm_step_bench.production_roofline_section)
     assert callable(lm_step_bench.moe_explicit_section)
     assert callable(lm_step_bench.whole_model_section)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
