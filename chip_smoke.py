@@ -22,7 +22,13 @@ Phases, one JSON line each:
                views (GEMM_TRAILING, row stride 16384) and the lookahead's
                64 x 16384 and 16384 x 64 strips (the row's ``shapes``),
                and its output bits against GEMM_BITS (the first port's
-               kernel's) at those shapes, a ragged view and in bf16;
+               kernel's) at those shapes and a ragged view, all on its
+               ``simt_f32`` route; in bf16 on its ``wgmma_bf16`` route
+               (tensor cores): within the plain version's limit, two runs
+               bit-identical, HPL's 64 x 16384 and 16384 x 64 strips each
+               bit-identical to the full update's rows and columns, its
+               bits against GEMM_BITS (as that route first gave them), and
+               timed against torch.addmm in bf16;
                the LU family timed queued behind a sleep kernel
                (device time; back-to-back events time the host's wrapper
                at a few microseconds a call); ring_add_step at the largest
@@ -580,14 +586,17 @@ LU_BITS = {"lu64": "ec7b50fd4f142e9c", "lu48": "cec5aa2781f3ae5e",
            "lu128": "c8dffd4abe86797a", "trsm64": "7a82ad5a1edce600",
            "trsm48_1009": "2a91fd5c3d00b0a9", "trsm128": "029d3092a28149f0",
            "upper64": "9e1412487aaeaafa", "lu64_odd": "9006050a846e6526"}
-# sha256 (first 16 hex digits) of the outputs of ``gemm_golden_calls``, as
-# the first port's gemm_update kernel computed them on the card; every
-# design keeps each output's sums (ascending k, one fused multiply-add per
-# product from +0, then fmaf(alpha, sum, c)), so the bits must not move
+# sha256 (first 16 hex digits) of the outputs of ``gemm_golden_calls``: the
+# fp32 rows as the first port's gemm_update kernel computed them on the
+# card, and every fp32 design keeps each output's sums (ascending k, one
+# fused multiply-add per product from +0, then fmaf(alpha, sum, c)), so
+# those bits must not move; ``bf16_16384`` as the bf16 tensor-core route
+# (``wgmma_bf16``, whose sums run in the tensor core's order within each
+# 16-deep step of K) first computed it
 GEMM_BITS = {"hpl16384": "4baa42302537cd4f", "row_strip": "3a2fd3a9586b7761",
              "col_strip": "31b023ce8e054b65",
              "trailing8192": "ef17d0bba6e34e7a",
-             "ragged37": "d4ef6ee3bdb9fd99", "bf16_16384": "56bcb59b282cd5f0"}
+             "ragged37": "d4ef6ee3bdb9fd99", "bf16_16384": "ae2c94b1bbd8a905"}
 # trailing updates timed in phase ``kernels``: views of HPL's C, row stride
 # N_MAIN, as an update restricted to the trailing matrix would pass them
 GEMM_TRAILING = (12288, 8192, 4096, 1024)
@@ -818,16 +827,20 @@ def kernels_gemm(torch, randn, rows):
     STREAM_ROUNDS alternated rounds; the shape table: trailing views of
     that C (GEMM_TRAILING, row stride m) and the lookahead's two strips,
     each against its plain version and timed with ``torch.addmm``
-    (``queued_ms``, alternated); the same update in bf16; and the output
-    bits of ``gemm_golden_calls`` against :data:`GEMM_BITS` (the first
-    port's kernel's)."""
+    (``queued_ms``, alternated); the same update in bf16 on its
+    tensor-core route, within the plain version's limit, two runs
+    bit-identical, HPL's row and column strips (B a strided view) each
+    bit-identical to the full update's rows and columns, timed against
+    ``torch.addmm`` in bf16; and the output bits of ``gemm_golden_calls``
+    against :data:`GEMM_BITS`."""
     from repro_torch.kernels import gemm as kgemm
     from repro_torch.kernels import ref
 
     m, b = N_MAIN, B_MAIN
     c0, a, bb = randn(m, m), randn(m, b), randn(b, m)
     want = ref.gemm_update(c0, a, bb, alpha=-1.0)
-    got = kgemm.gemm_update(c0.clone(), a, bb, alpha=-1.0)
+    got = on_route(kgemm.gemm_update, "simt_f32",
+                   lambda: kgemm.gemm_update(c0.clone(), a, bb, alpha=-1.0))
     atol = GEMM_ATOL["float32"] * math.sqrt(b)
     ok, err = allclose(torch, got, want, 1e-2, atol)
     check(ok, f"gemm_update fp32 disagrees with its plain version: {err}")
@@ -879,31 +892,61 @@ def kernels_gemm(torch, randn, rows):
         bound_ms=bms, bound_by=by, library_ms=med["library"],
         library="torch.addmm(c, a, b, alpha=-1), allow_tf32=False",
         ms_over_library=med["kernel"] / med["library"],
-        bound_share=bms / med["kernel"],
+        bound_share=bms / med["kernel"], kernel_route="simt_f32",
         timing=f"ms, library_ms: medians of {STREAM_ROUNDS} alternated "
                "rounds of cuda_ms over 10 calls; shapes: 3 alternated "
                "rounds of queued_ms over 20 calls",
         shapes=table)
 
-    # the same update in bf16 (fp32 sums, rounded once)
+    # the same update in bf16 on its tensor-core route (fp32 sums of exact
+    # products, rounded once): within the plain version's limit, two runs
+    # bit-identical, and HPL's row and column strips, each updated alone,
+    # bit-identical to the same rows and columns of the full update
     c16, a16, b16 = c0.bfloat16(), a.bfloat16(), bb.bfloat16()
     del c0
     want = ref.gemm_update(c16, a16, b16, alpha=-1.0)
-    got = kgemm.gemm_update(c16.clone(), a16, b16, alpha=-1.0)
+    got = on_route(kgemm.gemm_update, "wgmma_bf16",
+                   lambda: kgemm.gemm_update(c16.clone(), a16, b16,
+                                             alpha=-1.0))
     atol16 = GEMM_ATOL["bfloat16"] * math.sqrt(b)
     ok, err16 = allclose(torch, got, want, 1e-2, atol16)
     check(ok, f"gemm_update bf16 disagrees with its plain version: {err16}")
-    del want, got
+    del want
+    check(bitwise(torch, kgemm.gemm_update(c16.clone(), a16, b16), got),
+          "gemm_update bf16: two runs of one update differ")
+    strips = {f"row strip ({b},{m})": (
+        lambda: kgemm.gemm_update(c16[s, :].clone(), a16[s, :], b16),
+        got[s, :]),
+        f"column strip ({m},{b}), B a view with row stride {m}": (
+        lambda: kgemm.gemm_update(c16[:, s].clone(), a16, b16[:, s]),
+        got[:, s])}
+    for label, (fn, full) in strips.items():
+        check(bitwise(torch, fn(), full), f"gemm_update bf16: the {label} "
+                                          "differs from the full update's")
+    del got, strips
+    c_run = c16.clone()
     med16 = alternated_ms(torch, {
-        "kernel": lambda: kgemm.gemm_update(c16, a16, b16),
+        "kernel": lambda: kgemm.gemm_update(c_run, a16, b16),
         "library": lambda: torch.addmm(c16, a16, b16, alpha=-1.0)},
         STREAM_ROUNDS, iters=10)
+    plain16 = cuda_ms(torch, lambda: ref.gemm_update(c16, a16, b16), iters=2,
+                      warmup=1)
+    del c_run
     bms16, by16 = update_bound(m, m, 2, BF16_TENSOR_FLOPS)
-    emit({"phase": "kernels.bf16", "kernel": "gemm_update",
-          "shape": f"C({m},{m}) A({m},{b}) B({b},{m}) bf16",
-          "max_abs_err": err16, "tol": {"atol": atol16, "rtol": 1e-2},
-          "ms": med16["kernel"], "library_ms": med16["library"],
-          "bound_ms": bms16, "bound_by": by16})
+    bf16_row = dict(
+        shape=f"C({m},{m}) A({m},{b}) B({b},{m}) bf16",
+        kernel_route="wgmma_bf16", max_abs_err=err16,
+        tol={"atol": atol16, "rtol": 1e-2}, bitwise_repeat=True,
+        strips_bitwise_full=True, ms=med16["kernel"], plain_ms=plain16,
+        bound_ms=bms16, bound_by=by16, bound_share=bms16 / med16["kernel"],
+        library_ms=med16["library"],
+        library="torch.addmm(c, a, b, alpha=-1), bf16",
+        ms_over_library=med16["kernel"] / med16["library"],
+        timing=f"ms, library_ms: medians of {STREAM_ROUNDS} alternated "
+               "rounds of cuda_ms over 10 calls")
+    rows["gemm_update"]["wgmma_bf16"] = bf16_row
+    emit({"phase": "kernels.bf16", "kernel": "gemm_update", **bf16_row,
+          "launches_by_route": dict(kgemm.gemm_update.launches_by_route)})
     del c16, a16, b16, a, bb
     torch.cuda.empty_cache()
 
@@ -1471,6 +1514,8 @@ def kernels_flash(torch, randn, rows):
             qt, kt, vt, is_causal=True, enable_gqa=True), iters=10),
         library="F.scaled_dot_product_attention(is_causal=True, "
                 "enable_gqa=True), fp32")
+    simt.update(bound_share=bms32 / simt["ms"],
+                ms_over_library=simt["ms"] / simt["library_ms"])
     emit({"phase": "kernels.flash", "gflop": flops / 1e9,
           "mma_gflop_split_p": 1.5 * flops / 1e9,
           "bound_bf16_tensor_ms": bms16,

@@ -21,9 +21,15 @@ route:
   P_hi V + P_lo V`` errs by about 2^-17 |P| per term, so it is the product
   of the fp32 P, not of a bf16 P (which would be another function). The
   split costs 1.5x the function's tensor-core work.
-- ``simt_f32`` (fp32): a SIMT kernel on the fp32 pipes; fp32
-  operands cannot enter the bf16 tensor cores without changing the
-  function.
+- ``simt_f32`` (fp32): a SIMT kernel on the fp32 pipes (fp32 operands
+  cannot enter the bf16 tensor cores without changing the function, and
+  TF32 would round them), bounded by those pipes. One CTA per (batch *
+  head, 128 q rows): a producer warpgroup keeps the q tile and the K and V
+  tiles of 64 keys in flight by ``cp.async`` through a 3-slot ring guarded
+  by mbarriers, while eight consumer warps, each owning 16 q rows, sum 8 x
+  4 blocks of S and 8 rows of acc per thread from float4 shared reads,
+  with no CTA-wide barrier between tiles; a warp skips a key tile that
+  lies wholly past its rows.
 
 A bf16 call that TMA cannot load raises ``ValueError`` naming the
 constraint; it never goes to the other route or to the plain version,
@@ -36,7 +42,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.gemm import check_cuda
+from repro_torch.kernels.gemm import TMA_ALIGN, check_cuda
 
 HEAD_DIMS = (32, 64, 128)
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float,
@@ -44,7 +50,6 @@ _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float,
 _ENTRY = {torch.float32: "repro_flash_attention_f32",
           torch.bfloat16: "repro_flash_attention_bf16"}
 ROUTES = {torch.float32: "simt_f32", torch.bfloat16: "wgmma_bf16"}
-TMA_ALIGN = 16  # bytes: TMA's rule for a tensor's address and its strides
 
 
 def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -67,24 +67,57 @@
 // not stored. Shared memory: Q 32 KB + 3 x (K 32 + V 32) KB = 224 KB at
 // hd 128 (dynamic).
 //
-// fp32 inputs: flash_attention_kernel, a SIMT kernel on the fp32 pipes:
-// fp32 operands cannot enter the bf16 tensor cores without changing the
-// function, and TF32 would round them. One 256-thread CTA per (batch *
-// head, 64-row q tile), heaviest first. The CTA casts its q tile to fp32,
-// scales it by hd^-1/2 (cast first, then scale, as the reference does)
-// and keeps it in shared memory; then it walks the key tiles of 64 rows:
-// K into shared memory, S = Q K^T (each thread a 4 x 4 block of S: rows
-// ty*4.., columns tx + 16j, summed over hd in ascending order), the causal
-// mask, the online-softmax update of m and l (reduced over the 16 threads
-// of a half warp with shuffles), P into shared memory, then V into K's
-// buffer and acc += P V (each thread 4 rows x hd/16 columns of acc in
-// registers). The shared rows are padded to hd + 4 floats, so the
-// column-strided K reads and the row-broadcast Q and P reads are free of
-// bank conflicts. Tiles wholly above the causal diagonal are never
-// loaded. Masked scores are -1e30 as in the reference, so exp(-1e30 - m)
-// is exactly 0 once a row has seen a real score (the first key tile
-// always holds key 0); keys past Skv (a ragged last tile) get no weight at
-// all. Shared memory is 85 KB at hd = 128 (dynamic; two CTAs per SM).
+// fp32 inputs (route simt_f32): flash_attention_kernel, a SIMT kernel on
+// the fp32 pipes: fp32 operands cannot enter the bf16 tensor cores
+// without changing the function, and TF32 (or a split of it) would round
+// them. What bounds it is the FMA pipes (0.77 ms at the serving shape), so
+// the design keeps them fed: loads overlap the math, no CTA-wide barrier
+// stops the warps once a tile starts, and register blocks are large
+// enough that shared memory does not set the pace.
+//   - One CTA per (batch * head, 128-row q tile), heaviest first, one to
+//     an SM (205 KB of shared memory at hd 128). Warpgroup 0 is the
+//     producer: its 128 threads copy the q tile, then the K and V tiles
+//     of 64 keys in turn, K(0), V(0), K(1), ..., into a ring of three
+//     tile buffers, by cp.async (16-byte copies where the addresses and
+//     strides allow, else 4-byte ones; rows past Skv land as zeros), each
+//     fill completing on the slot's "full" mbarrier
+//     (cp.async.mbarrier.arrive), each slot refilled once the eight
+//     consumer warps have arrived on its "empty" one. So V(n) and K(n + 1)
+//     are in flight while S(n) is summed. setmaxnreg moves registers from
+//     the producer (40) to the consumers (232).
+//   - Warpgroups 1 and 2 are the consumers. They scale the q tile by
+//     hd^-1/2 in place once it has landed (cast first, then scale, as the
+//     reference does), then each warp walks the key tiles on its own:
+//     warp w owns q rows 16 w .. + 15, its half warp h the rows 16 w + h +
+//     2 i (i < 8), and in S the keys tx + 16 j (j < 4) of lane tx of the
+//     half: an 8 x 4 block of S, summed over hd in ascending order, one FMA
+//     per product, and in acc the 8 rows by hd / 16 columns (8 at hd 128,
+//     as float4 runs of 4). P's rows are the warp's own, so the softmax
+//     and P V need only __syncwarp. A warp whose 16 rows all lie above a
+//     key tile's first key skips that tile (releasing its slots), which
+//     drops most of the causal diagonal's masked work.
+//   - Per 4-deep step of Q K^T a thread reads 8 float4 of Q and 4 of K for
+//     128 FMAs; per 4 keys of P V, 8 float4 of P and hd / 16 floats of V a
+//     key as float4s (float2 at hd 32) for 32 * hd / 16 FMAs. A warp's Q
+//     and P reads hit 2 rows one apart (one wavefront), its K reads 16
+//     rows (two wavefronts, the least for 256 bytes), its V reads 256
+//     contiguous bytes (two): 16 wavefronts per 128 warp-wide FMAs in
+//     Q K^T and 24 per 256 in P V at hd 128, 8 and 10.7 FMAs a wavefront
+//     (the first port's kernel reached 3.5 in P V with scalar V reads).
+//   - Between the products (softmax_step): the mask, the online-softmax
+//     update of m and l (row max and sum over the 16 lanes of a half warp
+//     with shuffles), acc rescaled, P into shared memory (rows padded to
+//     80 floats, so a warp's writes and float4 reads are conflict-free).
+//     Only a tile that crosses Skv or the diagonal of the warp's first row
+//     runs the mask: the warp picks one of the step's two instantiations
+//     per tile.
+// Shared rows of Q, K and V are padded to hd + 4 floats, so the
+// column-strided K reads and the two-row Q reads are free of bank
+// conflicts. Tiles wholly above the causal diagonal are never loaded.
+// Masked scores are -1e30 as in the reference, so exp(-1e30 - m) is
+// exactly 0 once a row has seen a real score (the first key tile always
+// holds key 0), and a skipped tile would have added exactly 0; keys past
+// Skv (a ragged last tile) get no weight at all.
 //
 // Neither kernel uses the reference's (bq, bk): the result does not
 // depend on the tiling beyond fp32 rounding. q, k and v are read in their
@@ -98,10 +131,16 @@
 
 namespace {
 
-constexpr int BQ = 64;         // query rows per CTA
-constexpr int BK = 64;         // key rows per tile
-constexpr int THREADS = 256;   // 16 x 16: ty owns 4 rows, tx 4 key columns
-constexpr int LDP = BK + 4;    // padded row of P
+constexpr int BQ = 128;          // query rows per CTA
+constexpr int BK = 64;           // key rows per tile
+constexpr int PRODUCERS = 128;   // warpgroup 0: the copies
+constexpr int CONSUMERS = 256;   // 16 half warps of 16 lanes
+constexpr int THREADS = PRODUCERS + CONSUMERS;
+constexpr int CONSUMER_WARPS = CONSUMERS / 32;
+constexpr int ROWS = BQ / 16;    // q rows a thread: 8
+constexpr int KEYS = BK / 16;    // keys a thread: 4
+constexpr int LDP = BK + 16;     // padded row of P
+constexpr int BUFS = 3;          // the K/V ring: K(n), V(n), K(n + 1), ...
 constexpr float MASKED = -1e30f;
 constexpr unsigned NEG_INF_BITS = 0xff800000u;  // -inf
 
@@ -111,166 +150,346 @@ struct Strides {
 };
 
 template <int HD>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (size_t)(BQ * (HD + 4) + BK * (HD + 4) + BQ * LDP);
+struct Simt {
+  static constexpr int LD = HD + 4;    // padded row of Q, K and V
+  static constexpr int TILE = BK * LD;  // floats of a K or V tile
+  static constexpr int CPT = HD / 16;   // acc columns a thread
+  static constexpr int VEC = CPT >= 4 ? 4 : CPT;  // of them contiguous
+  static constexpr size_t FLOATS =
+      (size_t)BQ * LD + (size_t)BUFS * TILE + (size_t)BQ * LDP;
+  // + the mbarriers: Q's, then full and empty per ring slot
+  static constexpr size_t SMEM = sizeof(float) * FLOATS + 8 * (1 + 2 * BUFS);
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// dst[r][d] = fp32(src[b, row0 + r, head, d]) * scale for r < valid, else 0
-template <int HD>
-__device__ __forceinline__ void load_tile(float* dst,
+// copy 4 or 16 bytes global -> shared; a source size of 0 fills zeros
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+// the mbarrier ``bar`` counts one arrival once every cp.async this thread
+// has issued so far has landed
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// R rows of one head, src[r * stride + d] for r < R, into dst[r][d] (row
+// pitch HD + 4), by the producer thread ``pt`` of PRODUCERS with cp.async:
+// 16-byte copies where ``vec`` (the address and every stride in whole
+// float4s), else 4-byte ones; rows r >= valid land as zeros.
+template <int HD, int R>
+__device__ __forceinline__ void copy_rows(float* dst,
                                           const float* __restrict__ src,
-                                          Strides st, int b, int head,
-                                          int row0, int valid, int rows,
-                                          float scale) {
-  constexpr int LD = HD + 4;
-  const float* base = src + b * st.b + head * st.h;
-  for (int idx = threadIdx.x; idx < rows * HD; idx += THREADS) {
-    const int r = idx / HD, d = idx % HD;
-    float x = 0.f;
-    if (r < valid) x = base[(int64_t)(row0 + r) * st.s + d] * scale;
-    dst[r * LD + d] = x;
+                                          int64_t stride, int valid, bool vec,
+                                          int pt) {
+  constexpr int LD = HD + 4, CH = HD / 4;
+#pragma unroll 4
+  for (int i = 0; i < R * CH / PRODUCERS; ++i) {
+    const int e = pt + PRODUCERS * i, r = e / CH, d = e % CH * 4;
+    const bool ok = r < valid;
+    const float* from = ok ? src + (int64_t)r * stride + d : src;
+    const uint32_t to = smem_addr(dst + r * LD + d);
+    if (vec) {
+      cp_async16(to, from, ok);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) cp_async4(to + 4 * j, ok ? from + j : src, ok);
+    }
   }
 }
 
 // column of acc (and of V and O) held in the thread's slot c
 template <int HD>
 __device__ __forceinline__ int out_col(int tx, int c) {
-  constexpr int CPT = HD / 16;
-  constexpr int VEC = CPT >= 4 ? 4 : CPT;
+  constexpr int VEC = Simt<HD>::VEC;
   return (c / VEC) * (16 * VEC) + tx * VEC + (c % VEC);
 }
 
+__device__ __forceinline__ float lane_of(const float4& x, int u) {
+  return u == 0 ? x.x : u == 1 ? x.y : u == 2 ? x.z : x.w;
+}
+
+// The online-softmax step on one key tile's S for a thread's 8 rows (rbase
+// + 2 i, positions qpos0 + rbase + 2 i): with MASK, keys past Skv get no
+// weight (-inf) and causally masked keys -1e30; then the row max and sum
+// over the 16 lanes of a half warp, m and l updated, acc rescaled, and P
+// into the warp's own rows of Ps.
+template <bool MASK, int CPT>
+__device__ __forceinline__ void softmax_step(float (&s)[ROWS][KEYS],
+                                             float (&m)[ROWS],
+                                             float (&l)[ROWS],
+                                             float (&acc)[ROWS][CPT],
+                                             float* Ps, int rbase, int tx,
+                                             int qpos0, int kv0, int kcols,
+                                             int causal) {
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) {
+    float rmax = MASKED;
+#pragma unroll
+    for (int j = 0; j < KEYS; ++j) {
+      if constexpr (MASK) {
+        const int c = tx + 16 * j;
+        if (c >= kcols) s[i][j] = __uint_as_float(NEG_INF_BITS);  // past Skv
+        else if (causal && kv0 + c > qpos0 + rbase + 2 * i) s[i][j] = MASKED;
+      }
+      rmax = fmaxf(rmax, s[i][j]);
+    }
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+      rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
+    const float m_new = fmaxf(m[i], rmax);
+    const float alpha = expf(m[i] - m_new);
+    float rsum = 0.f;
+#pragma unroll
+    for (int j = 0; j < KEYS; ++j) {
+      s[i][j] = expf(s[i][j] - m_new);
+      rsum += s[i][j];
+    }
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+      rsum += __shfl_xor_sync(0xffffffffu, rsum, off);
+    l[i] = l[i] * alpha + rsum;
+    m[i] = m_new;
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) acc[i][c] *= alpha;
+#pragma unroll
+    for (int j = 0; j < KEYS; ++j)
+      Ps[(rbase + 2 * i) * LDP + tx + 16 * j] = s[i][j];
+  }
+}
+
 template <int HD>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, 1)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
                        Strides sq, Strides sk, Strides sv, Strides so,
                        int H, int KV, int Sq, int Skv, int causal,
-                       int q_offset, float scale) {
-  constexpr int LD = HD + 4;
-  constexpr int CPT = HD / 16;
+                       int q_offset, float scale, int vec) {
+  using T = Simt<HD>;
+  constexpr int LD = T::LD, CPT = T::CPT, VEC = T::VEC;
   extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;              // BQ x LD, scaled fp32 q tile
-  float* KVs = Qs + BQ * LD;     // BK x LD, K then V of one key tile
-  float* Ps = KVs + BK * LD;     // BQ x LDP
+  float* Qs = smem;                   // BQ x LD, scaled fp32 q tile
+  float* ring = Qs + BQ * LD;         // BUFS x (BK x LD): slot z % BUFS
+  float* Ps = ring + BUFS * T::TILE;  // BQ x LDP
+  const uint32_t bar_q = smem_addr(smem + T::FLOATS);  // Q landed
+  const uint32_t bar_full = bar_q + 8;                 // + 8 * slot
+  const uint32_t bar_empty = bar_full + 8 * BUFS;      // + 8 * slot
 
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int kvh = h / (H / KV);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest first
   const int qrows = min(BQ, Sq - q0);
-
-  load_tile<HD>(Qs, q, sq, b, h, q0, qrows, BQ, scale);
-
   // causal: keys past the tile's last query position carry no weight
   const int kv_end = causal ? min(Skv, q_offset + q0 + qrows) : Skv;
+  const int ntiles = (kv_end + BK - 1) / BK;
 
-  float m[4], l[4], acc[4][CPT];
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, PRODUCERS);
+    for (int z = 0; z < BUFS; ++z) {
+      mbar_init(bar_full + 8 * z, PRODUCERS);
+      mbar_init(bar_empty + 8 * z, CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < PRODUCERS) {
+    // producer: Q, then the ring's tiles in turn, ring position z: K(z / 2)
+    // for even z, V(z / 2) for odd z, each slot refilled once the eight
+    // consumer warps have released it
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    const int pt = threadIdx.x;
+    copy_rows<HD, BQ>(Qs, q + b * sq.b + h * sq.h + (int64_t)q0 * sq.s, sq.s,
+                      qrows, vec, pt);
+    cp_async_arrive(bar_q);
+    const float* kb = k + b * sk.b + kvh * sk.h;
+    const float* vb = v + b * sv.b + kvh * sv.h;
+    for (int z = 0; z < 2 * ntiles; ++z) {
+      const int slot = z % BUFS, kv0 = z / 2 * BK;
+      mbar_wait(bar_empty + 8 * slot, ((z / BUFS) & 1) ^ 1);
+      if (z & 1)
+        copy_rows<HD, BK>(ring + slot * T::TILE, vb + (int64_t)kv0 * sv.s,
+                          sv.s, min(BK, Skv - kv0), vec, pt);
+      else
+        copy_rows<HD, BK>(ring + slot * T::TILE, kb + (int64_t)kv0 * sk.s,
+                          sk.s, min(BK, Skv - kv0), vec, pt);
+      cp_async_arrive(bar_full + 8 * slot);
+    }
+    cp_async_wait_all();  // no copy outlives the CTA
+    return;
+  }
+
+  // consumers: no CTA-wide barrier after Q is scaled; each warp waits for
+  // its tiles and releases them on its own, and its P rows are its own
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int tid = threadIdx.x - PRODUCERS, tx = tid % 16, ty = tid / 16;
+  const int lane = tid % 32;
+  // warp w owns rows 16 w .. + 15, its half warp h rows 16 w + h + 2 i
+  const int rbase = 16 * (ty >> 1) + (ty & 1);
+  mbar_wait(bar_q, 0);
+  // cast, then scale, as the reference does
+  for (int e = tid; e < BQ * HD / 4; e += CONSUMERS) {
+    float4* p = reinterpret_cast<float4*>(Qs + e / (HD / 4) * LD +
+                                          e % (HD / 4) * 4);
+    const float4 x = *p;
+    *p = make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale);
+  }
+  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
+
+  float m[ROWS], l[ROWS], acc[ROWS][CPT];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < ROWS; ++i) {
     m[i] = MASKED;
     l[i] = 0.f;
 #pragma unroll
     for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
   }
 
-  for (int kv0 = 0; kv0 < kv_end; kv0 += BK) {
-    const int kcols = min(BK, Skv - kv0);
-    __syncthreads();  // the previous tile's reads of KVs and Ps are done
-    load_tile<HD>(KVs, k, sk, b, kvh, kv0, kcols, BK, 1.f);
-    __syncthreads();
+  for (int n = 0; n < ntiles; ++n) {
+    const int kv0 = n * BK, kcols = min(BK, Skv - kv0);
+    const int zk = 2 * n, zv = 2 * n + 1;
+    if (causal && kv0 > q_offset + q0 + 16 * (ty >> 1) + 15) {
+      // every key of the tile lies past the warp's last row: it would add
+      // exactly 0 to the warp's rows; wait for each slot's fill (so that
+      // its release counts for this use) and release it
+      mbar_wait(bar_full + 8 * (zk % BUFS), (zk / BUFS) & 1);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_empty + 8 * (zk % BUFS));
+      mbar_wait(bar_full + 8 * (zv % BUFS), (zv / BUFS) & 1);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_empty + 8 * (zv % BUFS));
+      continue;
+    }
 
-    float s[4][4];
+    // S = Q K(n)^T: rows rbase + 2 i, keys tx + 16 j, summed over hd in
+    // ascending order
+    mbar_wait(bar_full + 8 * (zk % BUFS), (zk / BUFS) & 1);
+    const float* Ks = ring + (zk % BUFS) * T::TILE;
+    float s[ROWS][KEYS];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < ROWS; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
+      for (int j = 0; j < KEYS; ++j) s[i][j] = 0.f;
+#pragma unroll 2
     for (int d = 0; d < HD; d += 4) {
-      float4 qv[4], kv[4];
+      float4 kf[KEYS];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(&Qs[(ty * 4 + i) * LD + d]);
+      for (int j = 0; j < KEYS; ++j)
+        kf[j] = *reinterpret_cast<const float4*>(&Ks[(tx + 16 * j) * LD + d]);
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(&KVs[(tx + 16 * j) * LD + d]);
+      for (int i = 0; i < ROWS; ++i) {
+        const float4 qf =
+            *reinterpret_cast<const float4*>(&Qs[(rbase + 2 * i) * LD + d]);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < KEYS; ++j) {
           float a = s[i][j];
-          a = fmaf(qv[i].x, kv[j].x, a);
-          a = fmaf(qv[i].y, kv[j].y, a);
-          a = fmaf(qv[i].z, kv[j].z, a);
-          a = fmaf(qv[i].w, kv[j].w, a);
+          a = fmaf(qf.x, kf[j].x, a);
+          a = fmaf(qf.y, kf[j].y, a);
+          a = fmaf(qf.z, kf[j].z, a);
+          a = fmaf(qf.w, kf[j].w, a);
           s[i][j] = a;
         }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q_offset + q0 + ty * 4 + i;
-      float rmax = MASKED;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        if (c >= kcols) s[i][j] = __uint_as_float(NEG_INF_BITS);  // past Skv
-        else if (causal && kv0 + c > qpos) s[i][j] = MASKED;
-        rmax = fmaxf(rmax, s[i][j]);
       }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
-      const float m_new = fmaxf(m[i], rmax);
-      const float alpha = expf(m[i] - m_new);
-      float rsum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        rsum += s[i][j];
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rsum += __shfl_xor_sync(0xffffffffu, rsum, off);
-      l[i] = l[i] * alpha + rsum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[i][c] *= alpha;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) Ps[(ty * 4 + i) * LDP + tx + 16 * j] = s[i][j];
     }
-    __syncthreads();  // S is done with K; P is written
-    load_tile<HD>(KVs, v, sv, b, kvh, kv0, kcols, BK, 1.f);
-    __syncthreads();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty + 8 * (zk % BUFS));  // K(n) read
 
+    // the softmax step; only a tile that crosses Skv or the diagonal of
+    // the warp's first row has keys to mask (the same for the whole warp)
+    if (kv0 + BK > Skv ||
+        (causal && kv0 + BK - 1 > q_offset + q0 + 16 * (ty >> 1)))
+      softmax_step<true>(s, m, l, acc, Ps, rbase, tx, q_offset + q0, kv0,
+                         kcols, causal);
+    else
+      softmax_step<false>(s, m, l, acc, Ps, rbase, tx, q_offset + q0, kv0,
+                          kcols, causal);
+    __syncwarp();  // the warp's P rows are written
+
+    // acc += P V(n): rows rbase + 2 i, columns out_col(tx, c), keys in
+    // ascending order; P four keys at a time, V a row of the thread's
+    // columns at a time, both as vectors
+    mbar_wait(bar_full + 8 * (zv % BUFS), (zv / BUFS) & 1);
+    const float* Vs = ring + (zv % BUFS) * T::TILE;
 #pragma unroll 2
     for (int kk = 0; kk < BK; kk += 4) {
-      float4 p4[4];
+      float4 p4[ROWS];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        p4[i] = *reinterpret_cast<const float4*>(&Ps[(ty * 4 + i) * LDP + kk]);
+      for (int i = 0; i < ROWS; ++i)
+        p4[i] = *reinterpret_cast<const float4*>(
+            &Ps[(rbase + 2 * i) * LDP + kk]);
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         float vv[CPT];
+        const float* vrow = Vs + (kk + u) * LD;
 #pragma unroll
-        for (int c = 0; c < CPT; ++c)
-          vv[c] = KVs[(kk + u) * LD + out_col<HD>(tx, c)];
+        for (int g = 0; g < CPT / VEC; ++g) {
+          const float* src = vrow + (g * 16 + tx) * VEC;
+          if constexpr (VEC == 4) {
+            const float4 x = *reinterpret_cast<const float4*>(src);
+            vv[4 * g] = x.x;
+            vv[4 * g + 1] = x.y;
+            vv[4 * g + 2] = x.z;
+            vv[4 * g + 3] = x.w;
+          } else {
+            const float2 x = *reinterpret_cast<const float2*>(src);
+            vv[2 * g] = x.x;
+            vv[2 * g + 1] = x.y;
+          }
+        }
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float p = u == 0 ? p4[i].x : u == 1 ? p4[i].y
-                        : u == 2 ? p4[i].z : p4[i].w;
+        for (int i = 0; i < ROWS; ++i) {
+          const float p = lane_of(p4[i], u);
 #pragma unroll
           for (int c = 0; c < CPT; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
         }
       }
     }
+    __syncwarp();  // the warp is done with V(n) and with its P rows
+    if (lane == 0) mbar_arrive(bar_empty + 8 * (zv % BUFS));
   }
 
   float* ob = o + b * so.b + h * so.h;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
+  for (int i = 0; i < ROWS; ++i) {
+    const int r = rbase + 2 * i;
     if (r >= qrows) continue;
     const float lc = fmaxf(l[i], 1e-30f);
 #pragma unroll
@@ -279,21 +498,29 @@ flash_attention_kernel(const float* __restrict__ q,
   }
 }
 
+// whether 16-byte copies can move q, k and v: addresses and (batch, seq,
+// head) strides in whole float4s
+bool vec_ok(const void* p, Strides st) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && st.b % 4 == 0 &&
+         st.s % 4 == 0 && st.h % 4 == 0;
+}
+
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, Strides sq,
            Strides sk, Strides sv, Strides so, int B, int H, int KV, int Sq,
            int Skv, int causal, int q_offset, float scale,
            cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HD>();
+  constexpr size_t smem = Simt<HD>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(
       flash_attention_kernel<HD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
+  const int vec = vec_ok(q, sq) && vec_ok(k, sk) && vec_ok(v, sv);
   const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
   flash_attention_kernel<HD><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), sq, sk, sv, so,
-      H, KV, Sq, Skv, causal, q_offset, scale);
+      H, KV, Sq, Skv, causal, q_offset, scale, vec);
   return (int)cudaGetLastError();
 }
 

@@ -19,7 +19,8 @@ routes (``min(bq, Sq)`` and ``min(bk, Skv)`` must divide Sq and Skv); the
 CPU route computes over those blocks, the CUDA kernels over their own fixed
 tiles, which does not change the result beyond fp32 rounding. On the card
 the dtype picks the kernel (bf16: tensor cores, fp32: SIMT), and the
-wrapper counts launches per route beside ``launches``.
+wrapper counts launches per route beside ``launches``; so does
+``gemm_update``'s wrapper (``simt_f32``, ``wgmma_bf16``).
 
 ``lu_factor_block``, ``trsm_lower_left`` and ``trsm_upper_right`` pick
 their CUDA route by the block size (``kernels/lu.py``) and count launches
@@ -269,8 +270,8 @@ def launch_counts() -> Dict[str, int]:
 
 def launches_by_route() -> Dict[str, Dict[str, int]]:
     """Kernel launches so far by route, for the kernels that have routes
-    (``flash_attention``, ``lu_factor_block``, ``trsm_lower_left``,
-    ``trsm_upper_right``)."""
+    (``gemm_update``, ``flash_attention``, ``lu_factor_block``,
+    ``trsm_lower_left``, ``trsm_upper_right``)."""
     return {name: dict(w.launches_by_route) for name, w in _wrappers().items()
             if hasattr(w, "launches_by_route")}
 

@@ -132,6 +132,58 @@ def test_gemm_geometry_refuses_an_empty_grid(shape):
         kgemm.gemm_geometry(*shape, SMS)
 
 
+def _walk_bf16(M, N, ctas):
+    """The tiles, as (row0, col0), that the bf16 kernel's persistent CTAs
+    take: CTA x takes tiles x, x + ctas, ..., row-major over the tile grid
+    (csrc/gemm_update.cu: gemm_update_bf16_kernel)."""
+    bm, bn = kgemm.TILE_BF16
+    tiles_n, tiles = -(-N // bn), -(-M // bm) * -(-N // bn)
+    return [(w // tiles_n * bm, w % tiles_n * bn)
+            for x in range(ctas) for w in range(x, tiles, ctas)]
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("m", SIZES)
+def test_gemm_geometry_bf16_visits_every_tile_once(m, n):
+    """One persistent CTA per SM, or per tile where C has fewer; the walk
+    takes every tile of C exactly once, and no tile past it."""
+    tile, ctas = kgemm.gemm_geometry_bf16(m, n, SMS)
+    bm, bn = kgemm.TILE_BF16
+    tiles = -(-m // bm) * -(-n // bn)
+    assert tile == 0 and 0 < ctas == min(tiles, SMS)
+    origins = _walk_bf16(m, n, ctas)
+    assert len(origins) == len(set(origins)) == tiles
+    assert set(origins) == {(r, c) for r in range(0, m, bm)
+                            for c in range(0, n, bn)}
+
+
+@pytest.mark.parametrize("label", HPL_STRIPS)
+def test_gemm_geometry_bf16_strips_keep_the_full_updates_tiles(label):
+    """HPL's strips run on the full update's tile: a strip's 64 rows
+    (columns) fill one consumer warpgroup's half (one 64-column block) of
+    a tile, so each output meets the same m64n128k16 steps on the same
+    slices of K as in the full update, and the strip spreads over 128
+    CTAs."""
+    M, N = HPL_STRIPS[label]
+    tile, ctas = kgemm.gemm_geometry_bf16(M, N, SMS)
+    assert tile == kgemm.gemm_geometry_bf16(16384, 16384, SMS)[0] == 0
+    assert M % 64 == 0 and N % 64 == 0 and ctas == 128
+    assert len(_walk_bf16(M, N, ctas)) == M * N // (64 * 16384) * 128
+
+
+@pytest.mark.parametrize("sms", [1, 64, 132, 264])
+@pytest.mark.parametrize("size", [1024, 16384])
+def test_gemm_geometry_bf16_takes_one_cta_per_sm(sms, size):
+    tile, ctas = kgemm.gemm_geometry_bf16(size, size, sms)
+    assert ctas == min((size // 128) ** 2, sms)
+
+
+@pytest.mark.parametrize("shape", [(0, 16384), (16384, 0), (0, 0)])
+def test_gemm_geometry_bf16_refuses_an_empty_grid(shape):
+    with pytest.raises(ValueError, match="no geometry"):
+        kgemm.gemm_geometry_bf16(*shape, SMS)
+
+
 # ---------------------------------------------------------------------------
 # the wrapper, followed to the C call
 # ---------------------------------------------------------------------------
@@ -187,17 +239,24 @@ def test_gemm_wrapper_launches_its_geometry(recorder, case):
         "row strip": (_cuda(64, n), l[64:128], u),
         "column strip": (_cuda(n, 64), l, u[:, 64:128]),
         "trailing 4096": (full[n // 4:, n // 4:], l[n // 4:], u[:, n // 4:]),
-        "bf16 ragged": (_cuda(300, 512, dtype=torch.bfloat16)[:, 64:397],
-                        _cuda(300, 37, dtype=torch.bfloat16),
-                        _cuda(37, 333, dtype=torch.bfloat16))}[case]
+        # ragged M, N and K on the bf16 route, whose operands TMA must
+        # address: row strides and widths in whole 16-byte runs
+        "bf16 ragged": (_cuda(300, 512, dtype=torch.bfloat16)[:, 64:392],
+                        _cuda(300, 48, dtype=torch.bfloat16)[:, :40],
+                        _cuda(40, 328, dtype=torch.bfloat16))}[case]
     assert kgemm.gemm_update(c, a, b) is c
     (name, args), = recorder
     M, K, N = a.shape[0], a.shape[1], b.shape[1]
     assert name == kgemm._ENTRY[c.dtype]
     assert args[1::2][:3] == (a.stride(0), b.stride(0), c.stride(0))
     assert args[6:10] == (M, N, K, -1.0)
-    assert args[10:12] == kgemm.gemm_geometry(M, N, SMS)
+    geometry = (kgemm.gemm_geometry_bf16 if c.dtype == torch.bfloat16
+                else kgemm.gemm_geometry)
+    assert args[10:12] == geometry(M, N, SMS)
     assert ops.launch_counts()["gemm_update"] == 1
+    route = kgemm.ROUTES[c.dtype]
+    assert ops.launches_by_route()["gemm_update"] == {
+        r: int(r == route) for r in ("simt_f32", "wgmma_bf16")}
 
 
 @pytest.mark.parametrize("shape", [(0, 64, 64), (64, 64, 0)])
@@ -227,11 +286,16 @@ def test_gemm_entry_points_take_the_geometry():
     assert kgemm._ARGTYPES[9:12] == [ctypes.c_float, ctypes.c_int,
                                      ctypes.c_int64]
     for tile, (bm, bn) in enumerate(kgemm.TILES):
-        # launch_shape<T, WM, WN, GN>: WM x WN warps of 32 x 32 GN outputs
+        # launch_shape<WM, WN, GN>: WM x WN warps of 32 x 32 GN outputs
         wm, wn, gn = map(int, re.search(
-            rf"case {tile}:\s*return launch_shape<T, (\d+), (\d+), (\d+)>",
+            rf"case {tile}:\s*return launch_shape<(\d+), (\d+), (\d+)>",
             src).groups())
         assert (32 * wm, 32 * gn * wn, wm * wn) == (bm, bn, 4), (tile, bm, bn)
+    # the bf16 kernel's one tile, as gemm_geometry_bf16 assumes it
+    tc = src[src.index("namespace tc {"):]
+    bm, bn = (int(re.search(rf"constexpr int {k} = (\d+);", tc).group(1))
+              for k in ("BM", "BN"))
+    assert (bm, bn) == kgemm.TILE_BF16
 
 
 # ---------------------------------------------------------------------------

@@ -286,6 +286,58 @@ def test_flash_bf16_refuses_what_tma_cannot_load():
     assert ops.launch_counts() == before
 
 
+def _bf16_operands(case):
+    """c, a, b of a bf16 update (M = 64, K = 32, N = 64) with one operand
+    that TMA cannot address, on a device reported as CUDA."""
+    def bf16(rows, cols, pad=0, skip=0):
+        flat = torch.zeros(skip + rows * (cols + pad), dtype=torch.bfloat16)
+        full = flat[skip:].view(rows, cols + pad)
+        return full[:, :cols].as_subclass(_CudaTyped)
+    c, a, b = bf16(64, 64), bf16(64, 32), bf16(32, 64)
+    if case == "odd address":
+        a = bf16(64, 32, skip=1)   # 2 bytes past a 16-byte boundary
+    elif case == "odd lda":
+        a = bf16(64, 32, pad=4)    # rows of 72 bytes
+    elif case == "odd ldb":
+        b = bf16(32, 64, pad=4)    # rows of 136 bytes
+    elif case == "odd ldc":
+        c = bf16(64, 64, pad=4)
+    elif case == "odd C width":
+        c, b = bf16(64, 60, pad=4), bf16(32, 60, pad=4)  # 120 bytes wide
+    return c, a, b
+
+
+@pytest.mark.parametrize("case, rule", [
+    ("odd address", "aligned address"), ("odd lda", "row stride"),
+    ("odd ldb", "row stride"), ("odd ldc", "row stride"),
+    ("odd C width", "width")])
+def test_gemm_update_bf16_refuses_what_tma_cannot_load(case, rule):
+    """A bf16 update whose operands TMA cannot address raises ValueError
+    naming the rule and the operand, before any launch; it never takes
+    another route or the plain version."""
+    c, a, b = _bf16_operands(case)
+    name = {"odd address": "a", "odd lda": "a", "odd ldb": "b",
+            "odd ldc": "c", "odd C width": "c"}[case]
+    before = ops.launch_counts()
+    with pytest.raises(ValueError, match=rule) as err:
+        kgemm.gemm_update(c, a, b)
+    assert f"moves {name} by TMA" in str(err.value)
+    assert ops.launch_counts() == before
+
+
+def test_gemm_update_routes_follow_the_dtype_and_reset():
+    assert kgemm.ROUTES == {torch.float32: "simt_f32",
+                            torch.bfloat16: "wgmma_bf16"}
+    assert set(kgemm._ENTRY) == set(kgemm.ROUTES)
+    kgemm.gemm_update.launches_by_route["wgmma_bf16"] += 3
+    kgemm.gemm_update.launches_by_route["simt_f32"] += 1
+    assert ops.launches_by_route()["gemm_update"] == {"simt_f32": 1,
+                                                      "wgmma_bf16": 3}
+    ops.reset_launch_counts()
+    assert kgemm.gemm_update.launches_by_route == {
+        "simt_f32": 0, "wgmma_bf16": 0}
+
+
 def test_flash_routes_follow_the_dtype_and_reset():
     assert kattention.ROUTES == {torch.float32: "simt_f32",
                                  torch.bfloat16: "wgmma_bf16"}

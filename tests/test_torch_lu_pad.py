@@ -281,6 +281,7 @@ def test_counts_do_not_move_on_cpu_tensors():
     ops.trsm_lower_left(lu, torch.ones((48, 1009)))
     assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
     assert ops.launches_by_route() == {
+        "gemm_update": {"simt_f32": 0, "wgmma_bf16": 0},
         "lu_factor_block": {"warp_regs": 0, "cta_smem": 0},
         "trsm_lower_left": {"regs64": 0, "regs128": 0},
         "trsm_upper_right": {"regs64": 0, "regs128": 0},
