@@ -163,11 +163,11 @@ Phases, one JSON line each:
                kernel in the phase. Prints the resolutions, routes, reroute
                latency, retune events and the phase's seconds, all the
                host's loopback, not a link rate.
-17. moe     — qwen3-moe-235b-a22b at full width, depth cut to 4 layers
+17. moe     — qwen3-moe-235b-a22b at full width, depth cut to MOE_LAYERS
                (random weights from seed 0, drawn in fp32 and cast to bf16,
                the fp32 draw freed): ``generate`` on the one-rank mesh as
-               in serve, 8 x 1024 prompts, 32 new greedy tokens; 4 flash
-               launches per prefill, all on ``wgmma_bf16`` (q 64 heads, k/v
+               in serve, 8 x 1024 prompts, 32 new greedy tokens; one flash
+               launch a layer per prefill, all on ``wgmma_bf16`` (q 64 heads, k/v
                4: a GQA group of 16), none in decode, output (8, 1056)
                keeping the prompts, two runs bit-identical; prefill s,
                prompt tokens/s, decode ms per step p50, generated tokens/s,
@@ -313,7 +313,43 @@ Phases, one JSON line each:
                ``x``) against the one-rank step, and
                ``lm_step_bench``'s ``moe_explicit`` section: the explicit
                layer within MOE_TOL of the GSPMD one.
-26. serve_mesh — the explicit half of serving on four processes sharing
+26. gspmd_families — the MoE, SSM, vlm and encoder-decoder families on the
+               GSPMD placement: four processes sharing the card over gloo,
+               the 2x2 mesh, every result against the one-rank result on
+               the same weights. ``make_train_step`` with ZeRO-1 and with
+               ``fsdp`` (WHOLE_TOL, no kernel launched) for qwen3-moe's
+               ``tiny(4, layers=2)`` and jamba reduced to 4 layers (a
+               full-width expert layer is 9.7 GB of fp32 a process before
+               its moments), mamba2-130m at full size (4 x 1024 tokens)
+               and whisper-base at full size (8 x 64 tokens of 1500
+               frames). qwen3-moe at full width cut to FAM_DIMS
+               ``moe_layers`` layer (32 q heads, 2 KV heads and 64 experts
+               a rank; the whole weights drawn by one rank at a time): its
+               fp32 prefill of 4 x 1024 through flash (``simt_f32``)
+               within FP32_PREFILL_ATOL of the one-rank plain prefill, each
+               MoE layer's drops equal to it; the fp32 paged decode step
+               from identical pages within SERVE_MESH_ATOL; a bf16
+               ``generate`` of SERVE_B x SERVE_S + SERVE_NEW to phase
+               gspmd's serving gates, one ``wgmma_bf16`` flash launch a
+               rank a prefill and none in decode, except that its bf16
+               prefill needs only FAM_MOE_BF16_WITHIN of its positions
+               within the bf16 flash limit of the one-rank plain
+               prefill's (bf16 routing flips near ties; the fp32 prefill
+               holds the function). mamba2-130m (12 heads a rank): the
+               fp32 prefill of 4 x 1024 and FAM_DIMS ``ssm_decode``
+               decode steps against one rank, no flash.
+               llama-3.2-vision-90b at full width cut to VLM_LAYERS,
+               bf16, gates opened: the prefill of 4 x 1024 with 1024
+               patches, one flash launch a self-attention layer a rank,
+               within FAM_VLM_BF16_SHARE times the bf16 flash limit of
+               the one-rank plain prefill, and beyond it with the gates
+               closed. whisper-base (4 heads a rank): the fp32 prefill,
+               no flash. Every leg's prefill is ``gspmd_prefill``, phase
+               gspmd's. The weights of the train legs of
+               FAM_TINY_GRAD_LEGS are held where the one-rank gradient
+               reached FAM_TINY_GRAD, their first moments everywhere
+               (FAM_MU_ATOL). Each leg's seconds on the summary line.
+27. serve_mesh — the explicit half of serving on four processes sharing
                the card over gloo. This process first runs the one-rank
                oracles and frees them: qwen3-moe at full width cut to
                SERVE_MESH_MOE_LAYERS layer in fp32, its paged decode of
@@ -339,7 +375,7 @@ Phases, one JSON line each:
                leg. Then ``failover_bench``'s serve rank loss with its
                gate (GSPMD engine on a ring of four, rank 3 lost at step
                3: token-identical, 0 lost, >= 1 drained).
-27. launch   — the entry points a user starts, each a process of its own
+28. launch   — the entry points a user starts, each a process of its own
                on the card: ``python -m repro_torch.launch.train`` with
                LAUNCH_ARGS (llama3.2-3b at full size, phase train's
                geometry, 3 steps): losses finite and falling, the
@@ -359,7 +395,8 @@ Phases, one JSON line each:
                measurements).
 
 Each main-path phase zeroes the launch counts just before it runs and reads
-them just after (the allreduce, dp, whole, gspmd and serve_mesh phases in
+them just after (the allreduce, dp, whole, gspmd, gspmd_families and
+serve_mesh phases in
 each rank's process, around each ``allreduce_tree``, each schedule's or
 each leg's steps;
 ``ring_add_step``'s launches in the summary line add rank 0's dp and whole
@@ -505,11 +542,12 @@ WHOLE_TOL = (1e-5, 1e-4, 1e-3)  # loss rtol, grad-norm rtol, weights atol
 # batches and limits for the train legs of GSPMD_LEGS (name, fsdp; ZeRO-1
 # on in both), an fp32 prefill of GSPMD_PREFILL_B x SERVE_S prompts, and a
 # bf16 generate of SERVE_B x SERVE_S prompts plus SERVE_NEW tokens; then
-# the ring legs
+# the ring legs. One layer (it was two): with phase gspmd_families the
+# whole smoke took 1281 s of command time at two
 GSPMD_RANKS, GSPMD_TIMEOUT = 4, 600.0
 GSPMD_MESH = ((2, 2), ("data", "model"))
 GSPMD_LEGS = (("zero1", False), ("fsdp", True))
-GSPMD_LAYERS, GSPMD_PREFILL_B = 2, 4
+GSPMD_LAYERS, GSPMD_PREFILL_B = 1, 4
 # layers, d_model, vocab (None: full width), train rows, tokens, steps,
 # prefill rows, serve rows, prompt tokens, new tokens
 GSPMD_DIMS = (GSPMD_LAYERS, None, None, WHOLE_B, WHOLE_S, WHOLE_STEPS,
@@ -541,6 +579,44 @@ SERVE_MESH_DIMS = (SERVE_MESH_LAYERS, None, SERVE_MESH_SLOTS, ENGINE_PROMPT,
 # paged-vs-dense witness on the card reached 6.56e-5; a head or row on the
 # wrong rank moves the logits by O(1)
 SERVE_MESH_ATOL = 1e-4
+# the other families on the GSPMD placement (phase gspmd_families):
+# FAM_RANKS processes sharing the card, the 2x2 GSPMD_MESH; FAM_DIMS holds
+# the widths (None: the catalog's; an int: reduce() to it, a CPU probe),
+# MOE_ARCH's and VLM_ARCH's depths, the fp32 prefill's rows, the bf16
+# generate's rows, the prompt tokens, the new tokens, the SSM's decode
+# steps, the paged step's slots, mamba2's training rows (of ``seq``
+# tokens), whisper's rows and tokens, and the train steps
+FAM_RANKS, FAM_TIMEOUT = 4, 600.0
+# the train legs' weights are held within WHOLE_TOL[2] everywhere, except
+# in the legs of FAM_TINY_GRAD_LEGS: there only where the one-rank step's
+# clipped gradient reached FAM_TINY_GRAD at every step (below it AdamW's
+# lr g / (|g| + 1e-8) turns the ranks' reordered last bits into a share
+# of lr: mamba2-130m's weights ended 1.46e-3 apart over all, 3.6e-4 where
+# held, after 2 steps of lr 1e-3; the other legs' ended at most 2.7e-5
+# apart over all), and their first moments everywhere within FAM_MU_ATOL
+# (tests/test_torch_train_step.py's limit after two steps)
+FAM_TINY_GRAD, FAM_MU_ATOL, FAM_TINY_GRAD_LEGS = 1e-6, 2e-5, ("mamba2",)
+# the vlm's bf16 mesh prefill against the one-rank plain one: within
+# FAM_VLM_BF16_SHARE times the bf16 flash limit, a fixed bound between the
+# readings of a sound run (the mesh at 3.33-3.37 times the limit, the
+# one-rank flash prefill itself at 3.08-3.14, at full width and 5 layers)
+# and that of the mesh prefill with the cross gates closed, which must lie
+# beyond it (PERF.md §6)
+FAM_VLM_BF16_SHARE = 4.0
+# qwen3-moe's bf16 mesh prefill against the one-rank plain one: at least
+# FAM_MOE_BF16_WITHIN of its positions (rows x tokens) with every logit
+# within the bf16 flash limit (bf16 router logits flip near-tied top-k
+# choices, which moves those tokens' logits by O(1): 0.936-0.944 of the
+# mesh's positions and 0.942-0.951 of the one-rank flash prefill's were
+# within it at full width and 1 layer; a rank holding the wrong experts
+# moves every token; PERF.md §6)
+FAM_MOE_BF16_WITHIN = 0.9
+FAM_FRAMES_SEED, FAM_PAGES_SEED = 3, 4
+FAM_DIMS = {"width": None, "moe_layers": 1, "vlm_layers": VLM_LAYERS,
+            "prefill_b": 4, "serve_b": SERVE_B, "seq": SERVE_S,
+            "new": SERVE_NEW, "ssm_decode": 8, "paged_slots": 8,
+            "train_b": 4, "whisper_b": 8, "whisper_s": WHISPER_PROMPT,
+            "steps": WHOLE_STEPS}
 # phase launch: the training launcher at phase train's full-size geometry,
 # the examples, one dry-run cell; subprocesses of the repository's own
 # entry points
@@ -1423,8 +1499,9 @@ def kernels_flash(torch, randn, rows):
     dims 64 and 32, non-causal GQA, q_offsets, ragged lengths (Sq = Skv
     = 1000 is no multiple of the bf16 kernel's 128-row tile), and the
     prefill shapes of phases moe (a GQA group of 16), ssm (the reduced
-    jamba's 4 heads of 128), vlm (64 heads on 8) and gspmd (a rank's 12
-    heads on 4, fp32 and bf16). Every bf16
+    jamba's 4 heads of 128), vlm (64 heads on 8), gspmd (a rank's 12
+    heads on 4, fp32 and bf16) and gspmd_families (a rank's qwen3-moe 32
+    heads on 2, fp32 and bf16, and vlm 32 heads on 4). Every bf16
     call must run on the ``wgmma_bf16`` route and every fp32 call on
     ``simt_f32``."""
     import torch.nn.functional as F
@@ -1557,7 +1634,19 @@ def kernels_flash(torch, randn, rows):
             GSPMD_PREFILL_B // 2, SERVE_S, SERVE_S, 12, 4, 128, f32, True,
             0),
         "gspmd rank 12 q on 4 kv heads hd128 bf16 causal": (
-            SERVE_B // 2, SERVE_S, SERVE_S, 12, 4, 128, bf16, True, 0)}
+            SERVE_B // 2, SERVE_S, SERVE_S, 12, 4, 128, bf16, True, 0),
+        # a rank's head shard in phase gspmd_families' prefills on the 2x2
+        # mesh: qwen3-moe's 32 q heads on 2 kv heads (fp32 and bf16), the
+        # vlm's 32 on 4
+        "gspmd_families qwen3-moe rank 32 q on 2 kv heads hd128 causal": (
+            FAM_DIMS["prefill_b"] // 2, SERVE_S, SERVE_S, 32, 2, 128, f32,
+            True, 0),
+        "gspmd_families qwen3-moe rank 32 q on 2 kv heads hd128 bf16 "
+        "causal": (SERVE_B // 2, SERVE_S, SERVE_S, 32, 2, 128, bf16, True,
+                   0),
+        "gspmd_families vlm rank 32 q on 4 kv heads hd128 bf16 causal": (
+            FAM_DIMS["prefill_b"] // 2, SERVE_S, SERVE_S, 32, 4, 128, bf16,
+            True, 0)}
     # the plain version keeps the reference's rule that its blocks divide
     # the lengths: 1000 is no multiple of its default 512, so one block
     plain_blocks = {"1000x1000 hd128 bf16 causal": dict(bq=1000, bk=1000)}
@@ -3757,11 +3846,13 @@ def whole_rank(mesh, device, dims, root):
     return out
 
 
-def one_rank_steps(torch, cfg, batches, device):
+def one_rank_steps(torch, cfg, batches, device, mus=None):
     """The one-rank ``make_train_step`` on the global batches from seed 0's
-    state: losses, grad norms and the final weights (on ``device``)."""
-    from repro_torch.comm.overlap import tree_flatten
+    state: losses, grad norms and the final weights (on ``device``); a
+    copy of AdamW's first moments after each step appended to ``mus``
+    when it is a list."""
     from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import tree_map
     from repro_torch.train.step import init_train_state, make_train_step
 
     model = build_model(cfg)
@@ -3772,6 +3863,8 @@ def one_rank_steps(torch, cfg, batches, device):
         state, m = step(state, batch)
         loss.append(float(m["loss"]))
         gn.append(float(m["grad_norm"]))
+        if mus is not None:
+            mus.append(tree_map(state.opt["mu"], lambda t: t.clone()))
     return loss, gn, state.params
 
 
@@ -3957,33 +4050,27 @@ def phase_whole(torch, card: str):
 
 
 def gspmd_train_leg(mesh, device, model, batches, fsdp: bool,
-                    save_to) -> dict:
+                    save_to, moments: bool = False) -> dict:
     """One train leg on this rank: ``make_train_step`` on the GSPMD
     placement from seed 0's whole state cut by ``shard_state`` (ZeRO-1
     on), with this rank's losses, grad norms, seconds (from a barrier to
     the drained card), launches, bytes staged by source and peak memory;
     then the whole weights, gathered (``gather_params``), written by rank 0
-    to ``save_to``."""
+    to ``save_to``, with ``moments`` also AdamW's first moments
+    (``gather_state``)."""
     import torch
     import torch.distributed as dist
 
     from repro_torch import checkpoint as ckpt
-    from repro_torch.comm.engine import (reset_staged_bytes,
-                                         staged_bytes_by_callsite)
-    from repro_torch.kernels import ops
-    from repro_torch.train.step import (gather_params, init_train_state,
-                                        make_train_step, shard_state)
+    from repro_torch.train.step import (gather_params, gather_state,
+                                        init_train_state, make_train_step,
+                                        shard_state)
 
     cuda = device == "cuda"
     state = shard_state(init_train_state(model, 0, device=device), mesh,
                         zero1=True, fsdp=fsdp)
     step = make_train_step(model, whole_run(), mesh, zero1=True, fsdp=fsdp)
-    if cuda:
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    reset_staged_bytes()
+    leg_start(torch, device)
     rec = {"loss": [], "grad_norm": [], "seconds": []}
     for batch in batches:
         dist.barrier()
@@ -3995,76 +4082,153 @@ def gspmd_train_leg(mesh, device, model, batches, fsdp: bool,
         rec["seconds"].append(time.perf_counter() - t0)
         rec["loss"].append(loss)
         rec["grad_norm"].append(float(m["grad_norm"]))
-    rec["launches"] = ops.launch_counts()
-    rec["staged"] = {str(k): v for k, v in staged_bytes_by_callsite().items()}
-    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if cuda \
-        else None
+    leg_end(torch, device, rec)
     rec["device"] = str(next(state.params.parameters()).device)
-    whole = gather_params(state.params, model, mesh, fsdp=fsdp)
+    if moments:
+        whole = gather_state(state, model, mesh, fsdp=fsdp)
+        trees = {"params": whole.params, "mu": whole.opt["mu"]}
+    else:
+        whole = gather_params(state.params, model, mesh, fsdp=fsdp)
+        trees = {"params": whole}
     if mesh.rank == 0:
-        ckpt.save(save_to, len(batches), {"params": whole})
-    del whole, state, step
+        ckpt.save(save_to, len(batches), trees)
+    del whole, trees, state, step
     dist.barrier()  # the writer has renamed its directory
     if cuda:
         torch.cuda.empty_cache()
     return rec
 
 
-def gspmd_prefill(mesh, device, model, rows: int, seq: int) -> dict:
-    """The fp32 prefill of ``rows`` x ``seq`` prompts on ``mesh`` (this
-    rank's rows, heads and KV heads through the flash kernel) against the
-    one-rank fp32 prefill of the same rows through the plain attention
-    (``mesh=None``), as phase serve holds flash to it."""
+def seeded_tokens(cfg, rows: int, seq: int, device):
+    """``rows`` x ``seq`` prompt tokens drawn from seed 1 on ``device``."""
     import torch
 
-    from repro_torch import sharding as sh
-    from repro_torch.kernels import attention as kfa
-    from repro_torch.kernels import ops
-    from repro_torch.train.serve import make_prefill_step
-
-    cfg = model.cfg
-    params = model.init(0, device=device)
     gen = torch.Generator(device=device).manual_seed(1)
-    prompts = torch.randint(0, cfg.vocab_size, (rows, seq), generator=gen,
-                            device=device, dtype=torch.int32)
-    rules = sh.rules_for(mesh)
-    idx, n = sh.block_of(mesh, rules.dp_spec)
-    mine = prompts[idx * rows // n:(idx + 1) * rows // n]
-    one = make_prefill_step(model, None)(
-        params, {"tokens": mine},
-        model.init_cache(len(mine), seq, torch.float32, device=device))[0]
-    local = type(params)(cfg, sh.cut(params.tree(), sh.param_specs(
-        params, rules, mesh), mesh))
-    del params
-    ops.reset_launch_counts()
-    got = make_prefill_step(model, mesh)(
-        local, {"tokens": mine},
-        model.init_cache(rows, seq, torch.float32, device=device,
-                         mesh=mesh))[0]
-    rec = {"max_abs_vs_one_rank_plain": max_abs(got, one),
-           "finite": bool(torch.isfinite(got).all()),
-           "shape": list(got.shape),
-           "flash_routes": dict(kfa.flash_attention.launches_by_route),
-           "launches": ops.launch_counts()}
-    del got, one, local
-    if device == "cuda":
-        torch.cuda.empty_cache()
+    return torch.randint(0, cfg.vocab_size, (rows, seq), generator=gen,
+                         device=device, dtype=torch.int32)
+
+
+def prefill_run(model, params, mesh, batch, rows=None, decode=None,
+                aux=None) -> dict:
+    """The prefill of ``batch`` (its tokens this rank's rows, with the
+    frames or patches a family takes) on ``mesh`` (None: one rank through
+    the plain attention; a one-rank mesh: through flash), then one decode
+    step for each column of ``decode``, its tokens fed in. ``rows`` is the
+    global batch a mesh's cache is cut from (None: a whole cache of the
+    batch's rows). Returns the logits (with steps: the prefill's last
+    position's and each step's), the seconds of the prefill and of each
+    step, and the cache's shapes per layer; with a list ``aux``, each MoE
+    layer's (moe_dropped, moe_frac_tokens) appended to it by a spy on
+    ``apply_moe``."""
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.train.serve import make_decode_step, make_prefill_step
+
+    tokens = batch["tokens"]
+    steps = 0 if decode is None else decode.shape[1]
+    cache = model.init_cache(rows or len(tokens), tokens.shape[1] + steps,
+                             params.embed.dtype, device=tokens.device,
+                             mesh=mesh if rows else None)
+    shapes = [{k: list(v.shape) for k, v in lay.items()}
+              for lay in cache["layers"]]
+    orig = moe.apply_moe
+
+    def spy(p, cfg, x, aux_in=None, shard=None):
+        got = {}
+        out = orig(p, cfg, x, aux=got, shard=shard)
+        aux.append((float(got["moe_dropped"]), got["moe_frac_tokens"].cpu()))
+        return out
+
+    def lap(t0):
+        if tokens.is_cuda:
+            torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+
+    if aux is not None:
+        moe.apply_moe = spy
+    secs = []
+    try:
+        t0 = time.perf_counter()
+        logits, cache = make_prefill_step(model, mesh)(params, batch, cache)
+        lap(t0)
+        if steps:
+            outs, step = [logits[:, -1:]], make_decode_step(model, mesh)
+            for i in range(steps):
+                t0 = time.perf_counter()
+                logits, cache = step(params, decode[:, i:i + 1], cache, {})
+                lap(t0)
+                outs.append(logits)
+            logits = torch.cat(outs, 1)
+    finally:
+        moe.apply_moe = orig
+    return {"logits": logits, "seconds": secs, "cache_shapes": shapes,
+            "aux": aux}
+
+
+def gspmd_prefill(mesh, device, model, batch, rows: int, *, params=None,
+                  want=None, decode=None, aux=False, keep=False) -> dict:
+    """``batch`` (this rank's rows of a global batch of ``rows``)
+    prefilled on ``mesh`` with this rank's heads, KV heads and experts
+    (flash on the card), then fed ``decode``'s tokens a step each, against
+    the one-rank run of the same rows through the plain attention, as
+    phase serve holds flash to it. ``want`` is that one-rank run
+    (:func:`prefill_run`, ``mesh=None``) where the caller made it, and
+    ``params`` then this rank's part of the weights; otherwise it is made
+    here from the whole ``params`` (seed 0's when None), which are then
+    cut. The record holds the max |d| and the share of the bf16 flash limit
+    (:func:`flash_limit_share`), the seconds, the cache's shapes and what
+    :func:`leg_end` reads; with ``aux`` each MoE layer's drops beside the
+    one-rank run's; with ``keep`` the logits and this rank's weights."""
+    import torch
+
+    if want is None:
+        if params is None:
+            params = model.init(0, device=device)
+        want = prefill_run(model, params, None, batch, decode=decode,
+                           aux=[] if aux else None)
+        params = cut_params(params, mesh)
+    leg_start(torch, device)
+    got = prefill_run(model, params, mesh, batch, rows, decode,
+                      [] if aux else None)
+    logits = got["logits"]
+    rec = leg_end(torch, device, {"seconds": got["seconds"][0],
+                                  "finite": bool(torch.isfinite(logits).all()),
+                                  "shape": list(logits.shape),
+                                  "cache_shapes": got["cache_shapes"]})
+    rec["vs_one_rank"] = flash_limit_share(logits, want["logits"])
+    rec["max_abs_vs_one_rank"] = rec["vs_one_rank"]["max_abs"]
+    if decode is not None:
+        steps = sorted(got["seconds"][1:])
+        rec["decode_ms_p50"] = steps[len(steps) // 2] * 1e3
+    if aux:
+        rec["dropped"] = [a[0] for a in got["aux"]]
+        rec["dropped_one_rank"] = [a[0] for a in want["aux"]]
+        rec["frac_equal"] = len(got["aux"]) == len(want["aux"]) and all(
+            torch.equal(a[1], w[1]) for a, w in zip(got["aux"], want["aux"]))
+    if keep:
+        rec["logits"], rec["params"] = logits, params
+    else:
+        del logits, params
+        if device == "cuda":
+            torch.cuda.empty_cache()
     return rec
 
 
-def gspmd_serve(mesh, device, model, rows: int, seq: int, new: int) -> dict:
+def gspmd_serve(mesh, device, model, rows: int, seq: int, new: int,
+                ring=None, one_rank_flash: bool = True) -> dict:
     """bf16 ``generate`` of ``rows`` x ``seq`` prompts and ``new`` tokens
-    on ``mesh`` twice, then its prefill and decode steps timed apart, with
-    the flash launches of each; the prefill's logits against the one-rank
-    bf16 prefill of this rank's rows through the plain attention (and, to
-    read beside them, the one-rank prefill through flash against it)."""
+    on ``mesh`` twice, then its prefill and decode steps timed apart, each
+    with what :func:`leg_end` reads; the prefill's logits against the
+    one-rank bf16 prefill of this rank's rows through the plain attention
+    (and, to read beside them, the one-rank prefill through flash against
+    it, unless ``one_rank_flash`` is False). With a ``ring`` one rank at a
+    time draws the whole weights and runs the one-rank prefills
+    (:func:`in_turn`)."""
     import dataclasses
 
     import torch
 
-    from repro_torch import sharding as sh
-    from repro_torch.kernels import attention as kfa
-    from repro_torch.kernels import ops
     from repro_torch.launch.mesh import single_rank_mesh
     from repro_torch.models.model import build_model
     from repro_torch.models.transformer import cast_params
@@ -4074,90 +4238,127 @@ def gspmd_serve(mesh, device, model, rows: int, seq: int, new: int) -> dict:
     cuda = device == "cuda"
     model = build_model(dataclasses.replace(model.cfg, dtype="bfloat16"))
     cfg = model.cfg
-    params = model.init(0, device=device)
-    gen = torch.Generator(device=device).manual_seed(1)
-    prompts = torch.randint(0, cfg.vocab_size, (rows, seq), generator=gen,
-                            device=device, dtype=torch.int32)
-    rules = sh.rules_for(mesh)
-    idx, n = sh.block_of(mesh, rules.dp_spec)
-    mine = prompts[idx * rows // n:(idx + 1) * rows // n]
-    bf = cast_params(params, torch.bfloat16)
-    plain, one_flash = (make_prefill_step(model, m)(
-        bf, {"tokens": mine}, model.init_cache(
-            len(mine), seq, torch.bfloat16, device=device))[0].cpu()
-        for m in (None, single_rank_mesh(("x",))))  # kept off the card
-    del bf
-    if cuda:
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
+    prompts = seeded_tokens(cfg, rows, seq, device)
+    mine = prompts[rows_of(mesh, rows)]
+
+    def draw():
+        params = cast_params(model.init(0, device=device), torch.bfloat16)
+
+        def one_rank(m):
+            return prefill_run(model, params, m, {"tokens": mine})[
+                "logits"].cpu()
+        return (params, one_rank(None), one_rank(single_rank_mesh(("x",)))
+                if one_rank_flash else None)
+
+    params, plain, one_flash = draw() if ring is None else in_turn(ring, draw)
+    leg_start(torch, device)
     out = generate(model, params, prompts, max_new_tokens=new, mesh=mesh)
     if cuda:
         torch.cuda.synchronize()
-    rec = {"generate_launches": ops.launch_counts(),
-           "generate_routes": dict(kfa.flash_attention.launches_by_route),
-           "shape": list(out.shape),
-           "prompts_kept": bool(torch.equal(out[:, :seq], mine)),
-           "in_vocab": bool(((out >= 0) & (out < cfg.padded_vocab())).all())}
+    rec = {"generate": leg_end(torch, device, {
+        "shape": list(out.shape),
+        "prompts_kept": bool(torch.equal(out[:, :seq], mine)),
+        "in_vocab": bool(((out >= 0) & (out < cfg.padded_vocab())).all())})}
     again = generate(model, params, prompts, max_new_tokens=new, mesh=mesh)
-    rec["bitwise_repeat"] = bool(torch.equal(again, out))
+    rec["generate"]["bitwise_repeat"] = bool(torch.equal(again, out))
     del again
-    local = type(params)(cfg, sh.cut(params.tree(), sh.param_specs(
-        params, rules, mesh), mesh))
+    local = cut_params(params, mesh)
     del params
 
-    sp = cast_params(local, torch.bfloat16)
     cache = model.init_cache(rows, seq + new, torch.bfloat16, device=device,
                              mesh=mesh)
-    prefill = make_prefill_step(model, mesh)
     decode = make_decode_step(model, mesh)
-    ops.reset_launch_counts()
+    leg_start(torch, device)
     t0 = time.perf_counter()
-    logits, cache = prefill(sp, {"tokens": mine}, cache)
+    logits, cache = make_prefill_step(model, mesh)(local, {"tokens": mine},
+                                                   cache)
     if cuda:
         torch.cuda.synchronize()
-    rec["prefill_s"] = time.perf_counter() - t0
-    rec["prefill_flash"] = ops.launch_counts()["flash_attention"]
-    rec["prefill_routes"] = dict(kfa.flash_attention.launches_by_route)
-    rec["prefill_vs_one_rank_plain"] = flash_limit_share(logits, plain)
-    rec["one_rank_flash_vs_plain"] = flash_limit_share(one_flash, plain)
+    rec["prefill"] = pre = leg_end(torch, device,
+                                   {"seconds": time.perf_counter() - t0})
+    pre["vs_one_rank_plain"] = flash_limit_share(logits, plain)
+    if one_rank_flash:
+        pre["one_rank_flash_vs_plain"] = flash_limit_share(one_flash, plain)
     tok = torch.argmax(logits[:, -1], dim=-1).to(mine.dtype)[:, None]
     del logits, plain, one_flash
     toks, steps = [tok], []
-    ops.reset_launch_counts()
+    leg_start(torch, device)
     for _ in range(new - 1):
         t0 = time.perf_counter()
-        logits, cache = decode(sp, tok, cache, {})
+        logits, cache = decode(local, tok, cache, {})
         if cuda:
             torch.cuda.synchronize()
         steps.append(time.perf_counter() - t0)
         tok = torch.argmax(logits[:, -1], dim=-1).to(mine.dtype)[:, None]
         toks.append(tok)
-    rec["decode_flash"] = ops.launch_counts()["flash_attention"]
-    rec["steps_match_generate"] = bool(torch.equal(torch.cat(toks, 1),
-                                                   out[:, seq:]))
     steps.sort()
-    rec["decode_ms_p50"] = steps[len(steps) // 2] * 1e3
-    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if cuda \
-        else None
-    del cache, sp, local, out
+    rec["decode"] = leg_end(torch, device, {
+        "steps_match_generate": bool(torch.equal(torch.cat(toks, 1),
+                                                 out[:, seq:])),
+        "ms_p50": steps[len(steps) // 2] * 1e3})
+    del cache, local, out
     if cuda:
         torch.cuda.empty_cache()
     return rec
 
 
+def hold_serve(what, srv, layers: int, min_within=None):
+    """:func:`gspmd_serve`'s gates over every rank's record: ``layers``
+    flash launches on ``wgmma_bf16`` in the generate and in the timed
+    prefill, none in decode and nothing else; two bit-identical runs, the
+    decode steps the generate's tokens, the prompts kept and the vocab
+    held; the prefill's logits within the bf16 flash limit of the one-rank
+    plain prefill's, or, with ``min_within``, at least that share of its
+    positions wholly within it."""
+    from repro_torch.kernels import ops
+
+    none = dict.fromkeys(ops.KERNELS, 0)
+    want = {**none, "flash_attention": layers}
+    routes = {"wgmma_bf16": layers} if layers else {}
+    for r in srv:
+        g, pre, dec = r["generate"], r["prefill"], r["decode"]
+        check(g["launches"] == want and g["flash_routes"] == routes
+              and pre["launches"] == want and pre["flash_routes"] == routes,
+              f"{what}: generate launched {g['launches']} on "
+              f"{g['flash_routes']}, prefill {pre['launches']} on "
+              f"{pre['flash_routes']}; want {layers} flash launches on "
+              "wgmma_bf16 each and nothing else")
+        check(dec["launches"] == none,
+              f"{what}: {dec['launches']} launched in decode")
+        check(g["bitwise_repeat"] and dec["steps_match_generate"],
+              f"{what}: two greedy runs (or the timed steps) differ")
+        check(g["prompts_kept"] and g["in_vocab"],
+              f"{what}: generate changed the prompts or left the vocab")
+        v = pre["vs_one_rank_plain"]
+        if min_within is None:
+            check(v["limit_share"] <= 1.0,
+                  f"{what}: bf16 prefill logits vs the one-rank prefill's "
+                  f"through the plain attention {v}, beyond atol "
+                  f"{FLASH_ATOL['bfloat16']} + rtol {FLASH_RTOL} |want|")
+        else:
+            check(v["within_share"] >= min_within,
+                  f"{what}: {v['within_share']} of the bf16 prefill's "
+                  "positions within atol "
+                  f"{FLASH_ATOL['bfloat16']} + rtol {FLASH_RTOL} |want| of "
+                  f"the one-rank plain prefill's, want {min_within} ({v})")
+
+
 def flash_limit_share(got, want) -> dict:
-    """The max |got - want| of two bf16 logit tensors, a row at a time on
-    ``got``'s device, and the largest share of the bf16 flash limit
-    FLASH_ATOL + FLASH_RTOL |want| that any element uses (> 1: beyond)."""
-    err, share = 0.0, 0.0
+    """The max |got - want| of two logit tensors, a row at a time on
+    ``got``'s device, the largest share of the bf16 flash limit
+    FLASH_ATOL + FLASH_RTOL |want| that any element uses (> 1: beyond),
+    and the share of positions (rows x tokens) whose logits are all
+    within it."""
+    err, share, within, n = 0.0, 0.0, 0, 0
     for g, w in zip(got, want):
         w = w.to(g.device).float()
         d = (g.float() - w).abs()
         err = max(err, float(d.max()))
-        share = max(share, float((d / (FLASH_ATOL["bfloat16"]
-                                       + FLASH_RTOL * w.abs())).max()))
-    return {"max_abs": err, "limit_share": share}
+        r = d / (FLASH_ATOL["bfloat16"] + FLASH_RTOL * w.abs())
+        share = max(share, float(r.max()))
+        pos = r.amax(-1)
+        within, n = within + int((pos <= 1).sum()), n + pos.numel()
+    return {"max_abs": err, "limit_share": share, "within_share": within / n}
 
 
 def gspmd_ring_leg(mesh, device, moe, batches) -> dict:
@@ -4213,7 +4414,9 @@ def gspmd_rank(mesh, device, dims, root):
     out = {"train": {name: gspmd_train_leg(grid, device, model, batches,
                                            fsdp, os.path.join(root, name))
                      for name, fsdp in GSPMD_LEGS}}
-    out["prefill"] = gspmd_prefill(grid, device, model, dims[6], dims[8])
+    out["prefill"] = gspmd_prefill(
+        grid, device, model, {"tokens": seeded_tokens(
+            cfg, dims[6], dims[8], device)[rows_of(grid, dims[6])]}, dims[6])
     out["serve"] = gspmd_serve(grid, device, model, dims[7], dims[8],
                                dims[9])
     moe = tiny(ring.axis("x").size, layers=2)
@@ -4229,11 +4432,9 @@ def run_gspmd(torch, device, dims, timeout=GSPMD_TIMEOUT) -> dict:
     exit, the one-rank comparisons in this process; every gate asserted.
     Returns the record (``dims`` smaller than GSPMD_DIMS and
     ``device="cpu"`` make a probe on the CPU)."""
-    import os
     import shutil
     import tempfile
 
-    from repro_torch import checkpoint as ckpt
     from repro_torch.benchmarks import lm_step_bench
     from repro_torch.comm.overlap import tree_flatten
     from repro_torch.configs.qwen3_moe_235b_a22b import tiny
@@ -4244,13 +4445,7 @@ def run_gspmd(torch, device, dims, timeout=GSPMD_TIMEOUT) -> dict:
     # one flash launch per layer per prefill on the card; on the CPU the
     # wrapper takes its plain version and counts nothing
     layers = dims[0] if device == "cuda" else 0
-
-    def close(a, b, rtol):
-        return all(abs(x / y - 1) <= rtol for x, y in zip(a, b))
-
-    def max_diff(xs, ys):
-        return max(float((x.to(y.device) - y).abs().max()) if x.numel()
-                   else 0.0 for x, y in zip(xs, ys))
+    close = close_rel
 
     root = tempfile.mkdtemp(prefix="chip_smoke_gspmd_")
     try:
@@ -4259,86 +4454,34 @@ def run_gspmd(torch, device, dims, timeout=GSPMD_TIMEOUT) -> dict:
                            axes=("x",), timeout=timeout)
         ranks_s = time.perf_counter() - t0
         cfg = whole_cfg(dims)
-        one, one_gn, one_params = one_rank_steps(
-            torch, cfg, whole_batches(cfg.vocab_size, *dims[3:6]), device)
-        one_w = tree_flatten(one_params.tree())[0]
+        legs = hold_train_legs(
+            torch, "gspmd", {name: [r["train"][name] for r in ranks]
+                             for name, _ in GSPMD_LEGS},
+            cfg, whole_batches(cfg.vocab_size, *dims[3:6]), device, root)
+        first = legs[GSPMD_LEGS[0][0]]
+        one, one_gn = first["one_rank_loss"], first["one_rank_grad_norm"]
         none = dict.fromkeys(ops.KERNELS, 0)
-        legs = {}
-        for name, _ in GSPMD_LEGS:
-            recs = [r["train"][name] for r in ranks]
-            what = f"gspmd/{name}"
-            check(all(r["device"].startswith(device) for r in recs),
-                  f"{what} ran on {[r['device'] for r in recs]}")
-            check(all(close(r["loss"], one, rtol_loss) for r in recs),
-                  f"{what}: losses {[r['loss'] for r in recs]} vs the "
-                  f"one-rank step's {one} beyond rtol {rtol_loss}")
-            check(all(close(r["grad_norm"], one_gn, rtol_gn) for r in recs),
-                  f"{what}: grad norms {[r['grad_norm'] for r in recs]} vs "
-                  f"{one_gn} beyond rtol {rtol_gn}")
-            check(all(r["launches"] == none for r in recs),
-                  f"{what}: launches {[r['launches'] for r in recs]}, want "
-                  "none (training takes the plain attention; native "
-                  "reduces through the library)")
-            d = os.path.join(root, name)
-            _, got, _ = ckpt.restore(d, {"params": one_params})
-            err = max_diff(tree_flatten(got["params"].tree())[0], one_w)
-            check(err <= atol_w, f"{what}: weights {err} from the one-rank "
-                                 f"step's, beyond {atol_w}")
-            del got
-            shutil.rmtree(d)
-            legs[name] = {
-                "loss": recs[0]["loss"], "grad_norm": recs[0]["grad_norm"],
-                "step_s": [max(r["seconds"][i] for r in recs)
-                           for i in range(len(one))],
-                "staged_bytes_per_rank_by_source": recs[0]["staged"],
-                "peak_gb_per_rank": [r["peak_gb"] for r in recs],
-                "max_abs_weight_diff_vs_one_rank": err}
-        del one_params, one_w
-        if device == "cuda":
-            torch.cuda.empty_cache()
 
         pre = [r["prefill"] for r in ranks]
         route = "simt_f32"
         check(all(p["finite"] for p in pre), "gspmd: fp32 prefill logits "
                                              "not finite")
-        err32 = [p["max_abs_vs_one_rank_plain"] for p in pre]
+        err32 = [p["max_abs_vs_one_rank"] for p in pre]
         check(all(e <= FP32_PREFILL_ATOL for e in err32),
               f"gspmd: fp32 prefill {err32} from the one-rank prefill's "
               f"through the plain attention, beyond {FP32_PREFILL_ATOL}")
         want_flash = {**none, "flash_attention": layers}
         check(all(p["launches"] == want_flash for p in pre) and all(
-            p["flash_routes"].get(route, 0) == layers
-            and sum(p["flash_routes"].values()) == layers for p in pre),
+            p["flash_routes"] == ({route: layers} if layers else {})
+            for p in pre),
               f"gspmd: fp32 prefill launches {[p['launches'] for p in pre]}"
               f" routes {[p['flash_routes'] for p in pre]}")
 
         srv = [r["serve"] for r in ranks]
-        want_routes = {"wgmma_bf16": layers} if layers else {}
-        for r in srv:
-            check(r["generate_launches"] == want_flash,
-                  f"gspmd: generate launched {r['generate_launches']}, "
-                  f"want {layers} flash launches (one prefill) and nothing "
-                  "else")
-            check({k: v for k, v in r["generate_routes"].items() if v}
-                  == want_routes and r["prefill_flash"] == layers
-                  and {k: v for k, v in r["prefill_routes"].items() if v}
-                  == want_routes,
-                  f"gspmd: flash routes {r['generate_routes']}, prefill "
-                  f"{r['prefill_routes']}")
-            check(r["decode_flash"] == 0,
-                  f"gspmd: {r['decode_flash']} flash launches in decode")
-            check(r["bitwise_repeat"] and r["steps_match_generate"],
-                  "gspmd: two greedy runs (or the timed steps) differ")
-            check(r["prompts_kept"] and r["in_vocab"],
-                  "gspmd: generate changed the prompts or left the vocab")
-            check(r["prefill_vs_one_rank_plain"]["limit_share"] <= 1.0,
-                  f"gspmd: bf16 prefill logits vs the one-rank prefill's "
-                  f"through the plain attention "
-                  f"{r['prefill_vs_one_rank_plain']}, beyond atol "
-                  f"{FLASH_ATOL['bfloat16']} + rtol {FLASH_RTOL} |want|")
+        hold_serve("gspmd", srv, layers)
         # the two ranks of one data index hold the same rows
         for a, b in ((0, 1), (2, 3)):
-            check(srv[a]["shape"] == srv[b]["shape"],
+            check(srv[a]["generate"]["shape"] == srv[b]["generate"]["shape"],
                   "gspmd: the model axis disagrees on the output")
 
         moe = tiny(GSPMD_RANKS, layers=2)
@@ -4369,16 +4512,20 @@ def run_gspmd(torch, device, dims, timeout=GSPMD_TIMEOUT) -> dict:
                         "atol": FP32_PREFILL_ATOL},
             "serve": {"batch": [dims[7], dims[8]], "new_tokens": dims[9],
                       "flash_launches_per_rank_per_prefill": [
-                          r["prefill_flash"] for r in srv],
+                          r["prefill"]["launches"]["flash_attention"]
+                          for r in srv],
                       "prefill_vs_one_rank_plain": [
-                          r["prefill_vs_one_rank_plain"] for r in srv],
+                          r["prefill"]["vs_one_rank_plain"] for r in srv],
                       "one_rank_flash_vs_plain": [
-                          r["one_rank_flash_vs_plain"] for r in srv],
+                          r["prefill"]["one_rank_flash_vs_plain"]
+                          for r in srv],
                       "prefill_tol": {"atol": FLASH_ATOL["bfloat16"],
                                       "rtol": FLASH_RTOL},
-                      "prefill_s": max(r["prefill_s"] for r in srv),
-                      "decode_ms_p50": max(r["decode_ms_p50"] for r in srv),
-                      "peak_gb_per_rank": [r["peak_gb"] for r in srv],
+                      "prefill_s": max(r["prefill"]["seconds"] for r in srv),
+                      "decode_ms_p50": max(r["decode"]["ms_p50"]
+                                           for r in srv),
+                      "peak_gb_per_rank": [r["generate"]["peak_gb"]
+                                           for r in srv],
                       "bitwise_repeat": True},
             "moe_ring": {"config": "qwen3-moe-235b-a22b tiny(4, layers=2), "
                                    f"fp32, {WHOLE_MOE_B} x {WHOLE_MOE_S} "
@@ -4432,6 +4579,670 @@ def phase_gspmd(torch, card: str):
           "what_the_time_measures": "the host's loopback (gloo on one "
                                     "machine), not a link rate"})
     return rec["serve"]["flash_launches_per_rank_per_prefill"]
+
+
+def fam_cfgs(dims) -> dict:
+    """Phase gspmd_families' configs: MOE_ARCH and VLM_ARCH at full width
+    cut in depth, SSM_ARCH and WHISPER_ARCH at full size, or, with a
+    ``dims['width']``, ``reduced()`` to it (a probe on the CPU); the
+    reduced MoE and hybrid that train (FAM_TRAIN_NOTE)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.qwen3_moe_235b_a22b import tiny
+
+    def cut(arch, layers, dtype):
+        base = get_config(arch)
+        if dims["width"] is None:
+            cfg = dataclasses.replace(base,
+                                      num_layers=layers or base.num_layers)
+        else:
+            cfg = reduced(base, layers=layers or 2, d_model=dims["width"])
+        return dataclasses.replace(cfg, dtype=dtype)
+
+    return {"moe": cut(MOE_ARCH, dims["moe_layers"], "float32"),
+            "ssm": cut(SSM_ARCH, None, "float32"),
+            "vlm": cut(VLM_ARCH, dims["vlm_layers"], "bfloat16"),
+            "whisper": cut(WHISPER_ARCH, None, "float32"),
+            "moe_train": tiny(FAM_RANKS, layers=2),
+            "hybrid_train": reduced(get_config(HYBRID_ARCH), layers=4)}
+
+
+def fam_train_legs(cfgs, dims) -> dict:
+    """name -> (config, rows, tokens) of the phase's GSPMD train legs."""
+    return {"qwen3-moe": (cfgs["moe_train"], WHOLE_MOE_B, WHOLE_MOE_S),
+            "jamba": (cfgs["hybrid_train"], WHOLE_MOE_B, WHOLE_MOE_S),
+            "mamba2": (cfgs["ssm"], dims["train_b"], dims["seq"]),
+            "whisper": (cfgs["whisper"], dims["whisper_b"],
+                        dims["whisper_s"])}
+
+
+def fam_batches(cfg, b: int, s: int, steps: int):
+    """The synthetic token batches, with frames drawn from a seed for the
+    encoder-decoder."""
+    import torch
+
+    batches = whole_batches(cfg.vocab_size, b, s, steps)
+    if cfg.is_encoder_decoder:
+        gen = torch.Generator().manual_seed(FAM_FRAMES_SEED)
+        for batch in batches:
+            batch["frames"] = torch.randn((b, cfg.audio_ctx, cfg.d_model),
+                                          generator=gen)
+    return batches
+
+
+def in_turn(ring, fn):
+    """``fn()`` on every rank of the ring in rank order, the others waiting
+    at a barrier (each turn may hold a whole model on the card); this
+    rank's result."""
+    import torch
+    import torch.distributed as dist
+
+    ax = ring.axis("x")
+    out = None
+    for turn in range(ax.size):
+        if turn == ax.index:
+            out = fn()
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def rows_of(mesh, n: int) -> slice:
+    """This rank's ``batch_specs`` rows of a global batch of ``n``."""
+    from repro_torch import sharding as sh
+    idx, k = sh.block_of(mesh, sh.rules_for(mesh).dp_spec)
+    return slice(idx * n // k, (idx + 1) * n // k)
+
+
+def cut_params(params, mesh):
+    """A copy of this rank's part of the whole weights under
+    ``param_specs`` (the whole weights can then be freed)."""
+    from repro_torch import sharding as sh
+    return type(params)(params.cfg, sh.cut(params.tree(), sh.param_specs(
+        params, sh.rules_for(mesh), mesh), mesh))
+
+
+def rows_max_abs(got, want) -> float:
+    """max |got - want|, a row at a time on ``got``'s device (``want`` may
+    be on the host)."""
+    return max(float((g.float() - w.to(g.device).float()).abs().max())
+               for g, w in zip(got, want))
+
+
+def leg_start(torch, device):
+    """Zero the launch counts, the staged bytes and the peak memory."""
+    from repro_torch.comm.engine import reset_staged_bytes
+    from repro_torch.kernels import ops
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    reset_staged_bytes()
+
+
+def leg_end(torch, device, rec: dict) -> dict:
+    """``rec`` with this leg's launches, flash routes, bytes staged by
+    source and peak memory."""
+    from repro_torch.comm.engine import staged_bytes_by_callsite
+    from repro_torch.kernels import attention as kfa
+    from repro_torch.kernels import ops
+    rec["launches"] = ops.launch_counts()
+    rec["flash_routes"] = {k: v for k, v in
+                           kfa.flash_attention.launches_by_route.items() if v}
+    rec["staged"] = {str(k): v for k, v in staged_bytes_by_callsite().items()}
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 \
+        if device == "cuda" else None
+    return rec
+
+
+def fam_pages(torch, cfg, slots: int, seq: int, device):
+    """A page pool drawn from a seed (every slot ``ceil((seq + 1) / page)``
+    pages of ENGINE_PAGE, its own), the block table, lengths in
+    [seq / 2, seq) and one token a slot."""
+    per = -(-(seq + 1) // ENGINE_PAGE)
+    gen = torch.Generator(device=device).manual_seed(FAM_PAGES_SEED)
+    shape = (slots * per, ENGINE_PAGE, cfg.num_kv_heads, cfg.head_dim)
+    pool = {"layers": [{k: torch.randn(shape, generator=gen, device=device)
+                        for k in ("k_pages", "v_pages")}
+                       for _ in range(cfg.num_layers)]}
+    table = torch.arange(slots * per, dtype=torch.int32,
+                         device=device).reshape(slots, per)
+    lengths = torch.randint(seq // 2, seq, (slots,), generator=gen,
+                            device=device, dtype=torch.int32)
+    tokens = torch.randint(0, cfg.vocab_size, (slots, 1), generator=gen,
+                           device=device, dtype=torch.int32)
+    return pool, table, lengths, tokens
+
+
+def paged_mine(pool, table, rows, heads):
+    """This rank's view of a pool: the pages its rows own, its KV heads."""
+    own = table[rows].flatten().long()
+    start, n = heads
+    return [[v[own][:, :, start:start + n] for v in lay.values()]
+            for lay in pool["layers"]]
+
+
+def fam_moe(grid, ring, device, cfg, dims) -> dict:
+    """MOE_ARCH on the 2x2 mesh: :func:`gspmd_prefill` in fp32 with every
+    MoE layer's drops; the fp32 paged decode step against the one-rank one
+    from identical pages; :func:`gspmd_serve` in bf16 (held by the share
+    of positions within the bf16 limit: bf16 router logits keep 8 bits,
+    so any rounding of the hidden state, the flash kernel's own too, flips
+    near-tied top-k choices and moves those tokens' logits by O(1); the
+    fp32 prefill holds the function). One rank at a time draws the whole
+    weights."""
+    import torch
+
+    from repro_torch.models.kvcache import pool_heads
+    from repro_torch.models.model import build_model
+    from repro_torch.train.serve import decode_rows, make_paged_decode_step
+
+    model = build_model(cfg)
+    seq, b32 = dims["seq"], dims["prefill_b"]
+    batch = {"tokens": seeded_tokens(cfg, b32, seq, device)[
+        rows_of(grid, b32)]}
+    slots = dims["paged_slots"]
+    pool, table, lengths, ptok = fam_pages(torch, cfg, slots, seq, device)
+    prow, heads = decode_rows(grid, slots), pool_heads(cfg, grid)
+
+    def draw_fp32():
+        params = model.init(0, device=device)
+        want = prefill_run(model, params, None, batch, aux=[])
+        want["logits"] = want["logits"].cpu()
+        whole = {"layers": [{k: v.clone() for k, v in lay.items()}
+                            for lay in pool["layers"]]}
+        plog, whole = make_paged_decode_step(model, None)(
+            params, ptok, whole, table, lengths)
+        paged = {"logits": plog[prow].cpu(),
+                 "pages": [[v.cpu() for v in lay] for lay in
+                           paged_mine(whole, table, prow, heads)]}
+        return want, paged, cut_params(params, grid)
+
+    want, paged, local = in_turn(ring, draw_fp32)
+    rec = {"prefill_fp32": gspmd_prefill(grid, device, model, batch, b32,
+                                         params=local, want=want, aux=True)}
+    mine = {"layers": [{k: v[:, :, heads[0]:heads[0] + heads[1]].clone()
+                        for k, v in lay.items()} for lay in pool["layers"]]}
+    leg_start(torch, device)
+    plog, mine = make_paged_decode_step(model, grid)(
+        local, ptok[prow], mine, table[prow], lengths[prow])
+    got_pages = paged_mine(mine, table, prow, (0, heads[1]))
+    rec["paged_fp32"] = leg_end(torch, device, {
+        "rows": [prow.start, prow.stop], "kv_heads": list(heads),
+        "max_abs_logits": rows_max_abs(plog, paged["logits"]),
+        "max_abs_pages": max(rows_max_abs(g, w) for gl, wl in zip(
+            got_pages, paged["pages"]) for g, w in zip(gl, wl))})
+    del local, mine, pool, plog, got_pages, want, paged
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    rec["serve_bf16"] = gspmd_serve(grid, device, model, dims["serve_b"],
+                                    seq, dims["new"], ring=ring,
+                                    one_rank_flash=False)
+    return rec
+
+
+def fam_ssm(grid, device, cfg, dims) -> dict:
+    """SSM_ARCH on the 2x2 mesh: :func:`gspmd_prefill` of this rank's rows
+    in fp32, then ``dims['ssm_decode']`` decode steps of fixed tokens, with
+    the per-rank cache's shapes."""
+    from repro_torch.models.model import build_model
+
+    seq, rows = dims["seq"], dims["prefill_b"]
+    mine = seeded_tokens(cfg, rows, seq + dims["ssm_decode"], device)[
+        rows_of(grid, rows)]
+    return gspmd_prefill(grid, device, build_model(cfg),
+                         {"tokens": mine[:, :seq]}, rows,
+                         decode=mine[:, seq:])
+
+
+def fam_vlm(grid, ring, device, cfg, dims) -> dict:
+    """VLM_ARCH on the 2x2 mesh in bf16 with its cross gates opened from
+    VLM_GATE_SEED: :func:`gspmd_prefill` of this rank's rows with their
+    patches (flash on its heads in the self-attention layers), beside the
+    one-rank flash prefill; then the mesh prefill again with the gates
+    closed, against the one-rank plain prefill with them open. One rank at
+    a time draws the whole fp32 weights."""
+    import torch
+
+    from repro_torch.launch.mesh import single_rank_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import cast_params
+
+    model = build_model(cfg)
+    cross = [i for i, c in enumerate(cfg.cross_attn_mask()) if c]
+    seq, rows = dims["seq"], dims["prefill_b"]
+    r = rows_of(grid, rows)
+    gen = torch.Generator(device=device).manual_seed(2)
+    batch = {"tokens": seeded_tokens(cfg, rows, seq, device)[r],
+             "patch_embeds": torch.randn(
+                 (rows, cfg.num_patches, cfg.vision_dim), generator=gen,
+                 device=device)[r]}
+    gates = torch.rand(len(cross), generator=torch.Generator().manual_seed(
+        VLM_GATE_SEED)) * 0.5 + 0.5
+
+    def draw():
+        p32 = model.init(0, device=device)
+        for i, g in zip(cross, gates.tolist()):
+            p32.blocks[i]["cross_gate"].data.fill_(g)
+        params = cast_params(p32, torch.bfloat16)
+        del p32
+        plain, flash = (prefill_run(model, params, m, batch)["logits"].cpu()
+                        for m in (None, single_rank_mesh(("x",))))
+        return {"logits": plain}, flash, cut_params(params, grid)
+
+    want, one_flash, local = in_turn(ring, draw)
+    rec = gspmd_prefill(grid, device, model, batch, rows, params=local,
+                        want=want, keep=True)
+    opened, local = rec.pop("logits"), rec.pop("params")
+    rec["vs_one_rank_flash"] = flash_limit_share(opened, one_flash)
+    rec["one_rank_flash_vs_plain"] = flash_limit_share(
+        one_flash.to(device), want["logits"])
+    for i in cross:
+        local.blocks[i]["cross_gate"].data.zero_()
+    closed = prefill_run(model, local, grid, batch, rows)["logits"]
+    rec["closed_vs_one_rank_plain"] = flash_limit_share(closed,
+                                                        want["logits"])
+    rec["gate_open_vs_closed_max_abs"] = max_abs(opened, closed)
+    rec["cross_layers"], rec["cross_gates"] = cross, gates.tolist()
+    del local, opened, closed, want, one_flash
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return rec
+
+
+def fam_whisper(grid, device, cfg, dims) -> dict:
+    """WHISPER_ARCH on the 2x2 mesh: :func:`gspmd_prefill` in fp32 of this
+    rank's rows of the train legs' first batch, frames and tokens."""
+    import torch
+
+    from repro_torch.models.model import build_model
+
+    rows = dims["whisper_b"]
+    r = rows_of(grid, rows)
+    batch = fam_batches(cfg, rows, dims["whisper_s"], 1)[0]
+    return gspmd_prefill(grid, device, build_model(cfg),
+                         {k: torch.as_tensor(v)[r].to(device)
+                          for k, v in batch.items()}, rows)
+
+
+def fam_rank(mesh, device, dims, root):
+    """Runs on every rank of phase gspmd_families: the GSPMD train legs
+    (GSPMD_LEGS of each config of :func:`fam_train_legs`, weights written
+    under ``root``), then, without gradients, the MoE, SSM, vlm and
+    whisper serving legs on the 2x2 mesh."""
+    import os
+
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import build_model
+
+    if device == "cuda":
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
+        torch.cuda.set_device(0)
+    grid = make_mesh(*GSPMD_MESH)
+    cfgs = fam_cfgs(dims)
+    out, t0 = {"train": {}, "seconds": {}}, time.perf_counter()
+
+    def lap(name):
+        now = time.perf_counter()
+        out["seconds"][name] = now - t0
+        return now
+
+    for name, (cfg, b, s) in fam_train_legs(cfgs, dims).items():
+        model = build_model(cfg)
+        batches = fam_batches(cfg, b, s, dims["steps"])
+        for leg, fsdp in GSPMD_LEGS:
+            out["train"][name, leg] = gspmd_train_leg(
+                grid, device, model, batches, fsdp,
+                os.path.join(root, f"{name}_{leg}"),
+                moments=name in FAM_TINY_GRAD_LEGS)
+        t0 = lap(f"train {name}")
+    torch.set_grad_enabled(False)
+    out["moe"] = fam_moe(grid, mesh, device, cfgs["moe"], dims)
+    t0 = lap("moe")
+    out["ssm"] = fam_ssm(grid, device, cfgs["ssm"], dims)
+    t0 = lap("ssm")
+    out["vlm"] = fam_vlm(grid, mesh, device, cfgs["vlm"], dims)
+    t0 = lap("vlm")
+    out["whisper"] = fam_whisper(grid, device, cfgs["whisper"], dims)
+    lap("whisper")
+    return out
+
+
+def close_rel(a, b, rtol) -> bool:
+    """Every x of ``a`` within relative ``rtol`` of its y in ``b``."""
+    return all(abs(x / y - 1) <= rtol for x, y in zip(a, b))
+
+
+def max_diff(xs, ys) -> float:
+    """The largest |x - y| over pairs of tensors (x moved to y's device)."""
+    return max(float((x.to(y.device) - y).abs().max()) if x.numel()
+               else 0.0 for x, y in zip(xs, ys))
+
+
+def hold_train_legs(torch, what, recs_by_leg, cfg, batches, device, root,
+                    tiny_grad=None):
+    """Each GSPMD train leg of ``recs_by_leg`` (leg -> every rank's
+    record; weights written under ``root/<leg>``) against the one-rank
+    step on the same batches from the same state: losses within rtol
+    WHOLE_TOL[0], grad norms within WHOLE_TOL[1], the weights within
+    WHOLE_TOL[2], and no kernel launched. Returns leg -> summary.
+
+    With ``tiny_grad`` (the legs wrote their first moments too) the
+    weights are held where the one-rank step's clipped gradient reached
+    ``tiny_grad`` at every step, and the first moments everywhere within
+    FAM_MU_ATOL: AdamW moves a weight by about lr g / (|g| + 1e-8), so
+    where |g| is near 1e-8 the last bits of g, which the ranks' sums
+    reorder, move the weight by a share of lr; the moments hold those
+    gradients themselves."""
+    import os
+    import shutil
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.comm.overlap import tree_flatten
+    from repro_torch.kernels import ops
+    from repro_torch.optim.adamw import AdamWConfig
+
+    rtol_loss, rtol_gn, atol_w = WHOLE_TOL
+    mus = [] if tiny_grad is not None else None
+    one, one_gn, one_params = one_rank_steps(torch, cfg, batches, device,
+                                             mus=mus)
+    one_w = tree_flatten(one_params.tree())[0]
+    held = None
+    if mus:
+        # each step's clipped gradient from its first moments:
+        # mu_k = b1 mu_(k-1) + (1 - b1) g_k
+        b1 = AdamWConfig().b1
+        steps = [tree_flatten(m)[0] for m in mus]
+        prev = [torch.zeros_like(t) for t in steps[0]]
+        held = [torch.ones_like(t, dtype=torch.bool) for t in steps[0]]
+        for cur in steps:
+            for h, c, p in zip(held, cur, prev):
+                h &= ((c - b1 * p) / (1 - b1)).abs() >= tiny_grad
+            prev = cur
+    none = dict.fromkeys(ops.KERNELS, 0)
+    close = close_rel
+    legs = {}
+    for leg, recs in recs_by_leg.items():
+        tag = f"{what}/{leg}"
+        check(all(r["device"].startswith(device) for r in recs),
+              f"{tag} ran on {[r['device'] for r in recs]}")
+        check(all(close(r["loss"], one, rtol_loss) for r in recs),
+              f"{tag}: losses {[r['loss'] for r in recs]} vs the one-rank "
+              f"step's {one} beyond rtol {rtol_loss}")
+        check(all(close(r["grad_norm"], one_gn, rtol_gn) for r in recs),
+              f"{tag}: grad norms {[r['grad_norm'] for r in recs]} vs "
+              f"{one_gn} beyond rtol {rtol_gn}")
+        check(all(r["launches"] == none for r in recs),
+              f"{tag}: launches {[r['launches'] for r in recs]}, want none "
+              "(training takes the plain attention; native reduces "
+              "through the library)")
+        d = os.path.join(root, leg)
+        like = {"params": one_params}
+        if held is not None:
+            like["mu"] = mus[-1]
+        _, got, _ = ckpt.restore(d, like)
+        got_w = tree_flatten(got["params"].tree())[0]
+        summary = {}
+        if held is None:
+            err = max_diff(got_w, one_w)
+        else:
+            err = max(float((g.to(w.device) - w).abs()[h].max())
+                      if h.any() else 0.0
+                      for g, w, h in zip(got_w, one_w, held))
+            mu_err = max_diff(tree_flatten(got["mu"])[0],
+                              tree_flatten(mus[-1])[0])
+            check(mu_err <= FAM_MU_ATOL,
+                  f"{tag}: first moments {mu_err} from the one-rank "
+                  f"step's, beyond {FAM_MU_ATOL}")
+            summary = {
+                "max_abs_mu_diff_vs_one_rank": mu_err,
+                "mu_atol": FAM_MU_ATOL, "tiny_grad": tiny_grad,
+                "weights_held": int(sum(int(h.sum()) for h in held)),
+                "weights": int(sum(h.numel() for h in held)),
+                "max_abs_weight_diff_all": max_diff(got_w, one_w)}
+        check(err <= atol_w, f"{tag}: weights {err} from the one-rank "
+                             f"step's, beyond {atol_w}")
+        del got, got_w
+        shutil.rmtree(d)
+        legs[leg] = {
+            "loss": recs[0]["loss"], "grad_norm": recs[0]["grad_norm"],
+            "one_rank_loss": one, "one_rank_grad_norm": one_gn,
+            "step_s": [max(r["seconds"][i] for r in recs)
+                       for i in range(len(one))],
+            "staged_bytes_per_rank_by_source": recs[0]["staged"],
+            "peak_gb_per_rank": [r["peak_gb"] for r in recs],
+            "max_abs_weight_diff_vs_one_rank": err, **summary}
+    del one_params, one_w, mus, held
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return legs
+
+
+def run_gspmd_families(torch, device, dims,
+                       timeout=FAM_TIMEOUT) -> dict:
+    """Phase gspmd_families' legs on FAM_RANKS gloo processes, then, after
+    they exit, the one-rank train steps in this process; every gate
+    asserted. Returns the record (a ``dims`` with a width and
+    ``device="cpu"`` make a probe on the CPU)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn_mesh
+
+    cuda = device == "cuda"
+    cfgs = fam_cfgs(dims)
+    root = tempfile.mkdtemp(prefix="chip_smoke_fam_")
+    try:
+        t0 = time.perf_counter()
+        ranks = spawn_mesh(FAM_RANKS, fam_rank, device, dims, root,
+                           axes=("x",), timeout=timeout)
+        ranks_s = time.perf_counter() - t0
+        serve = hold_family_serving(ranks, cfgs, cuda)
+        train = {}
+        for name, (cfg, b, s) in fam_train_legs(cfgs, dims).items():
+            train[name] = hold_train_legs(
+                torch, f"gspmd_families/{name}",
+                {f"{name}_{leg}": [r["train"][name, leg] for r in ranks]
+                 for leg, _ in GSPMD_LEGS},
+                cfg, fam_batches(cfg, b, s, dims["steps"]), device, root,
+                tiny_grad=FAM_TINY_GRAD if name in FAM_TINY_GRAD_LEGS
+                else None)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"seconds_ranks": ranks_s, "train": train,
+            "leg_seconds": {k: max(r["seconds"][k] for r in ranks)
+                            for k in ranks[0]["seconds"]}, **serve}
+
+
+def hold_family_serving(ranks, cfgs, cuda: bool) -> dict:
+    """Phase gspmd_families' serving gates over every rank's record, and
+    their summary."""
+    from repro_torch.kernels import ops
+
+    # flash launches per rank: one per self-attention layer in a prefill on
+    # the card; on the CPU the wrapper takes its plain version, uncounted
+    moe_l = cfgs["moe"].num_layers if cuda else 0
+    vlm_l = cfgs["vlm"].num_layers if cuda else 0
+    none = dict.fromkeys(ops.KERNELS, 0)
+    legs = {k: [r[k] for r in ranks] for k in ("moe", "ssm", "vlm",
+                                                "whisper")}
+
+    def hold_prefill(what, recs, n, route, share=None):
+        # finite logits within FP32_PREFILL_ATOL of the one-rank plain
+        # prefill's (bf16: within ``share`` of the bf16 flash limit), and
+        # n flash launches on ``route`` and nothing else
+        want = {**none, "flash_attention": n}
+        for p in recs:
+            v = p["vs_one_rank"]
+            ok = (v["max_abs"] <= FP32_PREFILL_ATOL if share is None
+                  else v["limit_share"] <= share)
+            check(p["finite"] and ok,
+                  f"gspmd_families/{what}: logits {v} from the one-rank "
+                  "plain run's, beyond " + (
+                      f"{FP32_PREFILL_ATOL}" if share is None else
+                      f"{share} of atol {FLASH_ATOL['bfloat16']} + rtol "
+                      f"{FLASH_RTOL} |want|"))
+            check(p["launches"] == want
+                  and p["flash_routes"] == ({route: n} if n else {}),
+                  f"gspmd_families/{what}: launches {p['launches']} routes "
+                  f"{p['flash_routes']}, want {n} flash on {route}")
+
+    moe = legs["moe"]
+    hold_prefill("moe fp32 prefill", [m["prefill_fp32"] for m in moe],
+                 moe_l, "simt_f32")
+    for m in moe:
+        p, q = m["prefill_fp32"], m["paged_fp32"]
+        check(p["dropped"] == p["dropped_one_rank"] and p["frac_equal"],
+              f"gspmd_families/moe: dropped {p['dropped']} vs the one-rank "
+              f"prefill's {p['dropped_one_rank']}, frac equal "
+              f"{p['frac_equal']}")
+        check(max(q["max_abs_logits"], q["max_abs_pages"])
+              <= SERVE_MESH_ATOL and q["launches"] == none,
+              f"gspmd_families/moe: paged step {q['max_abs_logits']} "
+              f"(logits), {q['max_abs_pages']} (pages) from the one-rank "
+              f"step's, beyond {SERVE_MESH_ATOL}; launches {q['launches']}")
+    hold_serve("gspmd_families/moe bf16", [m["serve_bf16"] for m in moe],
+               moe_l, min_within=FAM_MOE_BF16_WITHIN)
+    hold_prefill("ssm prefill and decode", legs["ssm"], 0, "simt_f32")
+    hold_prefill("vlm bf16 prefill", legs["vlm"], vlm_l, "wgmma_bf16",
+                 share=FAM_VLM_BF16_SHARE)
+    for v in legs["vlm"]:
+        # FAM_VLM_BF16_SHARE is set from readings at full width; a CPU
+        # probe's narrow cross branch moves the logits by less
+        c = v["closed_vs_one_rank_plain"]
+        check(v["gate_open_vs_closed_max_abs"] > 0
+              and (c["limit_share"] > FAM_VLM_BF16_SHARE or not cuda),
+              f"gspmd_families/vlm: with the cross gates closed the logits "
+              f"are {c} from the one-rank plain prefill's with them open, "
+              f"within the limit {FAM_VLM_BF16_SHARE} that holds the open "
+              "prefill (which then could not tell that the cross branch "
+              "ran)")
+    hold_prefill("whisper prefill", legs["whisper"], 0, "simt_f32")
+
+    def figures(recs):
+        # every rank's staged bytes by source, peak memory and flash
+        # launches
+        return {"staged_per_rank": [r["staged"] for r in recs],
+                "peak_gb_per_rank": [r["peak_gb"] for r in recs],
+                "flash_per_rank": [r["launches"]["flash_attention"]
+                                   for r in recs]}
+
+    def prefill(recs, *keys):
+        return {**figures(recs), "seconds": max(r["seconds"] for r in recs),
+                "max_abs_vs_one_rank": max(
+            r["max_abs_vs_one_rank"] for r in recs),
+                **{k: [r[k] for r in recs] for k in keys}}
+
+    serve = [m["serve_bf16"] for m in moe]
+    pre16 = [s["prefill"] for s in serve]
+    vlm_keys = ("vs_one_rank", "vs_one_rank_flash", "one_rank_flash_vs_plain",
+                "closed_vs_one_rank_plain")
+    out = {
+        "moe": {"prefill_fp32": prefill([m["prefill_fp32"] for m in moe],
+                                        "dropped"),
+                "paged_fp32": {"max_abs_logits": max(
+                    m["paged_fp32"]["max_abs_logits"] for m in moe),
+                    "max_abs_pages": max(m["paged_fp32"]["max_abs_pages"]
+                                         for m in moe),
+                    "atol": SERVE_MESH_ATOL},
+                "generate_bf16": figures([s["generate"] for s in serve]),
+                "prefill_bf16": {**figures(pre16), "seconds": max(
+                    p["seconds"] for p in pre16), "vs_one_rank_plain": [
+                        p["vs_one_rank_plain"] for p in pre16],
+                                 "min_within_share": FAM_MOE_BF16_WITHIN},
+                "decode_bf16": {"ms_p50": max(s["decode"]["ms_p50"]
+                                              for s in serve),
+                                "staged_per_rank": [s["decode"]["staged"]
+                                                    for s in serve],
+                                "flash_per_rank": [s["decode"]["launches"][
+                                    "flash_attention"] for s in serve]}},
+        "ssm": {**prefill(legs["ssm"]), "decode_ms_p50": max(
+            s["decode_ms_p50"] for s in legs["ssm"]),
+                "cache_shapes_rank0": legs["ssm"][0]["cache_shapes"][:1]},
+        "vlm": {**prefill(legs["vlm"], *vlm_keys),
+                "bf16_limit": f"{FAM_VLM_BF16_SHARE} x (atol "
+                              f"{FLASH_ATOL['bfloat16']} + rtol "
+                              f"{FLASH_RTOL} |want|)",
+                "gate_open_vs_closed_max_abs": min(
+                    v["gate_open_vs_closed_max_abs"] for v in legs["vlm"]),
+                "cross_layers": legs["vlm"][0]["cross_layers"]},
+        "whisper": prefill(legs["whisper"])}
+    out["flash_per_rank"] = {
+        "qwen3-moe prefill fp32": out["moe"]["prefill_fp32"]["flash_per_rank"],
+        "qwen3-moe generate bf16": out["moe"]["generate_bf16"][
+            "flash_per_rank"],
+        "qwen3-moe prefill bf16": out["moe"]["prefill_bf16"]["flash_per_rank"],
+        "qwen3-moe decode bf16": out["moe"]["decode_bf16"]["flash_per_rank"],
+        "mamba2 prefill+decode": out["ssm"]["flash_per_rank"],
+        "vlm prefill bf16": out["vlm"]["flash_per_rank"],
+        "whisper prefill": out["whisper"]["flash_per_rank"]}
+    return out
+
+
+def phase_gspmd_families(torch, card: str) -> dict:
+    """The MoE, SSM, vlm and encoder-decoder families on the GSPMD
+    placement of a 2x2 mesh, FAM_RANKS processes sharing the card over
+    gloo, every result against the one-rank result on the same weights;
+    returns each leg's flash launches per rank."""
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free_gb = torch.cuda.mem_get_info()[0] / 1e9
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = run_gspmd_families(torch, "cuda", FAM_DIMS)
+    check(all(v == 0 for v in ops.launch_counts().values()),
+          "the parent launched kernels during the gspmd_families phase")
+    cfgs = fam_cfgs(FAM_DIMS)
+    head = {"phase": "gspmd_families", "card": card, "ranks": FAM_RANKS,
+            "mesh": {"shape": GSPMD_MESH[0], "names": GSPMD_MESH[1]}}
+    for name, legs in rec["train"].items():
+        emit({**head, "leg": f"train {name}",
+              "config": fam_train_legs(cfgs, FAM_DIMS)[name][0].name,
+              "global_batch": list(fam_train_legs(cfgs, FAM_DIMS)[name][1:]),
+              "steps": FAM_DIMS["steps"], "dtype": "float32",
+              "tolerances": {"loss_rtol": WHOLE_TOL[0],
+                             "grad_norm_rtol": WHOLE_TOL[1],
+                             "weights_atol": WHOLE_TOL[2]}, "legs": legs})
+    emit({**head, "leg": "qwen3-moe serve",
+          "cut": f"depth only: {FAM_DIMS['moe_layers']} of 94 layers at "
+                 "full width (random weights, seed 0)",
+          "prefill_fp32_batch": [FAM_DIMS["prefill_b"], FAM_DIMS["seq"]],
+          "generate_bf16_batch": [FAM_DIMS["serve_b"], FAM_DIMS["seq"],
+                                  FAM_DIMS["new"]],
+          "paged_slots": FAM_DIMS["paged_slots"], **rec["moe"]})
+    emit({**head, "leg": "mamba2-130m serve",
+          "batch": [FAM_DIMS["prefill_b"], FAM_DIMS["seq"]],
+          "decode_steps": FAM_DIMS["ssm_decode"], **rec["ssm"]})
+    emit({**head, "leg": "llama-3.2-vision-90b prefill",
+          "cut": f"depth only: {FAM_DIMS['vlm_layers']} of 100 layers (one "
+                 "period, the cross layer last) at full width",
+          "batch": [FAM_DIMS["prefill_b"], FAM_DIMS["seq"]],
+          "patches": [cfgs["vlm"].num_patches, cfgs["vlm"].vision_dim],
+          **rec["vlm"]})
+    emit({**head, "leg": "whisper-base prefill",
+          "batch": [FAM_DIMS["whisper_b"], FAM_DIMS["whisper_s"]],
+          "frames": cfgs["whisper"].audio_ctx, **rec["whisper"]})
+    emit({**head, "leg": "summary", "flash_per_rank": rec["flash_per_rank"],
+          "card_free_gb_at_start": free_gb,
+          "transport": "gloo, staged through host memory; kernels on the "
+                       "card",
+          "staged_bytes_note": "per rank, by source (partition.SOURCES)",
+          "gates": "ok",
+          "seconds": {"ranks": rec["seconds_ranks"],
+                      "legs_slowest_rank": rec["leg_seconds"],
+                      "phase": time.perf_counter() - t0},
+          "what_the_time_measures": "the host's loopback (gloo on one "
+                                    "machine), not a link rate"})
+    return rec["flash_per_rank"]
 
 
 def serve_mesh_cfgs(dims):
@@ -5192,42 +6003,79 @@ def main(argv=()) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
+    # each phase's seconds, printed on a line of their own before the
+    # kernels line
+    seconds, clock = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        seconds[name], clock[0] = now - clock[0], now
+
     phase_build(smi)
+    lap("build")
     from repro_torch.kernels import ops
 
     rows = phase_kernels(torch)
+    lap("kernels")
     counts, per_fact, _ = phase_hpl(torch)
+    lap("hpl")
     phase_lookahead(torch)
+    lap("lookahead")
     launches = {k: counts[k] for k in ops.HPL_KERNELS}
     launches["transpose_add"] = phase_ptrans(torch)["transpose_add"]
+    lap("ptrans")
     phase_beff(torch)
+    lap("beff")
     stream_counts = phase_stream(torch)
+    lap("stream")
     launches.update({k: stream_counts[k] for k in ops.STREAM_KERNELS})
     launches["matmul"] = phase_gemm(torch)["matmul"]
+    lap("gemm")
     phase_cpu(torch)
+    lap("cpu")
     launches["flash_attention"] = phase_serve(torch)["flash_attention"]
+    lap("serve")
     launches["ring_add_step"], ring_all_ranks = phase_allreduce(torch)
+    lap("allreduce")
     phase_gups(torch)
+    lap("gups")
     phase_fft(torch)
+    lap("fft")
     phase_a2a(torch)
+    lap("a2a")
     phase_autotune(torch, rows)
+    lap("autotune")
     phase_faults(torch)
+    lap("faults")
     phase_moe(torch)
+    lap("moe")
     phase_ssm(torch)
+    lap("ssm")
     phase_vlm(torch)
+    lap("vlm")
     phase_whisper(torch)
+    lap("whisper")
     phase_engine(torch)
+    lap("engine")
     phase_train(torch, smi)
+    lap("train")
     dp_launches, dp_all_ranks = phase_dp(torch)
+    lap("dp")
     launches["ring_add_step"] += dp_launches
     ring_all_ranks += dp_all_ranks
     whole_launches, whole_all_ranks = phase_whole(torch, smi)
+    lap("whole")
     check(whole_launches > 0, "phase whole launched no ring_add_step")
     launches["ring_add_step"] += whole_launches
     ring_all_ranks += whole_all_ranks
     gspmd_flash = phase_gspmd(torch, smi)
+    lap("gspmd")
+    families_flash = phase_gspmd_families(torch, smi)
+    lap("gspmd_families")
     serve_mesh_launches = phase_serve_mesh(torch, smi)
+    lap("serve_mesh")
     hpcc_launches = phase_launch(torch, smi)
+    lap("launch")
 
     check(set(launches) == set(rows) == set(SOURCES),
           f"kernels {sorted(rows)} vs launches {sorted(launches)}")
@@ -5242,6 +6090,8 @@ def main(argv=()) -> int:
         if name == "flash_attention":
             # the tensor-parallel prefill of phase gspmd, per rank
             entry["launches_gspmd_prefill_per_rank"] = gspmd_flash
+            # phase gspmd_families' legs, per rank
+            entry["launches_gspmd_families_per_rank"] = families_flash
         # phase serve_mesh's decode and engine legs, per rank (asserted 0)
         entry["launches_serve_mesh_per_rank"] = serve_mesh_launches[name]
         # examples.hpcc_suite at its own sizes, one rank (phase launch)
@@ -5249,6 +6099,7 @@ def main(argv=()) -> int:
         entry.update(r)
         entry["kernel_ms"] = r["ms"]
         kernels.append(entry)
+    emit({"phase_seconds": seconds, "total": sum(seconds.values())})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

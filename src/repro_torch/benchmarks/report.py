@@ -50,8 +50,8 @@ def main(d=RESULTS_DIR) -> list:
             f"| {fmt(r['collective_s'])} | {r['dominant']} "
             f"| {r['useful_ratio']:.1%} | {rf:.3f} |")
     lines.append(f"\n{len(recs)} cells ok; {len(skips)} skipped (long_500k "
-                 "on pure full-attention archs; layers that wait for ROADMAP "
-                 f"A15); {len(failed)} failed. Dry-run counts, not "
+                 "on pure full-attention archs); "
+                 f"{len(failed)} failed. Dry-run counts, not "
                  "measurements; the collective term prices the host's "
                  "loopback.")
     over = [r for r in recs

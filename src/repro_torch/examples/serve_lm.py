@@ -11,8 +11,7 @@ first row's new tokens printed. With ``--ranks 1`` (the default)
 attention, as the reference's does without one (ROADMAP C7). With
 ``--ranks 4`` four gloo processes run the GSPMD ``generate`` on
 ``make_local_mesh()`` (2x2) with the whole weights, and rank 0 prints its
-rows; the MoE, SSM, vlm and encoder-decoder layers wait for ROADMAP A15
-there.
+rows; every family runs there, its layers split over the ``model`` axis.
 """
 from __future__ import annotations
 

@@ -32,9 +32,8 @@ until several cards exist the collective term prices the host's loopback
 not measurements. ``lower_s`` is the cell's build time and ``compile_s``
 the dry step's run time, both on the host.
 
-A cell the port cannot place yet (the MoE, SSM, vlm or encoder-decoder
-layers on a ``model`` axis wider than 1) is recorded ``skipped`` with its
-``NotImplementedError`` (ROADMAP A15); a cell whose program reads a
+A cell that does not apply to its architecture (``long_500k`` on a pure
+full-attention model) is recorded ``skipped``; a cell whose program reads a
 tensor's value (``.item()``, ``nonzero``) is ``failed``, naming the op.
 Neither is ever ``ok``.
 
@@ -355,8 +354,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
              fsdp: Optional[bool] = None, verbose: bool = True,
              mesh_shape=None, cfg: Optional[ModelConfig] = None,
              prof: Optional[list] = None) -> Dict:
-    """One cell's record (``status`` ``ok``); raises :class:`SkipCell`,
-    ``NotImplementedError`` or the step's error. ``cfg`` overrides the
+    """One cell's record (``status`` ``ok``); raises :class:`SkipCell`
+    or the step's error. ``cfg`` overrides the
     arch's config (a reduced one); ``prof``, when given, receives the
     :class:`Profile`."""
     mesh = production_mesh(mesh_kind, mesh_shape)
@@ -434,12 +433,6 @@ def cell_record(arch: str, shape_name: str, mesh_kind: str,
         return run_cell(arch, shape_name, mesh_kind, **kw)
     except SkipCell as e:
         return {**base, "status": "skipped", "reason": str(e)}
-    except NotImplementedError as e:
-        if "A15" in str(e):
-            return {**base, "status": "skipped", "reason": str(e)}
-        return {**base, "status": "failed",
-                "error": f"{type(e).__name__}: {e}",
-                "traceback": traceback.format_exc()[-4000:]}
     except Exception as e:  # noqa: BLE001 — record and continue
         return {**base, "status": "failed",
                 "error": f"{type(e).__name__}: {e}",

@@ -9,6 +9,16 @@ then cross-attention to the encoder's output, then the MLP. No path here
 takes the flash kernel: the reference passes no shard function to these
 attentions.
 
+On a mesh of several ranks (a ``shard`` from
+:func:`repro_torch.sharding.make_shard_fn`) each rank runs its rows; on a
+``tp`` axis wider than 1 the embedding and the tied head split over the
+vocabulary, and the encoder's attention, the decoder's self- and
+cross-attention and both MLPs split their heads and hidden width as the
+decoder-only model's do (:mod:`repro_torch.models.layers`), each whole on
+every rank where ``tp`` does not divide them. ``encoder_out`` in the
+cache stays whole over ``tp``. With FSDP (``shard.gather``) each layer's
+dp-split weights are gathered before its forward.
+
 The reference stacks each block list over layers with ``vmap`` and runs it
 as a ``lax.scan``; here ``enc_blocks`` and ``dec_blocks`` are per-layer
 lists (:func:`repro_torch.models.model.from_reference` moves weights
@@ -27,8 +37,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.kvcache import attn_cache_spec, local_cache_dims
 from repro_torch.models.transformer import (ParamTree, Shard, _noshard,
-                                            check_tp,
-                                            _param, dtype_of, rematerialize)
+                                            _param, dtype_of, embed_tokens,
+                                            lm_logits, rematerialize)
 from repro_torch.partition import tp_of
 
 
@@ -106,14 +116,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, device=None, mesh=None) -> Dict:
     """``{'pos': 0, 'layers': [per decoder layer {'k', 'v'}],
     'encoder_out': (batch, audio_ctx, d_model)}``, all in ``dtype``; with
-    a ``mesh`` (``batch`` global) this rank's rows."""
+    a ``mesh`` (``batch`` global) this rank's rows and KV heads, and
+    ``encoder_out`` whole over ``tp``."""
+    kv = None
     if mesh is not None:
-        batch = local_cache_dims(cfg, batch, mesh)[0]
+        batch, kv, _ = local_cache_dims(cfg, batch, mesh)
     return {"pos": 0,
-            "layers": [attn_cache_spec(cfg, batch, max_seq, dtype, device)
+            "layers": [attn_cache_spec(cfg, batch, max_seq, dtype, device,
+                                       kv_heads=kv)
                        for _ in range(cfg.num_layers)],
             "encoder_out": torch.zeros((batch, cfg.audio_ctx, cfg.d_model),
                                        dtype=dtype, device=device)}
+
+
+def _gathered(shard, path, sub):
+    gather = getattr(shard, "gather", None)
+    return sub if gather is None else gather(path, sub)
 
 
 def encode(params: EncDecParams, cfg: ModelConfig, frames: torch.Tensor,
@@ -124,14 +142,17 @@ def encode(params: EncDecParams, cfg: ModelConfig, frames: torch.Tensor,
     x = frames.to(dtype) + L.sinusoidal_positions(
         torch.arange(T, device=frames.device), cfg.d_model)[None].to(dtype)
     x = shard(x, "residual")
-    for lp in params.enc_blocks:
+    for i in range(cfg.num_encoder_layers):
+        lp = _gathered(shard, ("enc_blocks", i), params.enc_blocks[i])
         h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
         a, _ = L.apply_attention(lp["attn"], cfg, h, causal=False,
-                                 use_rope=False)
+                                 use_rope=False, shard=shard, flash=False)
         x = shard(x + a, "residual")
         h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
-        x = shard(x + L.apply_mlp(lp["mlp"], h), "residual")
-    return L.rmsnorm(x, params.enc_norm, cfg.norm_eps)
+        x = shard(x + L.apply_mlp(lp["mlp"], h, shard=shard, d_ff=cfg.d_ff),
+                  "residual")
+    return L.rmsnorm(x, _gathered(shard, "enc_norm", params.enc_norm),
+                     cfg.norm_eps)
 
 
 def decode(params: EncDecParams, cfg: ModelConfig, tokens: torch.Tensor,
@@ -144,36 +165,40 @@ def decode(params: EncDecParams, cfg: ModelConfig, tokens: torch.Tensor,
     its decoder layers under ``"full"`` only and runs ``"dots"`` as
     ``"none"``, which changes no value."""
     dtype = dtype_of(cfg.dtype)
+    part = tp_of(shard)
     S = tokens.shape[1]
     pos = cache["pos"] if cache is not None and S == 1 else None
     positions = (pos if pos is not None else 0) + torch.arange(
         S, device=tokens.device)
-    embed = params.embed.to(dtype)
-    x = embed[tokens] + L.sinusoidal_positions(
+    embed = _gathered(shard, "embed", params.embed).to(dtype)
+    x = embed_tokens(cfg, embed, tokens, part) + L.sinusoidal_positions(
         positions, cfg.d_model)[None].to(dtype)
     x = shard(x, "residual")
     layer_caches = cache["layers"] if cache is not None else \
         [None] * cfg.num_layers
 
     def block(x, i):
-        lp = params.dec_blocks[i]
+        # inside remat: gathered again in the recompute
+        lp = _gathered(shard, ("dec_blocks", i), params.dec_blocks[i])
         h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
         a, _ = L.apply_attention(lp["self_attn"], cfg, h,
                                  cache=layer_caches[i], pos=pos,
-                                 use_rope=False)
+                                 use_rope=False, shard=shard, flash=False)
         x = shard(x + a, "residual")
         h = L.rmsnorm(x, lp["cross_ln"], cfg.norm_eps)
         c, _ = L.apply_attention(lp["cross_attn"], cfg, h, kv_x=encoder_out,
-                                 causal=False, use_rope=False)
+                                 causal=False, use_rope=False, shard=shard)
         x = shard(x + c, "residual")
         h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
-        return shard(x + L.apply_mlp(lp["mlp"], h), "residual")
+        return shard(x + L.apply_mlp(lp["mlp"], h, shard=shard,
+                                     d_ff=cfg.d_ff), "residual")
 
     body = rematerialize(block, remat if cache is None else "none")
     for i in range(cfg.num_layers):
         x = body(x, i)
-    x = L.rmsnorm(x, params.final_norm, cfg.norm_eps)
-    return shard(torch.matmul(x, embed.T), "logits")
+    x = L.rmsnorm(x, _gathered(shard, "final_norm", params.final_norm),
+                  cfg.norm_eps)
+    return lm_logits(cfg, embed, x, part, shard)
 
 
 def apply(params: EncDecParams, cfg: ModelConfig, tokens: torch.Tensor, *,
@@ -183,11 +208,7 @@ def apply(params: EncDecParams, cfg: ModelConfig, tokens: torch.Tensor, *,
     """Returns (logits, cache, None). train (no cache) and prefill (S > 1)
     run the encoder on ``frames``; prefill stores its output in the
     cache's dtype. Decode (S == 1) reads it back in the compute dtype.
-    ``remat`` applies to the decoder in train mode (:func:`decode`). A
-    ``shard`` whose ``tp`` axis is wider than 1 raises
-    ``NotImplementedError`` (ROADMAP A15): on a mesh of several ranks the
-    model runs its rows with whole weights."""
-    check_tp(cfg, tp_of(shard))
+    ``remat`` applies to the decoder in train mode (:func:`decode`)."""
     if cache is None:
         enc = encode(params, cfg, frames, shard=shard)
         return decode(params, cfg, tokens, enc, shard=shard,

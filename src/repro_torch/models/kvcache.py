@@ -38,16 +38,19 @@ def attn_cache_spec(cfg: ModelConfig, batch: int, max_seq: int, dtype,
 
 
 def local_cache_dims(cfg: ModelConfig, batch: int, mesh):
-    """(rows, KV heads) of this rank's dense attention cache on ``mesh``
+    """(rows, KV heads, SSM heads) of this rank's dense cache on ``mesh``
     for a global ``batch``, in :func:`repro_torch.sharding.cache_specs`'
     layout: the batch over ``dp`` and the KV heads over ``tp`` where they
     divide. Where they do not divide ``tp`` the reference splits the head
     dimension (``kv_fallback='hd'``); the port holds instead the whole
     KV heads its q heads map to (ROADMAP A12, "How the port differs"),
-    and whole heads when ``tp`` does not divide the q heads either."""
+    and whole heads when ``tp`` does not divide the q heads either. The
+    SSM heads split over ``tp`` where it divides them
+    (:func:`repro_torch.models.ssm.heads_held`), else stay whole."""
     from repro_torch import partition as P
     from repro_torch import sharding as sh
     from repro_torch.models.layers import kv_heads_held
+    from repro_torch.models.ssm import heads_held
 
     rules = sh.rules_for(mesh)
     shape = torch.empty((1, batch, 1, cfg.num_kv_heads, cfg.head_dim),
@@ -55,7 +58,8 @@ def local_cache_dims(cfg: ModelConfig, batch: int, mesh):
     spec = sh.cache_specs({"k": shape}, rules, mesh)["k"]
     b_n = sh.block_of(mesh, spec.dims[1])[1] if spec.dims[1] else 1
     part = P.placement(sh.make_shard_fn(mesh, rules))
-    return batch // b_n, kv_heads_held(cfg, part)[1]
+    ssm = heads_held(cfg, part)[1] if cfg.ssm_state else 0
+    return batch // b_n, kv_heads_held(cfg, part)[1], ssm
 
 
 def pool_heads(cfg: ModelConfig, mesh, axis=None):
@@ -85,9 +89,13 @@ def pool_heads(cfg: ModelConfig, mesh, axis=None):
 
 
 def ssm_cache_spec(cfg: ModelConfig, batch: int, dtype,
-                   device=None) -> Dict[str, torch.Tensor]:
-    """The last K - 1 conv inputs in ``dtype`` and the SSD state in fp32."""
+                   device=None, heads=None) -> Dict[str, torch.Tensor]:
+    """The last K - 1 conv inputs in ``dtype`` and the SSD state in fp32;
+    ``heads`` (a rank's share) sizes ``conv_x`` and ``state``, and
+    ``conv_bc`` stays whole."""
     d_in, H, P, G, N = ssm_dims(cfg)
+    if heads is not None and heads != H:
+        d_in, H = heads * P, heads
     return {
         "conv_x": torch.zeros((batch, cfg.ssm_conv - 1, d_in), dtype=dtype,
                               device=device),

@@ -30,6 +30,9 @@ leave through :func:`repro_torch.partition.reduce_from`, where GSPMD puts
 its collectives. When the KV heads do not divide ``tp`` each rank takes
 the contiguous block of KV heads its q heads map to, as the reference's
 ``_flash_sharded`` does, in the flash path, the plain one and decode.
+Cross-attention (vlm, whisper) splits the same way. Where ``tp`` does not
+divide the q heads (or an MLP's ``d_ff``) the block keeps its weights
+whole and runs whole on every rank.
 """
 from __future__ import annotations
 
@@ -318,7 +321,8 @@ def apply_attention(p, cfg: ModelConfig, x: torch.Tensor, *,
                     kv_x: Optional[torch.Tensor] = None,
                     cache: Optional[dict] = None, pos=None,
                     causal: bool = True, use_rope: bool = True, shard=None,
-                    attn_impl=None, page_table: Optional[dict] = None):
+                    attn_impl=None, page_table: Optional[dict] = None,
+                    flash: bool = True):
     """Self- or cross-attention; returns (out, cache).
 
     ``kv_x`` (B, Skv, kv_in) is a cross-attention source: k and v are
@@ -347,7 +351,14 @@ def apply_attention(p, cfg: ModelConfig, x: torch.Tensor, *,
     ``attn_impl`` (the explicit path's hook, ``(q, k, v, *, causal,
     q_offset) -> o``) replaces the core attention call: projections,
     biases, qk-norm and rope run here first, and the flash path is
-    bypassed."""
+    bypassed. ``flash=False`` keeps the prefill on the plain attention
+    under a ``shard`` (the encoder-decoder, whose reference passes no
+    shard function to its attention).
+
+    Cross-attention under ``tp`` splits its q and KV heads as
+    self-attention does: each rank projects K/V for its own KV heads from
+    the whole source ``kv_x``, which enters through ``copy_to`` as ``x``
+    does. It stays on the plain attention, as in the reference."""
     dtype = x.dtype
     part = P.tp_of(shard) if attn_impl is None else None
     if part is not None and cfg.num_heads % part.tp_n:
@@ -357,12 +368,10 @@ def apply_attention(p, cfg: ModelConfig, x: torch.Tensor, *,
     q_norm, k_norm = (p["q_norm"], p["k_norm"]) if cfg.use_qk_norm \
         else (None, None)
     if part is not None:
-        if kv_x is not None:
-            raise NotImplementedError(
-                "tensor-parallel cross-attention is not ported (ROADMAP "
-                "A15)")
         mesh, tp = part.mesh, part.tp
         x = P.copy_to(x, mesh, tp)
+        if kv_x is not None:
+            kv_x = P.copy_to(kv_x, mesh, tp)
         if cfg.num_kv_heads % part.tp_n:
             # whole KV weights (param_specs keeps them so): this rank's
             # block, its gradient summed over tp (every rank uses a share)
@@ -428,8 +437,8 @@ def apply_attention(p, cfg: ModelConfig, x: torch.Tensor, *,
     if attn_impl is not None:
         o = attn_impl(q, k, v, causal=causal and kv_x is None,
                       q_offset=q_offset)
-    elif (shard is not None and kv_x is None and causal and cache is not None
-            and pos is None):
+    elif (flash and shard is not None and kv_x is None and causal
+            and cache is not None and pos is None):
         o = _flash_sharded(q, k, v, shard=shard, causal=True,
                            num_heads=cfg.num_heads)
     if o is None:
@@ -465,12 +474,20 @@ def init_mlp(gen: torch.Generator, d: int, d_ff: int, num_layers: int,
     }
 
 
-def apply_mlp(p, x: torch.Tensor, shard=None) -> torch.Tensor:
-    """SwiGLU. With a ``shard`` whose ``tp`` axis is wider than 1 the
-    weights are this rank's columns of ``w_gate``/``w_in`` and rows of
-    ``w_out`` (the caller checks that tp divides ``d_ff``): the input
-    enters through ``copy_to`` and the output is reduced over tp."""
+def apply_mlp(p, x: torch.Tensor, shard=None,
+              d_ff: Optional[int] = None) -> torch.Tensor:
+    """SwiGLU. With a ``shard`` whose ``tp`` axis is wider than 1 and
+    divides the hidden width ``d_ff`` (the whole layer's) the weights are
+    this rank's columns of ``w_gate``/``w_in`` and rows of ``w_out``: the
+    input enters through ``copy_to`` and the output is reduced over tp.
+    Where tp does not divide ``d_ff`` the weights are whole and the MLP
+    runs whole on every rank, with no collective (the reference's
+    ``_maybe`` rule)."""
     part = P.tp_of(shard)
+    if part is not None and d_ff is None:
+        raise ValueError("apply_mlp on a tp axis needs the layer's d_ff")
+    if part is not None and d_ff % part.tp_n:
+        part = None
     if part is not None:
         x = P.copy_to(x, part.mesh, part.tp)
     dtype = x.dtype

@@ -8,8 +8,10 @@ There is no dense one-hot dispatch product.
 
 Two execution paths share the routing and scatter internals:
 
-* :func:`apply_moe` — one process holds every expert (the reference's
-  GSPMD program on one device).
+* :func:`apply_moe` — the reference's GSPMD program: one process holds
+  every expert, or, on a mesh whose ``tp`` axis divides the experts, each
+  rank of ``tp`` holds ``E / tp`` of them (the reference's expert split,
+  ``sharding.py:152-156``) and the tokens of its ``data`` row.
 * :func:`apply_moe_explicit` / :func:`make_apply_moe_explicit` — the
   expert-parallel path: every rank of a ring axis holds ``E / n`` experts
   (:func:`expert_shard`) and its own batch rows, and the dispatch and
@@ -41,10 +43,11 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import partition as P
 from repro_torch.comm.callsites import MOE_COMBINE, MOE_DISPATCH
 from repro_torch.comm.engine import CollectiveEngine
 from repro_torch.configs.base import ModelConfig
-from repro_torch.partition import tp_of
+from repro_torch.models.layers import apply_mlp
 
 # tuning-table callsite tags for the two expert exchanges: they are issued
 # back-to-back around the expert FFN, so measured winners may differ from an
@@ -131,11 +134,17 @@ def _capacity(cfg: ModelConfig, seq: int) -> int:
     return max(c, 1)
 
 
-def route(p: dict, cfg: ModelConfig,
-          x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def route(p: dict, cfg: ModelConfig, x: torch.Tensor,
+          part=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Router: (probs (B, S, k) fp32, ids (B, S, k) int64); the top-k logits
-    in descending order, renormalized by a softmax over the k."""
+    in descending order, renormalized by a softmax over the k. With a
+    placement ``part`` the router holds this rank's experts' columns: its
+    logits are gathered over ``tp`` into the whole (B, S, E), whose
+    gradient is summed over ``tp`` before this rank's slice is kept."""
     logits = torch.matmul(x, p["router"].to(x.dtype)).float()
+    if part is not None:
+        logits = P.gather_summed(logits, part.mesh, part.tp, -1,
+                                 source=P.TP)
     top_logits, ids = torch.topk(logits, cfg.num_experts_per_tok, dim=-1)
     return torch.softmax(top_logits, dim=-1), ids
 
@@ -215,12 +224,6 @@ def _combine_scatter(y_w, e_idx, c_idx, keep, S: int, K: int):
     return out
 
 
-def _shared_expert(sp: dict, x: torch.Tensor, dtype) -> torch.Tensor:
-    sg = torch.matmul(x, sp["w_gate"].to(dtype))
-    sh = torch.matmul(x, sp["w_in"].to(dtype))
-    return torch.matmul(F.silu(sg) * sh, sp["w_out"].to(dtype))
-
-
 def _tokens(x: torch.Tensor, K: int) -> torch.Tensor:
     """(B, S, D) -> (B, S*K, D): each token K times, slot s*K + j."""
     return x.repeat_interleave(K, dim=1)
@@ -231,40 +234,67 @@ def _tokens(x: torch.Tensor, K: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _local_slots(e_idx, c_idx, keep, e0: int, e_loc: int, C: int):
+    """The slots of experts [e0, e0 + e_loc) in local ids: (e, c, keep)
+    with every other slot sent to the scratch column C of local expert 0
+    and not kept."""
+    mine = (e_idx >= e0) & (e_idx < e0 + e_loc)
+    keep = keep & mine
+    return (torch.where(mine, e_idx - e0, 0), torch.where(keep, c_idx, C),
+            keep)
+
+
 def apply_moe(p: dict, cfg: ModelConfig, x: torch.Tensor,
               aux: Optional[dict] = None, shard=None) -> torch.Tensor:
     """x: (B, S, D) -> (B, S, D), per-batch-row dispatch groups. ``aux``
     (if given) receives ``moe_frac_tokens`` (E,) and ``moe_dropped``, fp32.
     ``shard`` is the activation-constraint callback, the identity on the
-    local tensor: on a mesh of several ranks each rank runs its rows with
-    every expert. A ``tp`` axis wider than 1 (the reference's expert split
-    under GSPMD) raises ``NotImplementedError`` (ROADMAP A15)."""
-    part = tp_of(shard)
-    if part is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE layer over a tp axis of {part.tp_n} ranks "
-            "is not ported (ROADMAP A15); use a mesh whose tp axis has "
-            "size 1, or the explicit expert-parallel layer")
+    local tensor: on a mesh of several ranks each rank runs its rows.
+
+    On a ``tp`` axis wider than 1 that divides the experts (the layout of
+    :func:`repro_torch.sharding.param_specs`) each rank holds ``E / tp``
+    experts and their router columns. The router's logits are gathered
+    over ``tp``; softmax, top-k and the capacity bookkeeping run over all
+    E on every rank alike, so the dropped slots are the one-device
+    layer's. The ``tp`` ranks of a data row hold the same tokens, so no
+    all-to-all moves them: each rank keeps the slots of its own experts,
+    runs them, weighs and scatters their outputs to the tokens in fp32,
+    and the partial (B, S, D) sums over ``tp`` (``reduce_from``). That sum
+    reorders the combine's fp32 additions, so the output equals the
+    one-device layer's within rounding, not bit for bit. The shared expert
+    is a dense MLP (its own split, :func:`repro_torch.models.layers.
+    apply_mlp`). Where ``tp`` does not divide the experts the layer runs
+    whole on every rank (the reference's ``_maybe`` rule). ``aux`` comes
+    from the whole routing and is equal on every rank."""
+    part = P.tp_of(shard)
+    if part is not None and cfg.num_experts % part.tp_n:
+        part = None  # experts tp does not divide: the layer stays whole
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.num_experts_per_tok
     C = _capacity(cfg, S)
     dtype = x.dtype
-    shard = shard or (lambda v, _name: v)
+    xin = x if part is None else P.copy_to(x, part.mesh, part.tp)
+    shard_fn = shard or (lambda v, _name: v)
 
-    probs, ids = route(p, cfg, x)
+    probs, ids = route(p, cfg, xin, part)
     e_idx, c_idx, keep, onehot = _dispatch_indices(ids, E, C)
-    tok = shard(_tokens(x, K), "moe_tokens")
-    buf = shard(_scatter_dispatch(tok.to(dtype), e_idx, c_idx, E, C),
-                "moe_buf")
-    y = shard(_expert_ffn(p, buf, dtype), "moe_buf")
+    e_loc = p["w_gate"].shape[0]
+    slots = (e_idx, c_idx, keep) if part is None else \
+        _local_slots(e_idx, c_idx, keep, part.tp_index * e_loc, e_loc, C)
+    tok = shard_fn(_tokens(xin, K), "moe_tokens")
+    buf = shard_fn(_scatter_dispatch(tok.to(dtype), slots[0], slots[1],
+                                     e_loc, C), "moe_buf")
+    y = shard_fn(_expert_ffn(p, buf, dtype), "moe_buf")
     del buf, tok
-    w_buf = _combine_weights(probs, keep, e_idx, c_idx, E, C)
+    w_buf = _combine_weights(probs, slots[2], slots[0], slots[1], e_loc, C)
     y_w = y.float() * w_buf[..., None]
     del y
-    out = _combine_scatter(y_w, e_idx, c_idx, keep, S, K)
-    out = shard(out, "moe_tokens").to(dtype)
+    out = _combine_scatter(y_w, slots[0], slots[1], slots[2], S, K)
+    if part is not None:
+        out = P.reduce_from(out, part.mesh, part.tp)
+    out = shard_fn(out, "moe_tokens").to(dtype)
     if cfg.shared_expert:
-        out = out + _shared_expert(p["shared"], x, dtype)
+        out = out + apply_mlp(p["shared"], x, shard, d_ff=cfg.moe_d_ff)
     if aux is not None:
         aux["moe_frac_tokens"] = onehot.float().mean(dim=(0, 1))
         aux["moe_dropped"] = 1.0 - keep.float().mean()
@@ -334,7 +364,7 @@ def _explicit_body(p: dict, cfg: ModelConfig, x: torch.Tensor, *, axis: str,
                            callsite=combine_callsite)
     out = _combine_scatter(y_w, e_idx, c_idx, keep, S, K).to(dtype)
     if cfg.shared_expert:
-        out = out + _shared_expert(p["shared"], x, dtype)
+        out = out + apply_mlp(p["shared"], x)
     return out
 
 
@@ -406,5 +436,5 @@ def reference_moe(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
         out = out + y.float() * w_e[..., None]
     out = out.to(x.dtype)
     if cfg.shared_expert:
-        out = out + _shared_expert(p["shared"], x, x.dtype)
+        out = out + apply_mlp(p["shared"], x)
     return out

@@ -25,12 +25,16 @@ param_specs`): with a ``tp`` axis wider than 1 the embedding is split over
 the vocabulary (a masked local lookup, then a ``tp`` allreduce), the
 logits are computed for this rank's vocabulary and gathered over ``tp``,
 and the attention and MLP blocks are Megatron's
-(:mod:`repro_torch.models.layers`). The dense cache holds this rank's rows
-and KV heads. The MoE, SSM and vlm layers on such a mesh raise
-``NotImplementedError`` (ROADMAP A15); on a mesh whose ``tp`` axis has
-size 1 every family runs with whole weights on its rows. With FSDP
-(``shard.gather``) each layer's dp-split weights are gathered before its
-forward, and again in remat's recompute.
+(:mod:`repro_torch.models.layers`), the MoE layer holds ``E / tp``
+experts (:func:`repro_torch.models.moe.apply_moe`), the SSM layer ``H /
+tp`` heads (:func:`repro_torch.models.ssm.apply_ssm`) and the vlm's
+cross-attention splits its heads as self-attention does, from the whole
+patch stream. A block whose heads, experts or hidden width ``tp`` does not
+divide keeps its weights whole and runs whole on every rank. The dense
+cache holds this rank's rows, KV heads and SSM heads; on a mesh whose
+``tp`` axis has size 1 every family runs with whole weights on its rows.
+With FSDP (``shard.gather``) each layer's dp-split weights are gathered
+before its forward, and again in remat's recompute.
 """
 from __future__ import annotations
 
@@ -71,26 +75,6 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.is_encoder_decoder:
         raise ValueError(f"{cfg.name}: an encoder-decoder model runs in "
                          "repro_torch.models.encdec")
-
-
-def check_tp(cfg: ModelConfig, part) -> None:
-    """Raise ``NotImplementedError`` for a layer this port does not split
-    over a ``tp`` axis wider than 1 (``part`` from
-    :func:`repro_torch.partition.tp_of`; None passes)."""
-    if part is None:
-        return
-    what = [w for w, has in (
-        ("MoE", cfg.has_moe),
-        ("SSM", any(k != "attn" for k in cfg.layer_kinds())),
-        ("vlm cross-attention", bool(cfg.cross_attn_every)),
-        ("encoder-decoder", cfg.is_encoder_decoder)) if has]
-    if cfg.d_ff and cfg.d_ff % part.tp_n:
-        what.append(f"MLP (d_ff={cfg.d_ff})")
-    if what:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(what)} layers over a tp axis of "
-            f"{part.tp_n} ranks are not ported (ROADMAP A15); use a mesh "
-            "whose tp axis has size 1")
 
 
 def period_of(cfg: ModelConfig) -> int:
@@ -261,16 +245,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     """``{'pos': 0, 'layers': [per layer: {'k', 'v'} (attention) or
     {'conv_x', 'conv_bc', 'state'} (SSM, the state in fp32)]}``. With a
     ``mesh`` (``batch`` the global batch) this rank's part of it
-    (:func:`repro_torch.models.kvcache.local_cache_dims`)."""
+    (:func:`repro_torch.models.kvcache.local_cache_dims`): its rows, its
+    KV heads, and its SSM heads in ``conv_x`` and ``state`` (``conv_bc``
+    whole)."""
     check_supported(cfg)
-    kv = None
+    kv = heads = None
     if mesh is not None:
-        batch, kv = local_cache_dims(cfg, batch, mesh)
+        batch, kv, heads = local_cache_dims(cfg, batch, mesh)
     return {"pos": 0,
             "layers": [attn_cache_spec(cfg, batch, max_seq, dtype, device,
                                        kv_heads=kv)
                        if kind == "attn" else
-                       ssm_cache_spec(cfg, batch, dtype, device)
+                       ssm_cache_spec(cfg, batch, dtype, device,
+                                      heads=heads)
                        for kind in cfg.layer_kinds()]}
 
 
@@ -342,6 +329,31 @@ def rematerialize(fn: Callable, remat: str) -> Callable:
 # ---------------------------------------------------------------------------
 
 
+def _vocab_split(cfg: ModelConfig, part) -> bool:
+    # param_specs splits the vocabulary over tp where tp divides it
+    return part is not None and cfg.padded_vocab() % part.tp_n == 0
+
+
+def embed_tokens(cfg: ModelConfig, embed: torch.Tensor,
+                 tokens: torch.Tensor, part) -> torch.Tensor:
+    """Rows ``tokens`` of the (compute-dtype) embedding, split over the
+    vocabulary on placement ``part`` where its ``tp`` axis divides it."""
+    if _vocab_split(cfg, part):
+        return P.embed_lookup(embed, tokens, part)
+    return embed[tokens]
+
+
+def lm_logits(cfg: ModelConfig, embed: torch.Tensor, x: torch.Tensor,
+              part, shard: Shard) -> torch.Tensor:
+    """The tied LM head: with a vocabulary split over ``tp``, this rank's
+    vocabulary's logits gathered over ``tp`` for the loss and sampling."""
+    if not _vocab_split(cfg, part):
+        return shard(torch.matmul(x, embed.T), "logits")
+    x = P.copy_to(x, part.mesh, part.tp)
+    return P.gather(shard(torch.matmul(x, embed.T), "logits"),
+                    part.mesh, part.tp, dim=-1)
+
+
 def _apply_layer(lp: LayerParams, cfg: ModelConfig, x, *, kind: str,
                  has_moe: bool, has_cross: bool, cache, pos, cross_kv,
                  shard: Shard, attn_impl=None, moe_impl=None,
@@ -353,12 +365,13 @@ def _apply_layer(lp: LayerParams, cfg: ModelConfig, x, *, kind: str,
                                          attn_impl=attn_impl,
                                          page_table=page_table)
     else:
-        a, new_cache = SSM.apply_ssm(lp["ssm"], cfg, h, cache=cache, pos=pos)
+        a, new_cache = SSM.apply_ssm(lp["ssm"], cfg, h, cache=cache, pos=pos,
+                                     shard=shard)
     x = shard(x + a, "residual")
     if has_cross and cross_kv is not None:
         h = L.rmsnorm(x, lp["cross_ln"], cfg.norm_eps)
         c, _ = L.apply_attention(lp["cross_attn"], cfg, h, kv_x=cross_kv,
-                                 causal=False, use_rope=False)
+                                 causal=False, use_rope=False, shard=shard)
         x = shard(x + torch.tanh(lp["cross_gate"]).to(x.dtype) * c,
                   "residual")
     if has_moe:
@@ -368,7 +381,8 @@ def _apply_layer(lp: LayerParams, cfg: ModelConfig, x, *, kind: str,
         x = shard(x + m, "residual")
     elif cfg.d_ff:
         h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
-        x = shard(x + L.apply_mlp(lp["mlp"], h, shard=shard), "residual")
+        x = shard(x + L.apply_mlp(lp["mlp"], h, shard=shard, d_ff=cfg.d_ff),
+                  "residual")
     return x, new_cache
 
 
@@ -406,20 +420,13 @@ def apply(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     called as ``moe_impl(layer_params["moe"], h)``."""
     check_supported(cfg)
     part = P.tp_of(shard)
-    check_tp(cfg, part)
     gather = getattr(shard, "gather", None)
     dtype = dtype_of(cfg.dtype)
     kinds, moe_mask = cfg.layer_kinds(), cfg.moe_layer_mask()
     cross_mask = cfg.cross_attn_mask()
     embed = params.embed if gather is None else gather("embed", params.embed)
     embed = embed.to(dtype)
-    # param_specs splits the vocabulary over tp where tp divides it
-    vocab_split = part is not None and \
-        cfg.padded_vocab() % part.tp_n == 0
-    if vocab_split:
-        x = shard(P.embed_lookup(embed, tokens, part), "residual")
-    else:
-        x = shard(embed[tokens], "residual")
+    x = shard(embed_tokens(cfg, embed, tokens, part), "residual")
 
     cross_kv = None
     if cfg.family == "vlm" and patch_embeds is not None:
@@ -479,14 +486,7 @@ def apply(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     final_norm = params.final_norm if gather is None \
         else gather("final_norm", params.final_norm)
     x = shard(L.rmsnorm(x, final_norm, cfg.norm_eps), "residual")
-    if vocab_split:
-        # this rank's vocabulary, gathered over tp for the loss and
-        # sampling
-        x = P.copy_to(x, part.mesh, part.tp)
-        logits = P.gather(shard(torch.matmul(x, embed.T), "logits"),
-                          part.mesh, part.tp, dim=-1)
-    else:
-        logits = shard(torch.matmul(x, embed.T), "logits")
+    logits = lm_logits(cfg, embed, x, part, shard)
 
     new_cache = None
     if cache is not None:

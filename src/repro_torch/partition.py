@@ -16,14 +16,20 @@ collective:
   after a row-split product. A whole weight used by a rank's share of the
   heads only (the KV projections when the KV heads do not divide ``tp``,
   the qk-norm scales) goes through :func:`copy_to` too, so that its
-  gradient is the sum of every rank's share;
+  gradient is the sum of every rank's share. A layer whose heads, experts
+  or hidden width ``tp`` does not divide keeps its weights whole (the
+  reference's ``_maybe`` rule) and runs whole on every rank of ``tp`` on
+  the same tokens: it needs no collective, since each rank's gradients are
+  the whole ones already;
 * :func:`embed_lookup`: the vocab-split embedding, a masked local gather
   then a ``tp`` allreduce;
 * :func:`gather`: an all-gather along one dimension (backward: this
   rank's slice of the gradient), for the vocab-split logits before the
   loss and before sampling;
-* :func:`gather_summed`: an all-gather over ``dp`` whose backward sums the
-  gradient over ``dp`` and keeps this rank's slice, for the FSDP weights.
+* :func:`gather_summed`: an all-gather whose backward sums the gradient
+  over the axis and keeps this rank's slice: the FSDP weights over ``dp``,
+  and the MoE router's logits over ``tp`` (each rank's gradient of the
+  whole logits reaches only its own experts' combine weights).
 
 The reference leaves these collectives to XLA, its ``native`` path, so
 every call here runs the engine's ``native`` schedule (the library's
@@ -188,12 +194,14 @@ def gather(x: torch.Tensor, mesh, axis, dim: int,
     return _Gather.apply(x, mesh, axis, dim % x.dim(), False, source)
 
 
-def gather_summed(x: torch.Tensor, mesh, axis, dim: int) -> torch.Tensor:
+def gather_summed(x: torch.Tensor, mesh, axis, dim: int,
+                  source: str = FSDP) -> torch.Tensor:
     """:func:`gather` whose backward first sums the gradient over
-    ``axis`` (each rank used the whole weight on its own rows): FSDP."""
+    ``axis`` (each rank used the whole tensor, but its gradient holds
+    only this rank's share): FSDP's weights, the MoE router's logits."""
     if _axsize(mesh, axis) == 1:
         return x
-    return _Gather.apply(x, mesh, axis, dim % x.dim(), True, FSDP)
+    return _Gather.apply(x, mesh, axis, dim % x.dim(), True, source)
 
 
 def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor,

@@ -151,9 +151,10 @@ def make_shard_fn(mesh, rules: MeshRules) -> ShardFn:
 # ---------------------------------------------------------------------------
 
 def _leaf_spec(path: Tuple[str, ...], shape: Tuple[int, ...], rules: MeshRules,
-               mesh) -> LeafSpec:
+               mesh, ssm_whole: bool = False) -> LeafSpec:
     """Partition rule for one parameter leaf; ``path`` is the tuple of
-    keys (a list index as its string)."""
+    keys (a list index as its string). ``ssm_whole`` keeps every SSM leaf
+    whole (the model's SSM heads do not divide over ``tp``)."""
     tp = rules.tp
     name = path[-1]
     parent = path[-2] if len(path) >= 2 else ""
@@ -184,6 +185,8 @@ def _leaf_spec(path: Tuple[str, ...], shape: Tuple[int, ...], rules: MeshRules,
     if name == "w_out":                             # (F, D)
         return out(_maybe(core[0], tp, mesh))
     if parent == "ssm":
+        if ssm_whole:
+            return out()
         if name in ("in_x", "in_z"):                # (D, d_in): channel-shard
             return out(None, _maybe(core[1], tp, mesh))
         if name in ("conv_x",):                     # (k, d_in)
@@ -222,13 +225,35 @@ def param_specs(params, rules: MeshRules, mesh):
     largest remaining unsharded dim over the dp axes (fully-sharded /
     ZeRO-3 weights, gathered per layer at use). The reference protects
     its block leaves' scan dimension there (``skip_first``); the port's
-    have none."""
+    have none.
+
+    One rule differs from the reference's: where ``tp`` does not divide
+    the SSM heads (the length of ``A_log``) every SSM weight stays whole,
+    since the port's SSM layer splits whole heads only; the reference
+    splits ``d_in`` wherever ``tp`` divides it, inside a head."""
+    tree = _tree(params)
+    ssm_whole = _ssm_heads_undivided(tree, rules, mesh)
+
     def leaf(path, x):
-        spec = _leaf_spec(path, tuple(x.shape), rules, mesh)
+        spec = _leaf_spec(path, tuple(x.shape), rules, mesh, ssm_whole)
         if rules.fsdp:
             spec = zero1_spec(spec, tuple(x.shape), rules, mesh)
         return spec
-    return _map_with_path(_tree(params), leaf)
+    return _map_with_path(tree, leaf)
+
+
+def _ssm_heads_undivided(tree, rules: MeshRules, mesh) -> bool:
+    """Whether an SSM layer of ``tree`` has heads (``A_log``'s length)
+    that the ``tp`` axis does not divide."""
+    if isinstance(tree, dict):
+        if "A_log" in tree:
+            return _maybe(tree["A_log"].shape[0], rules.tp, mesh) is None \
+                and _axsize(mesh, rules.tp) > 1
+        return any(_ssm_heads_undivided(v, rules, mesh)
+                   for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_ssm_heads_undivided(v, rules, mesh) for v in tree)
+    return False
 
 
 # ---------------------------------------------------------------------------

@@ -158,10 +158,11 @@ def make_paged_decode_step(model: Model, mesh=None) -> Callable:
     names of ``tokens``, ``block_table`` and ``lengths``, and its pool
     (``init_paged_cache(..., mesh=mesh)``), which only those rows write
     and read. With a ``tp`` axis wider than 1 the heads split as in
-    prefill and the pool holds this rank's KV heads; the logits come back
-    whole for the rank's rows, gathered over ``tp``."""
+    prefill, a MoE layer holds its share of the experts
+    (:func:`repro_torch.models.moe.apply_moe`), and the pool holds this
+    rank's KV heads; the logits come back whole for the rank's rows,
+    gathered over ``tp``."""
     shard = _shard_fn(mesh)
-    transformer.check_tp(model.cfg, P.tp_of(shard))
 
     @torch.no_grad()
     def decode(params, tokens, pages, block_table, lengths):

@@ -299,8 +299,10 @@ def gather_state(state: TrainState, model: Model, mesh, *,
 def _fsdp_gather(spec_tree, mesh, dp):
     """The ``ShardFn.gather`` hook of an FSDP step: ``gather(path, leaf or
     module)`` returns the weights at ``path`` (``"embed"``,
-    ``"final_norm"``, ``"vlm"`` or ``("blocks", i)``) with every dp-split
-    leaf gathered (backward: summed over dp, this rank's slice)."""
+    ``"final_norm"``, ``"vlm"``, ``("blocks", i)``, and the
+    encoder-decoder's ``"enc_norm"``, ``("enc_blocks", i)`` and
+    ``("dec_blocks", i)``) with every dp-split leaf gathered (backward:
+    summed over dp, this rank's slice)."""
     def one(t, spec):
         d = _dp_dim(spec, dp)
         return t if d is None else P.gather_summed(t, mesh, dp, d)
@@ -340,13 +342,8 @@ def _make_gspmd_step(model: Model, run_cfg: RunConfig, shard, adamw,
       blocks are gathered over dp into the weight; the per-element
       operations are the whole update's, so the bits are the same.
     """
-    cfg = model.cfg
     mesh, rules = shard.mesh, shard.rules
     fsdp = rules.fsdp
-    if fsdp and cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: FSDP weights on the encoder-decoder are not "
-            "ported (ROADMAP A15)")
     part = P.placement(shard)
     dp, dp_n, tp = rules.dp_spec, part.dp_n, part.tp
     engine = part.engine

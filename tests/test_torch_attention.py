@@ -323,19 +323,31 @@ def test_shard_fn_is_identity_carrying_mesh_and_rules():
 
 
 def test_shard_fn_refuses_a_wide_mesh():
-    """``make_shard_fn`` takes a mesh with axes wider than 1 now; what
-    still refuses it is a MoE layer over a ``tp`` axis wider than 1."""
-    from repro_torch.launch.mesh import MeshAxis, ProcessMesh
+    """``make_shard_fn`` takes a mesh with axes wider than 1, and nothing
+    refuses it now (the name is kept from when the MoE layer did): on the
+    meta device over a dry 2x2 mesh the MoE layer holds half the experts
+    and their router columns, gathers the logits and reduces its output
+    over ``model`` under ``gspmd.tp``, and returns the whole output."""
+    from repro_torch.comm import dry
+    from repro_torch.launch.mesh import dry_mesh
     from repro_torch.models import moe as MOE
 
-    wide = ProcessMesh(axes=(MeshAxis("data", 2, 0, (0, 2)),
-                             MeshAxis("model", 2, 0, (0, 1))))
+    wide = dry_mesh((2, 2), ("data", "model"))
     shard = sh.make_shard_fn(wide, sh.rules_for(wide))
     assert shard.mesh is wide and shard(torch.ones(2), "residual") is not None
     cfg = reduced(get_config("qwen3-moe-235b-a22b"), layers=2)
-    p = MOE.init_moe(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(NotImplementedError, match="A15"):
-        MOE.apply_moe(p, cfg, torch.zeros((2, 4, cfg.d_model)), shard=shard)
+    p = MOE.init_moe(torch.Generator().manual_seed(0), cfg, device="meta")
+    specs = sh.param_specs({"moe": p}, shard.rules, wide)["moe"]
+    local = sh.cut(p, specs, wide, copy=False)
+    assert local["w_gate"].shape[0] == cfg.num_experts // 2
+    assert local["router"].shape[1] == cfg.num_experts // 2
+    dry.reset()
+    out = MOE.apply_moe(local, cfg, torch.empty((2, 4, cfg.d_model),
+                                                device="meta"), shard=shard)
+    assert out.shape == (2, 4, cfg.d_model) and out.device.type == "meta"
+    assert [(o.op, o.source) for o in dry.ops()] == [
+        ("all-gather", "gspmd.tp"), ("all-reduce", "gspmd.tp")]
+    dry.reset()
 
 
 @pytest.mark.parametrize("Sq,expect_flash", [(128, True), (64, False)])

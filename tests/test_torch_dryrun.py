@@ -11,7 +11,9 @@ against the reference.
   serving placement holds none; the record says ``fsdp: false``). Where
   the KV heads do not divide ``model`` the port's dense cache holds whole
   KV heads (ROADMAP A12, "How the port differs") where the reference
-  splits the head dimension: there the bytes are held to that rule.
+  splits the head dimension: there the bytes are held to that rule. The
+  reduced MoE, SSM, hybrid, vlm and encoder-decoder archs on both meshes
+  too, under the port's stated differences (:func:`_port_layout`).
 * FLOPs: a reduced forward's dry-run FLOPs equal ``FlopCounterMode`` of
   the real CPU forward, and on a (1, 2) mesh, which divides every width,
   twice rank 0's FLOPs equal them.
@@ -19,11 +21,13 @@ against the reference.
   payload bytes, in order) equal what rank 0 of a real 2x2 gloo run of the
   same reduced GSPMD train step sends, seen by a spy on the engine's
   transport helpers. The file's one gloo world.
-* Statuses: a MoE cell on a ``model`` axis wider than 1 is ``skipped``
-  naming A15; a program that reads a tensor's value is ``failed`` naming
-  the aten op; neither is ``ok``. ``report``, ``analyze``,
-  ``resource_table`` and ``lm_step_bench``'s production roofline read the
-  records; the CLI writes one.
+* Statuses: every cell of the reduced MoE, SSM, hybrid, vlm and
+  encoder-decoder archs on a (2, 2) mesh is ``ok`` (``long_500k`` on a
+  model with full attention only is ``skipped`` by the cell list, on any
+  mesh); a program that reads a tensor's value is ``failed`` naming the
+  aten op; neither is ``ok``. ``report``, ``analyze``, ``resource_table``
+  and ``lm_step_bench``'s production roofline read the records; the CLI
+  writes one.
 """
 from __future__ import annotations
 
@@ -95,7 +99,17 @@ def _shard_bytes(tree, specs, mesh, dtype_bytes=None) -> int:
     return total
 
 
-def _reference_bytes(arch, cfg_fn, shape_name, mesh_shape):
+def _in_blocks(path) -> bool:
+    return jsh._path_keys(path)[0] in ("blocks", "enc_blocks", "dec_blocks")
+
+
+def _reference_bytes(arch, cfg_fn, shape_name, mesh_shape, layout=None):
+    """Each state part's bytes per rank under the reference's specs. With
+    ``layout`` (a map over the reference's specs without FSDP) the port's
+    order instead: ``layout`` on the model axis, then FSDP's and ZeRO-1's
+    dp split of what it leaves, neither splitting a block leaf's
+    super-block dimension, which the port's per-layer leaves do not
+    have."""
     jcfg = cfg_fn(jconfigs.get_config(arch))
     shape = jconfigs.shape_for(shape_name)
     mesh = _stand_in(mesh_shape)
@@ -104,13 +118,30 @@ def _reference_bytes(arch, cfg_fn, shape_name, mesh_shape):
     kind = shape.kind
     fsdp = kind == "train"
     rules = jsh.rules_for(mesh, fsdp=fsdp)
-    p_specs = jsh.param_specs(params, rules, mesh)
+    if layout is None:
+        p_specs = jsh.param_specs(params, rules, mesh)
+    else:
+        # the port's layout of the model axis first, then FSDP's dp split
+        # of what it leaves, as the reference's param_specs orders them
+        p_specs = layout(jsh.param_specs(params, jsh.rules_for(mesh),
+                                         mesh))
+        if fsdp:
+            p_specs = jax.tree_util.tree_map_with_path(
+                lambda path, sp, x: jsh.zero1_spec(
+                    sp, x.shape, rules, mesh, skip_first=_in_blocks(path)),
+                p_specs, params,
+                is_leaf=lambda x: isinstance(x, PartitionSpec))
     batch = jmodel.input_specs(jcfg, shape.seq_len, shape.global_batch, kind)
     out = {"batch": _shard_bytes(batch, jsh.batch_specs(batch, rules, mesh),
                                  mesh)}
     if kind == "train":
         out["params"] = _shard_bytes(params, p_specs, mesh)
-        o_specs = jsh.opt_state_specs(params, rules, mesh, zero1=True)
+        o_specs = jsh.opt_state_specs(params, rules, mesh, zero1=True) \
+            if layout is None else jax.tree_util.tree_map_with_path(
+                lambda path, sp, x: jsh.zero1_spec(
+                    sp, x.shape, rules, mesh, skip_first=_in_blocks(path)),
+                p_specs, params,
+                is_leaf=lambda x: isinstance(x, PartitionSpec))
         out["optimizer"] = 2 * _shard_bytes(params, o_specs, mesh, 4)
         out["cache"] = 0
     else:
@@ -144,21 +175,110 @@ def _whole_kv_cache_bytes(cfg, shape_name, mesh_shape):
             * cfg.head_dim * 2)
 
 
+def _port_layout(specs, cfg, model_n):
+    """The reference's specs with the port's stated differences: the SSM
+    cache's ``conv_bc`` whole over ``model`` (every rank convolves the
+    whole B/C channels); where ``model`` does not divide the SSM heads
+    every SSM weight and cache leaf whole (the port splits whole heads
+    only; the reference cuts ``d_in`` inside a head)."""
+    from repro_torch.models.ssm import ssm_dims
+
+    ssm_whole = bool(cfg.ssm_state) and ssm_dims(cfg)[1] % model_n != 0
+
+    def fix(path, spec):
+        keys = [str(getattr(e, "key", getattr(e, "idx", e))) for e in path]
+        if keys[-1] == "conv_bc" or (ssm_whole and (
+                "ssm" in keys or keys[-1] in ("conv_x", "state"))):
+            return PartitionSpec(*(None if e == "model" else e
+                                   for e in spec))
+        return spec
+
+    return jax.tree_util.tree_map_with_path(
+        fix, specs, is_leaf=lambda x: isinstance(x, PartitionSpec))
+
+
+def _family_cache_bytes(cfg, shape_name, mesh_shape, kv_whole):
+    """The port's decode cache for a family with SSM layers or an
+    encoder: attention layers as :func:`_whole_kv_cache_bytes` counts them
+    where ``kv_whole``, else the reference's split; SSM layers and
+    ``encoder_out`` from the reference's shapes under
+    :func:`_port_layout`."""
+    shape = dryrun.shape_for(shape_name)
+    jcfg = jconfigs.reduced(jconfigs.get_config(cfg.name))
+    model = jmodel.build_model(jcfg)
+    mesh = _stand_in(mesh_shape)
+    rules = jsh.rules_for(mesh)
+    cache = jax.eval_shape(lambda: model.init_cache(
+        shape.global_batch, shape.seq_len, jnp.bfloat16))
+    specs = _port_layout(jsh.cache_specs(
+        cache, rules, mesh, seq_shard=shape.global_batch == 1), cfg,
+        mesh_shape[1])
+    total = _shard_bytes(cache, specs, mesh)
+    if kv_whole:
+        attn = sum(k == "attn" for k in cfg.layer_kinds())
+        kv = [(x, s) for x, s in zip(
+            jax.tree.leaves(cache), jax.tree.leaves(
+                specs, is_leaf=lambda x: isinstance(x, PartitionSpec)))
+              if len(x.shape) == 5 and x.shape[3] == cfg.num_kv_heads
+              and x.shape[4] == cfg.head_dim]
+        total -= sum(_shard_bytes(x, s, mesh) for x, s in kv)
+        total += _whole_kv_cache_bytes(cfg, shape_name, mesh_shape) \
+            * attn // cfg.num_layers
+    return total
+
+
+# the reduced families whose layers split over model since the MoE, SSM,
+# vlm and encoder-decoder layers were realised there
+FAMILIES = [a for a in list_archs() if get_config(a).family != "dense"]
 CASES = [(a, s, m, True) for a in DENSE for s in SHAPES for m in MESHES] + \
-    [("llama3.2-3b", s, (16, 16), False) for s in SHAPES]
+    [("llama3.2-3b", s, (16, 16), False) for s in SHAPES] + \
+    [(a, s, m, True) for a in FAMILIES for s in SHAPES for m in MESHES]
 
 
 @pytest.mark.parametrize("arch,shape_name,mesh_shape,is_reduced", CASES)
 def test_state_bytes_equal_reference(arch, shape_name, mesh_shape,
                                      is_reduced):
+    """The dense archs' bytes are the reference's; the other families'
+    under :func:`_port_layout`: the reference's layout apart from an SSM
+    whose heads ``model`` does not divide, which the port keeps whole, and
+    the SSM cache's ``conv_bc``, which it keeps whole; ZeRO-1 splits no
+    block leaf's super-block dimension, which the port's per-layer leaves
+    do not have."""
     fn = reduced if is_reduced else (lambda c: c)
     jfn = jconfigs.reduced if is_reduced else (lambda c: c)
     cfg = fn(get_config(arch))
     got = _port_bytes(cfg, shape_name, mesh_shape)
-    want = _reference_bytes(arch, jfn, shape_name, mesh_shape)
-    if cfg.num_kv_heads % mesh_shape[1] and shape_name != "train_4k":
+    layout = None if arch in DENSE else \
+        (lambda specs: _port_layout(specs, cfg, mesh_shape[1]))
+    want = _reference_bytes(arch, jfn, shape_name, mesh_shape, layout)
+    kv_whole = bool(cfg.num_kv_heads) and cfg.num_kv_heads % mesh_shape[1]
+    if shape_name != "train_4k" and (
+            cfg.ssm_state or cfg.is_encoder_decoder):
+        want["cache"] = _family_cache_bytes(cfg, shape_name, mesh_shape,
+                                            kv_whole)
+    elif kv_whole and shape_name != "train_4k":
         want["cache"] = _whole_kv_cache_bytes(cfg, shape_name, mesh_shape)
     assert got == want
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_no_family_cell_is_skipped_on_a_model_axis(arch):
+    """Every cell of the dry run over a reduced family on a (2, 2) mesh
+    runs (``ok``); the one skip left is ``long_500k`` on an architecture
+    with full attention only, which the cell list skips on any mesh. The
+    hybrid keeps its 4 layers (SSM and attention), the others 2."""
+    from repro_torch.configs import SHAPES as ALL_SHAPES
+
+    base = get_config(arch)
+    cfg = reduced(base, layers=4 if base.family == "hybrid" else 2)
+    for shape_name in ALL_SHAPES:
+        rec = dryrun.cell_record(arch, shape_name, "single", cfg=cfg,
+                                 mesh_shape=(2, 2), verbose=False)
+        if rec["status"] == "skipped":
+            assert shape_name == "long_500k" and \
+                not cfg.supports_long_context, rec["reason"]
+        else:
+            assert rec["status"] == "ok", rec.get("error")
 
 
 # ---------------------------------------------------------------------------
@@ -345,10 +465,15 @@ def test_meta_calls_cover_every_kernel():
 
 
 def test_moe_on_model_axis_is_skipped():
+    """The MoE cell on a ``model`` axis wider than 1 runs now (the name is
+    kept from when it was skipped): ``ok``, its experts split over
+    ``model`` with the router's logits gathered there."""
     rec = dryrun.cell_record("qwen3-moe-235b-a22b", "train_4k", "single",
-                             cfg=reduced(get_config("qwen3-moe-235b-a22b")),
+                             cfg=reduced(get_config("qwen3-moe-235b-a22b"),
+                                         layers=1),
                              mesh_shape=(2, 2), verbose=False)
-    assert rec["status"] == "skipped" and "A15" in rec["reason"]
+    assert rec["status"] == "ok"
+    assert rec["wire_bytes_by_source"]["gspmd.tp"] > 0
 
 
 def test_value_read_fails_naming_the_op(monkeypatch):
@@ -369,7 +494,8 @@ def records(tmp_path_factory):
     d = tmp_path_factory.mktemp("dryrun_torch")
     for arch, shape, mesh_shape in (("llama3.2-3b", "train_4k", (2, 2)),
                                     ("qwen3-moe-235b-a22b", "train_4k",
-                                     (2, 2))):
+                                     (2, 2)),
+                                    ("llama3.2-3b", "long_500k", (2, 2))):
         rec = dryrun.cell_record(arch, shape, "single",
                                  cfg=reduced(get_config(arch), layers=1),
                                  mesh_shape=mesh_shape, verbose=False)
@@ -403,14 +529,18 @@ def test_record_keys(records):
 def test_readers(records, capsys):
     from repro_torch.benchmarks import lm_step_bench, report, resource_table
 
+    """The readers take the ``ok`` cells (the MoE's on a ``model`` axis
+    among them since its layer splits there) and count the skipped one,
+    ``long_500k`` on a model with full attention only."""
     lines = report.main(records)
     assert any(line.startswith("| llama3.2-3b | train_4k") for line in lines)
-    assert "1 cells ok; 1 skipped" in "\n".join(lines)
+    assert "2 cells ok; 1 skipped" in "\n".join(lines)
     assert [r["arch"] for r in resource_table.lm_rows(records)] == \
-        ["llama3.2-3b"]
+        ["llama3.2-3b", "qwen3-moe-235b-a22b"]
     prod = lm_step_bench.production_roofline_section(
         ["llama3.2-3b", "qwen3-moe-235b-a22b"], records)
-    assert [r["arch"] for r in prod] == ["llama3.2-3b"]
+    assert [r["arch"] for r in prod] == ["llama3.2-3b",
+                                         "qwen3-moe-235b-a22b"]
 
 
 def test_analyze_attributes_a_cell():

@@ -444,21 +444,43 @@ def _wide():
 
 
 def test_paged_decode_on_a_wide_mesh_waits_for_a13():
-    """The paged decode builds on a wide mesh now (the name is kept from
-    when it waited for A13); a layer the tp axis does not split still
-    raises, naming A15."""
+    """The paged decode builds on a wide mesh for every attention-only
+    family, the MoE's too (the name is kept from when it waited for A13);
+    its runs are ``tests/test_torch_gspmd_families.py``'s."""
     assert callable(make_paged_decode_step(build_model(_cfg()), _wide()))
-    with pytest.raises(NotImplementedError, match="A15"):
-        make_paged_decode_step(build_model(_moe_cfg()), _wide())
+    assert callable(make_paged_decode_step(build_model(_moe_cfg()),
+                                           _wide()))
 
 
 @pytest.mark.parametrize("arch", ["mamba2-130m", "llama-3.2-vision-90b",
                                   "whisper-base"])
 def test_tp_on_other_families_raises(arch):
+    """The SSM, vlm and encoder-decoder families run over a ``model``
+    axis of 2 now (the name is kept from when they raised): on the meta
+    device over a dry 2x2 mesh, with this rank's part of the weights, the
+    logits come back whole over the vocabulary, and the layers' ``tp``
+    collectives are engine calls under ``gspmd.tp``."""
+    from repro_torch.comm import dry
+    from repro_torch.launch.mesh import dry_mesh
+
     cfg = configs.reduced(configs.get_config(arch), layers=2)
     model = build_model(cfg)
-    shard = sh.make_shard_fn(_wide(), sh.rules_for(_wide()))
-    with pytest.raises(NotImplementedError, match="A15"):
-        model.apply(model.init(0, device="meta"),
-                    {"tokens": torch.zeros((1, 4), dtype=torch.int32)},
-                    shard=shard)
+    wide = dry_mesh((2, 2), ("data", "model"))
+    shard = sh.make_shard_fn(wide, sh.rules_for(wide))
+    whole = model.init(0, device="meta")
+    params = type(whole)(cfg, sh.cut(whole.tree(), sh.param_specs(
+        whole, shard.rules, wide), wide, copy=False))
+    batch = {"tokens": torch.zeros((2, 4), dtype=torch.int32,
+                                   device="meta")}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.empty(
+            (2, cfg.num_patches, cfg.vision_dim), device="meta")
+    if cfg.is_encoder_decoder:
+        batch["frames"] = torch.empty((2, cfg.audio_ctx, cfg.d_model),
+                                      device="meta")
+    dry.reset()
+    with torch.no_grad():
+        logits = model.apply(params, batch, shard=shard)[0]
+    assert logits.shape == (2, 4, cfg.padded_vocab())
+    assert {o.source for o in dry.ops()} == {"gspmd.tp", "gspmd.logits"}
+    dry.reset()

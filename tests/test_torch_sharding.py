@@ -13,7 +13,9 @@ the production shapes ``(16, 16)`` ``('data', 'model')`` and ``(2, 16,
   ``jax.eval_shape(model.init)``, the port's from ``model.init(device=
   "meta")``. A reference block leaf carries a leading super-block scan
   dimension that the port's per-layer list does not have: its spec's
-  first entry must be None, and the rest is the port's;
+  first entry must be None, and the rest is the port's. The one stated
+  difference: where ``model`` does not divide the SSM heads the port
+  keeps every SSM weight whole (:func:`_ssm_kept_whole`);
 * ``zero1_spec`` with and without ``skip_first``;
 * ``batch_specs``;
 * ``cache_specs`` in both ``kv_fallback`` modes, with KV heads that do
@@ -151,6 +153,36 @@ def _ref_in_port_layout(cfg, tree):
     return out
 
 
+def _ssm_kept_whole(cfg, m, want, params, spec_of):
+    """The port's one stated difference in ``want`` (the reference's tree
+    in the port's layout): where ``model`` does not divide the SSM heads
+    (mamba2-130m's 24 on 16) every SSM weight stays whole, since the
+    port's SSM layer splits whole heads only (the reference cuts ``d_in``
+    inside a head); ``spec_of(shape)`` gives such a leaf's spec, FSDP's or
+    ZeRO-1's dp split of the whole per-layer leaf by the reference's
+    ``zero1_spec``."""
+    from repro_torch.models.ssm import ssm_dims
+
+    if not cfg.ssm_state or ssm_dims(cfg)[1] % m.shape["model"] == 0:
+        return want
+    for blk, pblk in zip(want["blocks"], params.tree()["blocks"]):
+        if "ssm" in blk:
+            blk["ssm"] = {k: spec_of(tuple(v.shape))
+                          for k, v in pblk["ssm"].items()}
+    return want
+
+
+def _whole_then(rules, m):
+    """``spec_of`` for :func:`_ssm_kept_whole`: a whole leaf, then the
+    reference's dp split of it under ``rules`` (none without a dp split
+    to make)."""
+    def spec_of(shape):
+        whole = jax.sharding.PartitionSpec(*(None,) * len(shape))
+        return _spec(jsh.zero1_spec(whole, shape, rules, m)) \
+            if rules is not None else _spec(whole)
+    return spec_of
+
+
 def _port_specs(tree):
     return [_spec(s) for s in tree_flatten(tree)[0]]
 
@@ -181,8 +213,10 @@ def test_param_specs(arch, mesh, fsdp):
     params, jparams = _shapes(arch)
     m = _mesh(mesh)
     got = _port_specs(sh.param_specs(params, sh.rules_for(m, fsdp=fsdp), m))
-    want = _flat_tuples(_ref_in_port_layout(cfg, jsh.param_specs(
-        jparams, jsh.rules_for(m, fsdp=fsdp), m)))
+    want = _flat_tuples(_ssm_kept_whole(cfg, m, _ref_in_port_layout(
+        cfg, jsh.param_specs(jparams, jsh.rules_for(m, fsdp=fsdp), m)),
+        params, _whole_then(jsh.rules_for(m, fsdp=True) if fsdp else None,
+                            m)))
     assert len(got) == len(want) == len(tree_flatten(params.tree())[0])
     assert got == want
 
@@ -196,8 +230,10 @@ def test_opt_state_specs(arch, mesh, zero1):
     m = _mesh(mesh)
     got = _port_specs(sh.opt_state_specs(params, sh.rules_for(m), m,
                                          zero1=zero1))
-    want = _flat_tuples(_ref_in_port_layout(cfg, jsh.opt_state_specs(
-        jparams, jsh.rules_for(m), m, zero1=zero1)))
+    want = _flat_tuples(_ssm_kept_whole(cfg, m, _ref_in_port_layout(
+        cfg, jsh.opt_state_specs(jparams, jsh.rules_for(m), m,
+                                 zero1=zero1)),
+        params, _whole_then(jsh.rules_for(m) if zero1 else None, m)))
     assert got == want
 
 

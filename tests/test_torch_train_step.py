@@ -346,14 +346,27 @@ def test_serving_builds_no_graph_from_trainable_weights():
 
 
 def test_one_rank_step_refuses_a_wide_mesh():
-    """The step takes a wide mesh now (tests/test_torch_gspmd.py); what it
-    still refuses there is FSDP weights on the encoder-decoder."""
-    from repro_torch.launch.mesh import MeshAxis, ProcessMesh
-    model = build_model(configs.reduced(configs.get_config("whisper-base"),
-                                        layers=2))
-    wide = ProcessMesh(axes=(MeshAxis("x", 2, 0, (0, 1)),))
-    with pytest.raises(NotImplementedError, match="A15"):
-        make_train_step(model, configs.RunConfig(), wide, fsdp=True)
+    """The step takes a wide mesh, FSDP weights on the encoder-decoder too
+    (the name is kept from when they were refused): on a dry ring of 2 the
+    whisper step builds, with its GSPMD engine, and one step of its FSDP
+    state runs on the meta device, gathering the encoder's and decoder's
+    blocks under ``gspmd.fsdp``. Its runs on a real mesh are
+    ``tests/test_torch_gspmd_families.py``'s."""
+    from repro_torch.comm import dry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import dry_mesh
+
+    cfg = configs.reduced(configs.get_config("whisper-base"), layers=2)
+    wide = dry_mesh((2,), ("x",))
+    step = make_train_step(build_model(cfg), configs.RunConfig(), wide,
+                           fsdp=True)
+    assert callable(step) and step.engine is not None
+    cell = dryrun.build_train_cell(cfg, ShapeConfig("t", 8, 2, "train"),
+                                   wide, configs.RunConfig(), fsdp=True)
+    prof = dryrun.profile(cell.run)
+    assert "gspmd.fsdp" in {o.source for o in prof.comm}
+    dry.reset()
 
 
 def test_step_updates_the_state_in_place():
